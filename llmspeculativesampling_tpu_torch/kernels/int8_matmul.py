@@ -1,0 +1,109 @@
+"""W8A16 matmul: ``x [..., K] @ (w_q [K, N] int8) * scale [N]``.
+
+Counterpart of ``llmspeculativesampling_tpu/kernels/int8_matmul.py``. The
+TPU kernel it replaces is ``_int8_matmul_2d`` (``pl.pallas_call`` with body
+``_kernel``); on Hopper it is ``csrc/int8_matmul.cu``, whose header says what
+bounds it (the weight bytes) and how the design reads each weight byte once.
+
+:func:`int8_matmul` launches the CUDA kernel for a CUDA tensor, or raises;
+:func:`int8_matmul_ref`, the plain PyTorch version, serves CPU tensors and
+is the oracle the kernel is held against. ``int8_matmul.launches`` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+BN, BK, MAX_MT = 128, 64, 32
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def int8_matmul_ref(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain version: bf16(x) @ widen(w_q) with exact products and fp32
+    sums, times the per-column scale, cast to x's dtype."""
+    y = x.to(torch.bfloat16).float() @ w_q.float()
+    return (y * scale.float()[None, :]).to(x.dtype)
+
+
+def plan(m: int, k: int, n: int):
+    """(row tile MT, ksplit, chunks per split) for an [m, k] x [k, n] call:
+    enough blocks for about two per SM (four at small MT, where a block is
+    light) without splitting K finer than one 64-row chunk."""
+    mt = 1
+    while mt < min(m, MAX_MT):
+        mt *= 2
+    tiles = _cdiv(n, BN) * _cdiv(m, mt)
+    chunks = _cdiv(k, BK)
+    target = 264 if mt >= 16 else 528
+    ksplit = min(chunks, max(1, _cdiv(target, tiles)))
+    cps = _cdiv(chunks, ksplit)
+    return mt, _cdiv(chunks, cps), cps
+
+
+def _launch(x2: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, out_dtype) -> torch.Tensor:
+    m, k = x2.shape
+    n = w_q.shape[1]
+    if w_q.dtype != torch.int8:
+        raise NotImplementedError(f"the CUDA W8A16 kernel takes int8 weights, got {w_q.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x must be bfloat16 or float32, got {out_dtype}")
+    if k % 8 or n % 16:
+        raise ValueError(f"kernel needs K % 8 == 0 and N % 16 == 0, got K={k} N={n}")
+    dev = x2.device
+    if w_q.device != dev or scale.device != dev:
+        raise ValueError("x, w_q and scale must lie on one device")
+    xb = x2.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
+    w = w_q.contiguous()
+    s = scale.to(torch.float32).contiguous()
+    if w.data_ptr() % 16:
+        raise ValueError("w_q must be 16-byte aligned")
+    mt, ksplit, cps = plan(m, k, n)
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    ws = torch.empty((ksplit, m, n), dtype=torch.float32, device=dev) if ksplit > 1 else None
+    lib = _lib()
+    err = lib.w8a16_matmul(
+        xb.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
+        ws.data_ptr() if ws is not None else None,
+        m, k, n, mt, ksplit, cps, int(out_dtype == torch.float32),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "w8a16_matmul")
+    int8_matmul.launches += 1
+    return out
+
+
+def _lib():
+    lib = _build.load("int8_matmul")
+    fn = lib.w8a16_matmul
+    if not fn.argtypes:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ dequant(w_q [K, N], scale [N]) -> [..., N]`` in x's
+    dtype. CPU tensors take the plain version; CUDA tensors the kernel."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cpu":
+        out = int8_matmul_ref(x2, w_q, scale)
+    elif x.device.type == "cuda":
+        out = _launch(x2, w_q, scale, x.dtype)
+    else:
+        raise ValueError(f"unsupported device {x.device}")
+    return out.reshape(*lead, w_q.shape[1])
+
+
+int8_matmul.launches = 0

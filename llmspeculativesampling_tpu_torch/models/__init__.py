@@ -1,0 +1,1 @@
+"""See the package docstring of ``llmspeculativesampling_tpu_torch``."""

@@ -1,0 +1,237 @@
+"""Llama decoder (counterpart of ``llmspeculativesampling_tpu/models/llama.py``).
+
+A function of a param dict, like the JAX module: per-layer weights are
+stacked on a leading ``L`` axis (``params["layers"][name]`` is ``[L, ...]``,
+quant leaves ``{"q": [L, K, N], "s": [L, N]}``). :func:`unstack_layers`
+turns that into a list of per-layer views once, so a forward does not
+re-index every weight; :func:`forward` takes either form.
+
+Attention dispatch follows the JAX forward: a new block of at most 32
+tokens (decode, verify, tree steps) writes the cache first and then runs
+the flash-decode kernel over the live prefix plus the new block; a longer
+block (the prefill) takes the einsum path over ``[0, S_max)`` with a mask.
+The TPU-only floors of the JAX gate (``s_max >= 2*block_t``, ``head_dim >=
+64``, a TPU backend) do not carry over. Matmuls accumulate in fp32, softmax
+and RMSNorm run in fp32, activations stay in the config dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ..cache.kvcache import (
+    layer_slices,
+    update_and_read_layer,
+    write_layer,
+    write_layer_quant,
+)
+from ..core.config import LlamaConfig, resolve_device
+from ..kernels import flash_decode
+from .linear import linear, lm_head_logits
+
+_MASK_VALUE = -1e30
+
+
+def block_bias(s_new: int, tree_mask: Optional[torch.Tensor], batch: int, device) -> torch.Tensor:
+    """Additive [B, S_new, S_new] bias over the new block: causal, or the
+    tree mask."""
+    if tree_mask is None:
+        vis = torch.ones((s_new, s_new), dtype=torch.bool, device=device).tril()
+        vis = vis[None].expand(batch, s_new, s_new)
+    else:
+        vis = tree_mask.to(device=device, dtype=torch.bool)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(vis, zero, torch.full_like(zero, _MASK_VALUE)).contiguous()
+
+
+def flash_layer_attention(q, k, v, cache_slices, length, lengths, bias_blk, scale, dtype):
+    """One layer's attention through the flash-decode kernel. ``q``/``k``/``v``:
+    [B, S, H, D] fresh projections. Writes the new block into the layer's
+    cache buffers at the host ``length`` (in place), then attends over the
+    live prefix (``lengths``, int32 [B] on the device) plus the new block,
+    read from ``k``/``v`` and not back from the cache. Returns ctx
+    [B, S, hidden]."""
+    b, s = q.shape[0], q.shape[1]
+    kn, vn, qh = k.transpose(1, 2), v.transpose(1, 2), q.transpose(1, 2)
+    if len(cache_slices) == 4:
+        k_q_l, k_s_l, v_q_l, v_s_l = write_layer_quant(*cache_slices, length, kn, vn)
+        ctx = flash_decode.flash_decode_attention(
+            qh, kn.to(dtype), vn.to(dtype), k_q_l, v_q_l, lengths, bias_blk,
+            scale=scale, k_scales=k_s_l, v_scales=v_s_l)
+    else:
+        k_l, v_l = write_layer(cache_slices[0], cache_slices[1], length, kn, vn)
+        ctx = flash_decode.flash_decode_attention(
+            qh, kn.to(dtype), vn.to(dtype), k_l, v_l, lengths, bias_blk, scale=scale)
+    return ctx.transpose(1, 2).reshape(b, s, -1)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(x.dtype)
+
+
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                scaling: Optional[tuple] = None, max_position: int = 0):
+    """cos/sin tables [B, S, D] for positions [B, S]; ``scaling`` is None or
+    ("linear"|"dynamic", factor), as in the JAX module."""
+    pos = positions.float()
+    base = torch.tensor(theta, dtype=torch.float32, device=positions.device)
+    if scaling is not None:
+        kind, factor = scaling
+        if kind == "linear":
+            pos = pos / float(factor)
+        elif kind == "dynamic":
+            seq_len = positions.max().float() + 1.0
+            dyn = base * ((factor * seq_len / max_position) - (factor - 1.0)) ** (
+                head_dim / (head_dim - 2))
+            base = torch.where(seq_len > max_position, dyn, base)
+        else:
+            raise ValueError(f"unknown rope scaling kind {kind!r}")
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
+    inv_freq = 1.0 / (base ** exps)
+    angles = pos[..., None] * inv_freq
+    angles = torch.cat([angles, angles], dim=-1)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, H, D]; cos/sin: [B, S, D] (rotate_half convention)."""
+    half = x.shape[-1] // 2
+    xf = x.float()
+    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * cos[:, :, None, :] + rotated * sin[:, :, None, :]).to(x.dtype)
+
+
+def attention_mask(length: int, s_new: int, s_max: int, tree_mask: Optional[torch.Tensor],
+                   batch: int, device) -> torch.Tensor:
+    """Boolean visibility [B, S_new, S_max]: prefix < length fully visible,
+    the new block causal or per ``tree_mask``, later positions dead."""
+    kv_pos = torch.arange(s_max, device=device)[None, None, :]
+    q_idx = torch.arange(s_new, device=device)[None, :, None]
+    prefix_vis = kv_pos < length
+    in_block = (kv_pos >= length) & (kv_pos < length + s_new)
+    if tree_mask is None:
+        vis = prefix_vis | (in_block & ((kv_pos - length) <= q_idx))
+        return vis.expand(batch, s_new, s_max)
+    col = (kv_pos - length).clamp(0, s_new - 1).expand(batch, s_new, s_max)
+    tree_full = torch.gather(tree_mask.to(device=device, dtype=torch.bool), 2, col)
+    return prefix_vis.expand(batch, s_new, s_max) | (in_block.expand(batch, s_new, s_max) & tree_full)
+
+
+def unstack_layers(params: dict) -> dict:
+    """Shallow copy of ``params`` whose ``layers`` is a list of per-layer
+    dicts of views (no data is copied)."""
+    layers = params["layers"]
+    if isinstance(layers, list):
+        return params
+
+    def take(v, i):
+        return {kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict) else v[i]
+
+    n = next(iter(layers.values()))
+    n = (n["q"] if isinstance(n, dict) else n).shape[0]
+    return {**params, "layers": [{k: take(v, i) for k, v in layers.items()} for i in range(n)]}
+
+
+def forward(
+    params: dict,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,
+    cache,
+    positions: Optional[torch.Tensor] = None,
+    tree_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, object]:
+    """Run the decoder over ``tokens`` [B, S] given ``cache``.
+
+    Writes the S new positions' k/v at ``cache.length`` (in place) and
+    returns (logits [B, S, V] float32, cache with length += S)."""
+    b, s = tokens.shape
+    dev = tokens.device
+    s_max = cache.max_len
+    length = int(cache.length)
+    dtype = cfg.torch_dtype
+    layers = unstack_layers(params)["layers"]
+
+    if positions is None:
+        positions = (length + torch.arange(s, device=dev))[None].expand(b, s)
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, cfg.max_position)
+
+    use_flash = flash_decode.should_use(s, cfg.flash)
+    if use_flash:
+        bias_blk = block_bias(s, tree_mask, b, dev)
+        lengths = torch.full((b,), length, dtype=torch.int32, device=dev)
+    else:
+        mask = attention_mask(length, s, s_max, tree_mask, b, dev)
+        bias = torch.where(mask, 0.0, _MASK_VALUE).float()[:, None]  # [B,1,S,S_max]
+
+    h = params["embed"][tokens].to(dtype)
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+
+    for li, lp in enumerate(layers):
+        slices = layer_slices(cache, li)
+        r = rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
+        q = linear(r, lp["wq"], lp.get("bq")).reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k = linear(r, lp["wk"], lp.get("bk")).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = linear(r, lp["wv"], lp.get("bv")).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+        if use_flash:
+            ctx = flash_layer_attention(
+                q, k, v, slices, length, lengths, bias_blk, scale, dtype).to(dtype)
+        else:
+            _, k_all, v_all = update_and_read_layer(
+                slices, length, k.transpose(1, 2), v.transpose(1, 2), dtype)
+            qh = q.transpose(1, 2).reshape(b, cfg.num_kv_heads, n_rep, s, cfg.head_dim)
+            scores = torch.einsum("bhgsd,bhtd->bhgst", qh.float(), k_all.float())
+            scores = scores * scale + bias[:, :, None]
+            probs = torch.softmax(scores, dim=-1).to(dtype)
+            ctx = torch.einsum("bhgst,bhtd->bhgsd", probs.float(), v_all.float())
+            ctx = ctx.to(dtype).reshape(b, cfg.num_heads, s, cfg.head_dim)
+            ctx = ctx.transpose(1, 2).reshape(b, s, cfg.hidden_size)
+        h = h + linear(ctx, lp["wo"])
+
+        r = rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps)
+        gate = torch.nn.functional.silu(linear(r, lp["w_gate"]).float()).to(dtype)
+        up = linear(r, lp["w_up"])
+        h = h + linear(gate * up, lp["w_down"])
+
+    h = rms_norm(h, params["ln_final"], cfg.rms_norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = lm_head_logits(h, head)
+    return logits, dataclasses.replace(cache, length=length + s)
+
+
+def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None, device=None) -> dict:
+    """Random init (tests and benchmarks without checkpoints)."""
+    dev = resolve_device(device)
+    dt = cfg.torch_dtype
+    h, i, v, n = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
+    kvh = cfg.num_kv_heads * cfg.head_dim
+
+    def rnd(shape):
+        return (torch.randn(shape, generator=generator, device=dev) * 0.02).to(dt)
+
+    layers = {
+        "wq": rnd((n, h, h)), "wk": rnd((n, h, kvh)), "wv": rnd((n, h, kvh)),
+        "wo": rnd((n, h, h)), "w_gate": rnd((n, h, i)), "w_up": rnd((n, h, i)),
+        "w_down": rnd((n, i, h)),
+        "ln_attn": torch.ones((n, h), dtype=dt, device=dev),
+        "ln_mlp": torch.ones((n, h), dtype=dt, device=dev),
+    }
+    if cfg.qkv_bias:
+        layers["bq"] = torch.zeros((n, h), dtype=dt, device=dev)
+        layers["bk"] = torch.zeros((n, kvh), dtype=dt, device=dev)
+        layers["bv"] = torch.zeros((n, kvh), dtype=dt, device=dev)
+    params = {"embed": rnd((v, h)), "layers": layers,
+              "ln_final": torch.ones((h,), dtype=dt, device=dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = rnd((v, h))
+    return params

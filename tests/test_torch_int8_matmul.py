@@ -1,0 +1,89 @@
+"""The port's W8A16 matmul (``kernels/int8_matmul.py``) against the JAX
+package's: its plain version vs ``int8_matmul_ref`` and vs the Pallas
+kernel ``_int8_matmul_2d`` in interpret mode, on the same numpy inputs.
+
+Tolerances: with fp32 x both sides sum exact bf16(x) x int8 products in
+fp32 in different orders, so 1e-5 of the largest output; with bf16 x the
+result is rounded to bf16 as well, so two bf16 ulps (2**-7) relative plus
+1e-3 of the largest output for sums that cancel."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from llmspeculativesampling_tpu.kernels.int8_matmul import _int8_matmul_2d, int8_matmul_ref
+from llmspeculativesampling_tpu_torch.kernels import int8_matmul as port
+
+from _torch_port import to_np
+
+
+def _inputs(m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    s = (rng.uniform(0.8, 1.2, n) / (73.0 * np.sqrt(k))).astype(np.float32)
+    return x, w, s
+
+
+def _check(got, ref, dtype):
+    got, ref = to_np(got), to_np(ref)
+    top = np.max(np.abs(ref))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * top)
+    else:
+        np.testing.assert_allclose(got, ref, rtol=2.0 ** -7, atol=1e-3 * top)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(1, 256, 128), (2, 128, 384), (25, 512, 256), (64, 256, 512), (37, 96, 48)])
+def test_plain_matches_jax_ref(m, k, n, dtype):
+    x, w, s = _inputs(m, k, n)
+    ref = int8_matmul_ref(jnp.asarray(x, dtype), jnp.asarray(w), jnp.asarray(s))
+    tdt = getattr(torch, dtype)
+    got = port.int8_matmul_ref(torch.from_numpy(x).to(tdt), torch.from_numpy(w), torch.from_numpy(s))
+    assert got.dtype == tdt
+    _check(got, ref, dtype)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 256, 256), (25, 256, 384), (64, 512, 256)])
+def test_plain_matches_pallas_interpret(m, k, n):
+    x, w, s = _inputs(m, k, n, seed=1)
+    ref = _int8_matmul_2d(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), jnp.asarray(s),
+                          block_m=16, block_n=128, block_k=128, interpret=True)
+    got = port.int8_matmul_ref(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(w),
+                               torch.from_numpy(s))
+    _check(got, ref, "bfloat16")
+
+
+def test_wrapper_on_cpu_uses_plain_version_and_keeps_lead_dims():
+    x, w, s = _inputs(6, 128, 64, seed=2)
+    xt = torch.from_numpy(x).reshape(2, 3, 128)
+    before = port.int8_matmul.launches
+    out = port.int8_matmul(xt, torch.from_numpy(w), torch.from_numpy(s))
+    assert out.shape == (2, 3, 64) and out.dtype == torch.float32
+    assert port.int8_matmul.launches == before  # no kernel on the CPU
+    ref = port.int8_matmul_ref(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(s))
+    assert torch.equal(out.reshape(6, 64), ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 5120, 5120), (25, 5120, 13824), (25, 13824, 5120),
+                                   (64, 5120, 32000), (2, 768, 768), (1, 3072, 768), (25, 96, 48)])
+def test_plan_covers_k_and_fills_the_card(m, k, n):
+    mt, ksplit, cps = port.plan(m, k, n)
+    assert mt in (1, 2, 4, 8, 16, 32) and mt >= min(m, 32)
+    chunks = -(-k // port.BK)
+    assert (ksplit - 1) * cps < chunks <= ksplit * cps  # every chunk in exactly one split
+    blocks = -(-n // port.BN) * -(-m // mt) * ksplit
+    assert blocks >= min(264, -(-n // port.BN) * -(-m // mt) * chunks)
+
+
+def test_kernel_wrapper_rejects_what_the_kernel_cannot_take():
+    x = torch.zeros((2, 64), dtype=torch.bfloat16)
+    s = torch.ones(32)
+    with pytest.raises(NotImplementedError):
+        port._launch(x, torch.zeros((64, 32), dtype=torch.float8_e4m3fn), s, torch.bfloat16)
+    with pytest.raises(ValueError):
+        port._launch(x[:, :60], torch.zeros((60, 32), dtype=torch.int8), s, torch.bfloat16)
+    with pytest.raises(TypeError):
+        port._launch(x.half(), torch.zeros((64, 32), dtype=torch.int8), s, torch.float16)
