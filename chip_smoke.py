@@ -6,20 +6,32 @@ on one NVIDIA GPU.
 
 Phases, each printing lines before the last:
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA
-     versions, and the build of every kernel (nvcc processes started
+     versions, and the build of every kernel source (nvcc processes started
      together) with its ptxas register report;
   2. kernels: each hand-written kernel against its plain PyTorch version on
-     the card at the main path's shapes, with the tolerance stated; kernel,
-     plain, library-yardstick and bound times;
+     the card, through its public wrapper, at the shapes of both paths, with
+     the tolerance stated; kernel, plain, library-yardstick and bound times.
+     B1 (W8A16 matmul) at the single-stream and the serving M, B2
+     (contiguous flash-decode), B3 (paged flash-decode) at the serving
+     shapes, several page sizes, multi-page shuffled tables and a sentinel
+     row;
   3. forward: logits of a 2-layer, full-width (5120) int8 Llama slice on the
      card with the kernels vs the same weights on the CPU with the plain
-     versions;
-  4. main path: the 13B-shaped int8 target + 768-wide int8 draft, born on
-     the card from a seed; autoregressive and speculative decoding with
-     bench.py's settings (64-token prompt, 128 new tokens, gamma=24,
-     top_k=20, top_p=0.9, eos=2). Every launch counter is set to 0 just
-     before the timed reps and read just after; each kernel must have run.
-  5. a ``{"kernels": [...]}`` line, the card line again, and as the last
+     versions, through a contiguous cache and through a paged int8 pool
+     (per-row lengths, rollbacks, a sentinel row, a page crossing);
+  4. single-stream path: the 13B-shaped int8 target + 768-wide int8 draft,
+     born on the card from a seed; autoregressive and speculative decoding
+     with bench.py's settings (64-token prompt, 128 new tokens, gamma=24,
+     top_k=20, top_p=0.9, eos=2);
+  5. paged serving path: the same pair through ``PagedEngine`` behind
+     ``BatchedInferenceServer`` with the settings of ``scripts/bench_paged.py
+     --config 13b --kv_int8 --steps_per_sync 8`` (16 rows, 32 int8 blocks of
+     128, gamma=8), two traffic mixes (uniform, with one request over HTTP
+     on a loopback port, and mixed) from concurrent client threads.
+     Each path's launch counters are set to 0 just before it and read just
+     after; each kernel of a path must have run on it, and B2 must not run
+     on the paged path;
+  6. a ``{"kernels": [...]}`` line, the card line again, and as the last
      line ``{"ok": true, "device": {...}}``.
 Any failed check raises: the script exits non-zero and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -50,6 +62,10 @@ DRAFT_M = (64, 2, 1)    # prefill, first draft step, draft decode
 S_MAX = 256             # aligned_total(64 + 128 + 25)
 GAMMA = 24
 REPS = 3                # timed reps of each method on the main path, after one warm-up
+# paged serving (scripts/bench_paged.py --config 13b --kv_int8 --steps_per_sync 8)
+ROWS, BLOCKS, PAGE, SERVE_GAMMA, SYNC = 16, 32, 128, 8, 8
+SERVE_TARGET_M = (ROWS * (SERVE_GAMMA + 1), 8 * 64)  # verify, prefill of 8 prompts of 64
+SERVE_DRAFT_M = (ROWS, 2 * ROWS, 8 * 64)             # draft step, two-token re-feed, prefill
 
 
 def log(*a):
@@ -122,9 +138,14 @@ def phase_device(pkg_build):
 
 
 # ---------------------------------------------------------------- phase 2
-def _rotated(make, nbytes: int):
+def _rotated(make):
+    """Operand sets for timing: as many fresh ones from ``make`` as together
+    exceed the L2 cache (a set is a tensor or a list of tensors)."""
+    first = make()
+    parts = first if isinstance(first, (list, tuple)) else [first]
+    nbytes = sum(x.nbytes for x in parts if x is not None)
     n = max(1, min(256, math.ceil(L2_FLUSH_BYTES / max(nbytes, 1))))
-    return [make() for _ in range(n)]
+    return [first] + [make() for _ in range(n - 1)]
 
 
 def phase_int8_matmul(results):
@@ -134,14 +155,17 @@ def phase_int8_matmul(results):
     rtol, atol_rel = 2.0 ** -7, 1e-3
     log(f"[int8_matmul] tolerance: |kernel-plain| <= {rtol:.2e}*|plain| + {atol_rel:.0e}*max|plain| "
         "(two bf16 ulps; both sum exact bf16 x int8 products in fp32, in other orders)")
-    verify_ms = verify_plain = verify_lib = verify_bound = 0.0
+    fwd = {key: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+           for key in ("single", "serving")}  # one target verify forward of each path
     worst_abs = 0.0
-    cases = [("target", m, k, n, c) for m in TARGET_M for (k, n, c) in TARGET_SHAPES + [(5120, VOCAB, 1)]]
-    cases += [("draft", m, k, n, c) for m in DRAFT_M for (k, n, c) in DRAFT_SHAPES + [(768, VOCAB, 1)]]
+    tm = sorted(set(TARGET_M + SERVE_TARGET_M), reverse=True)
+    dm = sorted(set(DRAFT_M + SERVE_DRAFT_M), reverse=True)
+    cases = [("target", m, k, n, c) for m in tm for (k, n, c) in TARGET_SHAPES + [(5120, VOCAB, 1)]]
+    cases += [("draft", m, k, n, c) for m in dm for (k, n, c) in DRAFT_SHAPES + [(768, VOCAB, 1)]]
     for model, m, k, n, per_layer in cases:
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         ws = _rotated(lambda: torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8,
-                                            device="cuda"), k * n)
+                                            device="cuda"))
         s = (0.8 + 0.4 * torch.rand((n,), generator=gen, device="cuda")) / (73.0 * math.sqrt(k))
         got = int8_matmul(x[None], ws[0], s)[0]  # [B, S, K] activations, as linear() passes them
         ref = int8_matmul_ref(x, ws[0], s)
@@ -158,13 +182,12 @@ def phase_int8_matmul(results):
             f"(rel {rel:.1e}) kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
             f"library_ms {t_l:.4f} (torch.matmul on pre-widened bf16, 2 B/weight) "
             f"bound_us {b_ms * 1e3:.1f} ({b_by})")
-        if model == "target" and m == GAMMA + 1:
+        path = {GAMMA + 1: "single", SERVE_TARGET_M[0]: "serving"}.get(m)
+        if model == "target" and path:
             calls = 40 * per_layer if n != VOCAB else 1
-            verify_ms += calls * t_k
-            verify_plain += calls * t_p
-            verify_lib += calls * t_l
-            verify_bound += calls * b_ms
-            verify_by = b_by
+            for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms)):
+                fwd[path][key] += calls * t
+            fwd[path]["bound_by"] = b_by
         del ws, w16
     # an fp32 config takes the kernel's fp32-output instantiation: the same
     # exact products summed in fp32 in other orders over K=5120
@@ -176,11 +199,13 @@ def phase_int8_matmul(results):
                              1e-4 * float(ref.abs().max()))
     log(f"[int8_matmul] fp32 x M=25 K=5120 N=5120: max_abs_err {max_abs:.3e} "
         "(tol 1e-4*max|plain|: fp32 sums in other orders)")
-    results["int8_matmul"] = dict(
-        ms=verify_ms, plain_ms=verify_plain, library_ms=verify_lib, bound_ms=verify_bound,
-        max_abs_err=worst_abs, bound_by=verify_by)
-    log(f"[int8_matmul] one target verify forward (281 launches at M=25): kernel_ms {verify_ms:.3f} "
-        f"plain_ms {verify_plain:.3f} library_ms {verify_lib:.3f} bound_ms {verify_bound:.3f}")
+    results["int8_matmul"] = dict(**fwd["serving"], max_abs_err=worst_abs,
+                                  single_stream_verify_ms=fwd["single"]["ms"])
+    for path, m in (("single", GAMMA + 1), ("serving", SERVE_TARGET_M[0])):
+        f = fwd[path]
+        log(f"[int8_matmul] one {path} target verify forward (281 launches at M={m}): "
+            f"kernel_ms {f['ms']:.3f} plain_ms {f['plain_ms']:.3f} library_ms {f['library_ms']:.3f} "
+            f"bound_ms {f['bound_ms']:.3f} ({f['bound_by']})")
 
 
 def _flash_inputs(gen, b, hq, hkv, s_new, d, quant, tree, dtype=torch.bfloat16):
@@ -271,7 +296,7 @@ def phase_flash_decode(results):
             t = _flash_inputs(gen, 1, 40, 40, GAMMA + 1, 128, quant, False)
             return [x.contiguous() if x is not None else None for x in t]
 
-        sets = _rotated(make, sum(x.nbytes for x in make() if x is not None))
+        sets = _rotated(make)
         lengths = torch.full((1,), length, dtype=torch.int32, device="cuda")
 
         def kern(i):
@@ -316,6 +341,171 @@ def phase_flash_decode(results):
                 max_abs_err=worst, bound_by=b_by)
     log(f"[flash_decode] one target verify forward (40 launches, len=128): "
         f"kernel_ms {results['flash_decode']['ms']:.3f} bound_ms {results['flash_decode']['bound_ms']:.4f}")
+
+
+def _paged_inputs(gen, lens, hq, hkv, s_new, d, page, p_max, quant, tree=False,
+                  dtype=torch.bfloat16):
+    """Inputs of one paged attention call in the forward's layouts: q/k_new/
+    v_new are [B, H, S_new, D] views of [B, S_new, H, D] projections; pools
+    [N+1, Hkv, page, D] with the trash block last; each row's pages are
+    shuffled blocks from the allocator, unused table slots (and a row of
+    length 0) hold the sentinel N. bf16 q comes pre-scaled (scale 1.0, as
+    in the B2 phase); fp32 q is raw."""
+    from llmspeculativesampling_tpu_torch.cache.kvcache import _quantize_kv
+
+    b = len(lens)
+    n_blk = max(sum(-(-ln // page) for ln in lens), 1)
+    q = torch.randn((b, s_new, hq, d), generator=gen, device="cuda")
+    q = (q / math.sqrt(d) if dtype == torch.bfloat16 else q).to(dtype).transpose(1, 2)
+    kn = torch.randn((b, s_new, hkv, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    vn = torch.randn((b, s_new, hkv, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    kp = torch.randn((n_blk + 1, hkv, page, d), generator=gen, device="cuda")
+    vp = torch.randn((n_blk + 1, hkv, page, d), generator=gen, device="cuda")
+    perm = torch.randperm(n_blk, generator=gen, device="cuda").tolist()
+    tables = torch.full((b, p_max), n_blk, dtype=torch.int32)
+    for i, ln in enumerate(lens):
+        take = -(-ln // page)
+        tables[i, :take] = torch.tensor(perm[:take], dtype=torch.int32)
+        perm = perm[take:]
+    vis = torch.ones((s_new, s_new), dtype=torch.bool, device="cuda").tril()
+    if tree:
+        vis &= torch.rand((s_new, s_new), generator=gen, device="cuda") > 0.3
+        vis |= torch.eye(s_new, dtype=torch.bool, device="cuda")
+    bias = torch.where(vis, 0.0, -1e30).float()[None].expand(b, s_new, s_new).contiguous()
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    if quant:
+        kq, ks = _quantize_kv(kp)
+        vq, vs = _quantize_kv(vp)
+        return q, kn, vn, kq, vq, tables.cuda(), lengths, bias, ks, vs
+    return q, kn, vn, kp.to(dtype), vp.to(dtype), tables.cuda(), lengths, bias, None, None
+
+
+def _uniform_lens(gen, b):
+    """Serving lengths of the uniform mix: prompts of 64 plus up to 57
+    committed tokens (48 new + gamma + 1 fit one page of 128)."""
+    return torch.randint(64, 122, (b,), generator=gen, device="cuda").tolist()
+
+
+def phase_paged_flash_decode(results):
+    import torch.nn.functional as F
+
+    from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
+        gather_pages, paged_flash_decode_attention, paged_flash_decode_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rtol = atol = 2.0 ** -7
+    log(f"[paged_flash_decode] tolerance: |kernel-plain| <= {atol:.2e} + {rtol:.2e}*|plain| "
+        "(bf16 q pre-scaled for both; fp32 softmax in both, bf16 output: ~1 ulp); fp32: 1e-4")
+    mixed = [121, 640, 70, 512, 99, 600, 64, 77, 545, 88, 101, 119, 66, 630, 90, 74]
+    cases = []  # (lens, hq, hkv, s_new, d, page, P, tree)
+    for quant in (True, False):
+        cases += [(_uniform_lens(gen, ROWS), 40, 40, SERVE_GAMMA + 1, 128, PAGE, 1, False, quant),
+                  (mixed, 40, 40, SERVE_GAMMA + 1, 128, PAGE, 6, False, quant)]
+        for s_new in (1, 2):  # draft decode and the two-token re-feed
+            cases += [(_uniform_lens(gen, ROWS), 6, 6, s_new, 128, PAGE, 1, False, quant),
+                      (mixed, 6, 6, s_new, 128, PAGE, 6, False, quant)]
+        # multi-page: lengths to 1024 ending mid-page and on a page edge, a
+        # row of length 0 with an all-sentinel table
+        cases.append(([1024, 0, 640, 129, 127, 128, 1, 1000], 8, 8, 9, 128, PAGE, 8, True, quant))
+        for page in (16, 32):
+            for d in (128, 96, 64, 32):
+                cases.append(([8 * page, 0, 5 * page - 3, page, 2 * page + 1, 37],
+                              16, 4, 9, d, page, 8, d == 64, quant))
+        cases.append(([200, 64, 0], 12, 12, 25, 64, PAGE, 2, True, quant))
+    worst = 0.0
+    for lens, hq, hkv, s_new, d, page, p_max, tree, quant in cases:
+        q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = _paged_inputs(
+            gen, lens, hq, hkv, s_new, d, page, p_max, quant, tree)
+        got = paged_flash_decode_attention(q, kn, vn, kp, vp, tables, lengths, bias, scale=1.0,
+                                           k_scales=ks, v_scales=vs)
+        ref = paged_flash_decode_ref(q, kn, vn, kp, vp, tables, lengths, bias, scale=1.0,
+                                     k_scales=ks, v_scales=vs)
+        torch.cuda.synchronize()
+        max_abs, _ = check_close(
+            f"paged_flash_decode quant={quant} B={len(lens)} Hq={hq} Hkv={hkv} S_new={s_new} D={d} "
+            f"page={page} P={p_max} lens={lens}", got, ref, rtol, atol)
+        worst = max(worst, max_abs)
+    log(f"[paged_flash_decode] {len(cases)} cases within tolerance (pages 16/32/128, D 32-128, "
+        f"up to 8 pages a row, a sentinel row), worst max_abs_err {worst:.3e}")
+    for d in (128, 96, 64, 32):
+        for quant in (False, True):
+            q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = _paged_inputs(
+                gen, [200, 0, 37, 129], 8, 4, 9, d, 32, 8, quant, True, torch.float32)
+            got = paged_flash_decode_attention(q, kn, vn, kp, vp, tables, lengths, bias,
+                                               scale=d ** -0.5, k_scales=ks, v_scales=vs)
+            ref = paged_flash_decode_ref(q, kn, vn, kp, vp, tables, lengths, bias,
+                                         scale=d ** -0.5, k_scales=ks, v_scales=vs)
+            torch.cuda.synchronize()
+            max_abs, _ = check_close(f"paged_flash_decode fp32 quant={quant} D={d}", got, ref,
+                                     1e-4, 1e-4)
+            log(f"[paged_flash_decode] fp32 q, quant={quant}, D={d}, GQA 8/4, tree, page 32: "
+                f"max_abs_err {max_abs:.3e} (tol 1e-4 + 1e-4*|plain|: fp32 throughout)")
+
+    # timing at the target verify of the serving path: 16 rows, Hkv=40,
+    # S_new=9, int8 pool (as served) and bf16; uniform lengths on one page
+    # and mixed lengths on up to six. Inputs rotate past L2.
+    for quant in (True, False):
+        for mix, p_max in (("uniform", 1), ("mixed", 6)):
+            lens = _uniform_lens(gen, ROWS) if mix == "uniform" else mixed
+
+            def make():
+                t = _paged_inputs(gen, lens, 40, 40, SERVE_GAMMA + 1, 128, PAGE, p_max, quant)
+                return [x.contiguous() if x is not None else None for x in t]
+
+            sets = _rotated(make)
+
+            def kern(i):
+                q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = sets[i % len(sets)]
+                return paged_flash_decode_attention(q, kn, vn, kp, vp, tables, lengths, bias,
+                                                    scale=1.0, k_scales=ks, v_scales=vs)
+
+            def plain(i):
+                q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = sets[i % len(sets)]
+                return paged_flash_decode_ref(q, kn, vn, kp, vp, tables, lengths, bias,
+                                              scale=1.0, k_scales=ks, v_scales=vs)
+
+            # the library yardstick attends over a pre-gathered contiguous
+            # (dequantized) view; the gather is not timed
+            lib_sets = []
+            s_new = SERVE_GAMMA + 1
+            for q, kn, vn, kp, vp, tables, lengths, bias, ks, vs in sets:
+                kc, vc = gather_pages(kp, tables), gather_pages(vp, tables)
+                if quant:
+                    kc = kc.float() * gather_pages(ks, tables)[..., None]
+                    vc = vc.float() * gather_pages(vs, tables)[..., None]
+                width = kc.shape[2]
+                pre = torch.arange(width, device="cuda")[None, None, :] < lengths[:, None, None]
+                mask = torch.cat([pre.expand(ROWS, s_new, width), bias == 0], dim=2)[:, None]
+                lib_sets.append((q, torch.cat([kc.to(q.dtype), kn], 2), torch.cat([vc.to(q.dtype), vn], 2),
+                                 mask))
+
+            def lib(i):
+                q, k_all, v_all, mask = lib_sets[i % len(lib_sets)]
+                return F.scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask, scale=1.0)
+
+            t_k = time_ms(kern, 50)
+            t_p = time_ms(plain, 20)
+            t_l = time_ms(lib, 50)
+            live = sum(lens)
+            kv_b = 1 if quant else 2
+            nbytes = (2 * live * 40 * 128 * kv_b + (2 * live * 40 * 4 if quant else 0)
+                      + 4 * ROWS * 40 * s_new * 128 * 2 + ROWS * s_new * s_new * 4
+                      + ROWS * (p_max + 1) * 4)
+            ops = 2 * 2 * 40 * s_new * (live + ROWS * s_new) * 128
+            b_ms, b_by = bound(nbytes, ops)
+            log(f"[paged_flash_decode] {'int8' if quant else 'bf16'} pool, {mix} lengths "
+                f"(B=16, Hkv=40, S_new=9, page 128, P={p_max}, {live} live positions): "
+                f"kernel_ms {t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} "
+                f"(F.scaled_dot_product_attention over a pre-gathered view, gather untimed) "
+                f"bound_us {b_ms * 1e3:.2f} ({b_by}); {len(sets)} input sets rotated")
+            if quant and mix == "uniform":
+                results["paged_flash_decode"] = dict(
+                    ms=40 * t_k, plain_ms=40 * t_p, library_ms=40 * t_l, bound_ms=40 * b_ms,
+                    max_abs_err=worst, bound_by=b_by)
+            del sets, lib_sets
+    r = results["paged_flash_decode"]
+    log(f"[paged_flash_decode] one serving target verify forward (40 launches, int8 pool, uniform): "
+        f"kernel_ms {r['ms']:.3f} bound_ms {r['bound_ms']:.4f}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -363,20 +553,100 @@ def phase_forward():
     del pt, pc
 
 
+def phase_paged_forward():
+    """The same 2-layer slice through a paged int8 pool on the card vs the
+    CPU: a prefill of empty rows (paged_prefill), per-row rollbacks, a
+    verify block and a decode step (the paged kernel), the draft's
+    two-token re-feed, and a 40-token block (the gather path) that crosses
+    a page edge. Row 3 holds the sentinel table; rows 0-2 are compared."""
+    import dataclasses
+
+    from llmspeculativesampling_tpu_torch.cache.paged import init_paged_cache, set_row_table
+    from llmspeculativesampling_tpu_torch.core.synthetic import synthetic_pair_int8
+    from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
+        paged_flash_decode_attention)
+
+    _, _, bt, pt = synthetic_pair_int8(num_layers=2, draft_layers=2, seed=6, device="cuda")
+    pc = _to_cpu(pt)
+    cfg = bt.cfg
+    rng = np.random.default_rng(7)
+    tables = [[5, 11, 2], [9, 0, 14], [3, 7, 12], []]
+    steps = [("prefill 64", 64, None), ("verify 9", 9, [64, 50, 37, 0]), ("decode 1", 1, None),
+             ("re-feed 2", 2, [70, 58, 47, 0]), ("block 40 over a page edge", 40, [120, 100, 60, 0])]
+    toks = {n: torch.as_tensor(rng.integers(100, 31000, (4, w)), dtype=torch.long)
+            for n, w, _ in steps}
+    outs = {}
+    launches = paged_flash_decode_attention.launches
+    for dev, params in (("cuda", pt), ("cpu", pc)):
+        cache = init_paged_cache(cfg.num_layers, 16, cfg.num_kv_heads, PAGE, cfg.head_dim, 4, 3,
+                                 quant=True, device=dev)
+        for row, blocks in enumerate(tables):
+            set_row_table(cache, row, blocks + [16] * (3 - len(blocks)), 0)
+        outs[dev] = []
+        for name, _, rollback in steps:
+            if rollback is not None:
+                cache = dataclasses.replace(
+                    cache, lengths=torch.tensor(rollback, dtype=torch.int32, device=dev))
+            logits, cache = bt.forward(params, cfg, toks[name].to(dev), cache,
+                                       paged_prefill=name.startswith("prefill"))
+            outs[dev].append(logits[:3].float().cpu())
+    if paged_flash_decode_attention.launches - launches != 3 * cfg.num_layers:
+        raise AssertionError("the paged forward did not take the paged kernel on its short blocks")
+    rel_tol = 3e-2
+    for (name, _, _), g, r in zip(steps, outs["cuda"], outs["cpu"]):
+        if not torch.isfinite(g).all() or g.shape != r.shape:
+            raise AssertionError(f"paged forward {name}: bad logits {tuple(g.shape)}")
+        max_abs = float((g - r).abs().max())
+        rel = max_abs / float(r.abs().max())
+        top2 = r.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * max_abs
+        agree = (g.argmax(-1) == r.argmax(-1)) | ~clear
+        log(f"[paged forward] 2-layer 5120-wide int8, int8 pool, {name}: max|gpu-cpu|/max|cpu| "
+            f"{rel:.2e} (tol {rel_tol:.0e}); argmax agrees at {int(agree.sum())}/{agree.numel()} "
+            f"positions ({int(clear.sum())} with a clear top-2 gap, which must agree)")
+        if rel > rel_tol or not bool(agree.all()):
+            raise AssertionError(f"paged forward {name}: gpu and cpu logits disagree")
+    del pt, pc
+
+
 # ---------------------------------------------------------------- phase 4
-def phase_main_path(results, reps: int):
-    from llmspeculativesampling_tpu_torch.core.synthetic import synthetic_pair_int8_small_draft
-    from llmspeculativesampling_tpu_torch.engine.autoregressive import autoregressive_generate
-    from llmspeculativesampling_tpu_torch.engine.speculative import speculative_generate
+def _counters():
     from llmspeculativesampling_tpu_torch.kernels.flash_decode import flash_decode_attention
     from llmspeculativesampling_tpu_torch.kernels.int8_matmul import int8_matmul
+    from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
+        paged_flash_decode_attention)
 
-    card = card_line()
+    return {"int8_matmul": int8_matmul, "flash_decode": flash_decode_attention,
+            "paged_flash_decode": paged_flash_decode_attention}
+
+
+def reset_launches():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def build_pair():
+    from llmspeculativesampling_tpu_torch.core.synthetic import synthetic_pair_int8_small_draft
+
     t0 = time.perf_counter()
-    bd, pd, bt, pt = synthetic_pair_int8_small_draft(device="cuda")
+    pair = synthetic_pair_int8_small_draft(device="cuda")
     torch.cuda.synchronize()
     log(f"[main] 13B-int8 target + 768x2 draft born on the card in {time.perf_counter() - t0:.2f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated ({card})")
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated ({card_line()})")
+    return pair
+
+
+def phase_main_path(results, reps: int, pair):
+    from llmspeculativesampling_tpu_torch.engine.autoregressive import autoregressive_generate
+    from llmspeculativesampling_tpu_torch.engine.speculative import speculative_generate
+
+    card = card_line()
+    bd, pd, bt, pt = pair
     prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
     kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, details=True, device="cuda")
 
@@ -388,8 +658,7 @@ def phase_main_path(results, reps: int):
     speculative_generate(bd, pd, bt, pt, prompt, 128, gamma=GAMMA, generator=gen(0), **kw)
     torch.cuda.synchronize()
 
-    int8_matmul.launches = 0
-    flash_decode_attention.launches = 0
+    reset_launches()
     ar, sp, outs = [], [], []
     for k in range(1, reps + 1):
         out, d = autoregressive_generate(bt, pt, prompt, 128, generator=gen(k), **kw)
@@ -398,8 +667,7 @@ def phase_main_path(results, reps: int):
         out, d = speculative_generate(bd, pd, bt, pt, prompt, 128, gamma=GAMMA, generator=gen(k), **kw)
         sp.append(d)
         outs.append(out)
-    torch.cuda.synchronize()
-    launches = {"int8_matmul": int8_matmul.launches, "flash_decode": flash_decode_attention.launches}
+    launches = read_launches()
 
     # AR stops at 128 new tokens; spec may overshoot by up to gamma (the
     # reference's loop checks the budget before a step adds gamma+1 tokens)
@@ -422,13 +690,160 @@ def phase_main_path(results, reps: int):
     log(f"[main] launches during the timed reps: {launches}")
     if np.mean(acc) < 0.6:
         raise AssertionError(f"acceptance {np.mean(acc):.3f} < 0.6: a kernel is likely wrong")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-        results[name]["launches"] = n
+    for name in ("int8_matmul", "flash_decode"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the single-stream path")
+    results["launches"] = {"single_stream": launches}
     results["main"] = dict(ar_tok_s=float(np.median(ar_rates)), spec_tok_s=float(np.median(sp_rates)),
                            acc_rate=float(np.mean(acc)))
-    del bd, pd, bt, pt
+
+
+# ---------------------------------------------------------------- phase 5
+def _workload(kind: str, rng):
+    """scripts/bench_paged.py's mixes: (prompt_len, max_new) per request.
+    Uniform: 24 x (64, 48). Mixed: 24 short (64, 24-48) with a long
+    (512, 128) after every four, six in all."""
+    if kind == "uniform":
+        return [(64, 48) for _ in range(24)]
+    short = [(64, int(rng.integers(24, 49))) for _ in range(24)]
+    out, si, li = [], 0, 0
+    for i in range(30):
+        if i % 5 == 4 and li < 6:
+            out.append((512, 128))
+            li += 1
+        else:
+            out.append(short[si])
+            si += 1
+    return out
+
+
+def _serve_mix(kind: str, pair) -> dict:
+    import threading
+    import urllib.request
+
+    from llmspeculativesampling_tpu_torch.serve.paged import PagedEngine
+    from llmspeculativesampling_tpu_torch.serve.server import (
+        BatchedInferenceServer, InferenceServer, ServerConfig, make_http_server)
+
+    bd, pd, bt, pt = pair
+    card = card_line()
+    rng = np.random.default_rng(0)
+    reqs = _workload(kind, rng)
+    prompts = [rng.integers(100, 31000, pl).astype(np.int32) for pl, _ in reqs]
+    worst = max(pl + mn for pl, mn in reqs) + SERVE_GAMMA + 1
+    engine = PagedEngine(
+        bd, pd, bt, pt, batch_rows=ROWS, num_blocks=BLOCKS, page=PAGE,
+        max_pages_per_req=-(-worst // PAGE), max_new_cap=max(mn for _, mn in reqs),
+        gamma=SERVE_GAMMA, eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9,
+        prompt_bucket=64, steps_per_sync=SYNC, kv_quant=True, device="cuda")
+    # warm-up (untimed): one admission and a few chunks of this mix's shapes
+    for pl in sorted({pl for pl, _ in reqs}):
+        engine.submit(np.random.default_rng(pl).integers(100, 31000, pl), 16)
+    engine.run_until_idle()
+    engine.completions.clear()
+    torch.cuda.synchronize()
+
+    base = InferenceServer(bd, pd, bt, pt, config=ServerConfig(
+        num_tokens=48, top_k=20, top_p=0.9, gamma=SERVE_GAMMA, eos_token_id=2), device="cuda")
+    server = BatchedInferenceServer(base, engine=engine)
+    # observe the engine from outside: each completion's details (for the
+    # acc_rate check), the size of each admission prefill, and the chunks run
+    details, prefills, chunks = [], [], [0]
+    take, prefill, chunk = engine.result, engine._dispatch_prefill, engine._dispatch_chunk
+
+    def result(rid):
+        comp = take(rid)
+        details.append(comp.details)
+        return comp
+
+    def dispatch_prefill(batch):
+        prefills.append(len(batch))
+        return prefill(batch)
+
+    def dispatch_chunk():
+        chunks[0] += 1
+        return chunk()
+
+    engine.result, engine._dispatch_prefill = result, dispatch_prefill
+    engine._dispatch_chunk = dispatch_chunk
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+    outs = [None] * (len(reqs) + (kind == "uniform"))
+
+    def call(i):
+        _, outs[i] = server.process_request({"prompt_ids": prompts[i].tolist(),
+                                             "max_tokens": reqs[i][1]})
+
+    def call_http(i):
+        body = json.dumps({"prompt_ids": prompts[i].tolist(), "max_tokens": reqs[i][1]}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/predict",
+                                     data=body, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            outs[i] = np.asarray(json.loads(r.read())["output_ids"])
+
+    if kind == "uniform":  # the HTTP request repeats the first prompt
+        reqs, prompts = reqs + [reqs[0]], prompts + [prompts[0]]
+    reset_launches()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=call_http if kind == "uniform" and i == len(reqs) - 1
+                                else call, args=(i,)) for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    httpd.shutdown()
+    httpd.server_close()
+    server.shutdown()
+    http_thread.join(timeout=10)
+    if any(t.is_alive() for t in threads) or http_thread.is_alive():
+        raise AssertionError(f"serving {kind}: a client thread did not finish")
+
+    gen_tokens = 0
+    for (pl, mn), prompt, out in zip(reqs, prompts, outs):
+        if out is None:
+            raise AssertionError(f"serving {kind}: a request got no output")
+        out = np.asarray(out)
+        n_new = len(out) - pl
+        # the length lands in [max_new, max_new + gamma] unless EOS ends it
+        ok_len = mn <= n_new <= mn + SERVE_GAMMA or (1 <= n_new and out[-1] == 2)
+        if not (np.array_equal(out[:pl], prompt) and ok_len and out.min() >= 0
+                and out.max() < VOCAB):
+            raise AssertionError(f"serving {kind}: bad output of length {len(out)} for ({pl}, {mn})")
+        gen_tokens += n_new
+    if engine.allocator.free_blocks != BLOCKS or engine.num_active or engine._pending:
+        raise AssertionError(f"serving {kind}: the pool did not end fully free")
+    acc = float(np.mean([d["acc_rate"] for d in details]))
+    snap = base.stats.snapshot()
+    log(f"[serve {kind}] {len(reqs)} requests, {gen_tokens} generated tokens in {wall:.2f} s: "
+        f"{gen_tokens / wall:.2f} tok/s aggregate ({card})")
+    log(f"[serve {kind}] latency p50 {snap['latency_p50_s']} s p95 {snap['latency_p95_s']} s, "
+        f"TTFT p50 {snap['ttft_p50_s']} s p95 {snap['ttft_p95_s']} s (ServerStats) ({card})")
+    log(f"[serve {kind}] acc_rate {acc:.4f} (mean over requests), mean steps per request "
+        f"{np.mean([d['target_call_times'] for d in details]):.2f}, launches {launches}")
+    log(f"[serve {kind}] {chunks[0]} chunks of up to {SYNC} steps; requests per admission "
+        f"prefill, in order: {prefills}")
+    if acc < 0.6:
+        raise AssertionError(f"serving {kind}: acceptance {acc:.3f} < 0.6: a kernel is likely wrong")
+    if launches["int8_matmul"] <= 0 or launches["paged_flash_decode"] <= 0:
+        raise AssertionError(f"serving {kind}: B1 or B3 was not launched on the paged path")
+    if launches["flash_decode"] != 0:
+        raise AssertionError(f"serving {kind}: B2 ran on the paged path")
+    del engine, server, base
+    torch.cuda.empty_cache()
+    return dict(tok_s=gen_tokens / wall, wall_s=wall, tokens=gen_tokens, requests=len(reqs),
+                acc_rate=acc, launches=launches, **{k: snap[k] for k in (
+                    "latency_p50_s", "latency_p95_s", "ttft_p50_s", "ttft_p95_s")})
+
+
+def phase_serving(results, pair):
+    serving = {kind: _serve_mix(kind, pair) for kind in ("uniform", "mixed")}
+    results["serving"] = serving
+    results["launches"]["paged_serving"] = {
+        name: sum(serving[k]["launches"][name] for k in serving)
+        for name in serving["uniform"]["launches"]}
 
 
 def main() -> int:
@@ -445,22 +860,35 @@ def main() -> int:
     phase_device(_build)
     phase_int8_matmul(results)
     phase_flash_decode(results)
+    phase_paged_flash_decode(results)
     phase_forward()
-    phase_main_path(results, REPS)
+    phase_paged_forward()
+    pair = build_pair()
+    phase_main_path(results, REPS, pair)
+    phase_serving(results, pair)
+    del pair
+    by_path = results["launches"]
     kernels = [
         {"name": "int8_matmul", "route": "cuda",
          "source": "llmspeculativesampling_tpu_torch/csrc/int8_matmul.cu",
          "replaces": "llmspeculativesampling_tpu/kernels/int8_matmul.py:75",
-         "at": "one target verify forward: 281 calls at M=25"},
+         "at": "one target verify forward of the paged serving path: 281 calls at M=144"},
         {"name": "flash_decode", "route": "cuda",
          "source": "llmspeculativesampling_tpu_torch/csrc/flash_decode.cu",
          "replaces": "llmspeculativesampling_tpu/kernels/flash_decode.py:470",
-         "at": "one target verify forward: 40 calls, Hkv=40, S_new=25, len=128, dense KV"},
+         "at": "one single-stream target verify forward: 40 calls, Hkv=40, S_new=25, len=128, "
+               "dense KV"},
+        {"name": "paged_flash_decode", "route": "cuda",
+         "source": "llmspeculativesampling_tpu_torch/csrc/flash_decode.cu",
+         "replaces": "llmspeculativesampling_tpu/kernels/flash_decode.py:567",
+         "at": "one serving target verify forward: 40 calls, B=16, Hkv=40, S_new=9, page 128, "
+               "int8 pool, uniform lengths"},
     ]
     for k in kernels:
         r = results[k["name"]]
-        k.update(launches=r["launches"], max_abs_err=r["max_abs_err"], ms=r["ms"],
-                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        n = {path: counts[k["name"]] for path, counts in by_path.items()}
+        k.update(launches=sum(n.values()), launches_by_path=n, max_abs_err=r["max_abs_err"],
+                 ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                  library_ms=r["library_ms"])
     log(f"[smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,10 @@
-"""Synthetic int8 draft/target pairs (counterpart of the int8 builders of
-``llmspeculativesampling_tpu/core/synthetic.py``).
+"""Synthetic draft/target pairs (counterpart of ``synthetic_pair`` and the
+int8 builders of ``llmspeculativesampling_tpu/core/synthetic.py``).
 
-Weights are born int8 on the device from a seeded ``torch.Generator``: they
-never exist in bf16, so the 13B pair is about 12.9 GB of int8 plus a 0.33 GB
-bf16 embedding. The construction is the JAX module's; the random bits are
-the generator's own (the tests carry JAX weights across with
+Int8 weights are born int8 on the device from a seeded ``torch.Generator``:
+they never exist in bf16, so the 13B pair is about 12.9 GB of int8 plus a
+0.33 GB bf16 embedding. The construction is the JAX module's; the random
+bits are the generator's own (the tests carry JAX weights across with
 ``core/convert.py`` instead).
 """
 
@@ -17,6 +17,42 @@ import torch
 from ..engine.types import ModelBundle
 from ..models import llama
 from .config import LlamaConfig, resolve_device
+
+
+def synthetic_pair(
+    family: str = "llama",
+    *,
+    hidden_size: int = 2048,
+    num_layers: int = 16,
+    draft_layers: int = 2,
+    num_heads: int = 16,
+    vocab_size: int = 32000,
+    max_position: int = 2048,
+    dtype: str = "bfloat16",
+    damp: float = 0.02,
+    seed: int = 1,
+    device=None,
+):
+    """A random target and a draft sharing its first ``draft_layers``
+    layers, deeper target layers damped so the draft approximates the
+    target (the server's ``"synthetic"`` pair). Returns (bundle_d, params_d,
+    bundle_t, params_t). The OPT family waits for ROADMAP A9."""
+    if family != "llama":
+        raise NotImplementedError(f"synthetic {family!r} pairs wait for the OPT port (ROADMAP A9)")
+    dev = resolve_device(device)
+    cfg_t = LlamaConfig(
+        vocab_size=vocab_size, hidden_size=hidden_size, intermediate_size=4 * hidden_size,
+        num_layers=num_layers, num_heads=num_heads, num_kv_heads=num_heads,
+        max_position=max_position, dtype=dtype,
+    )
+    pt = llama.init_params(cfg_t, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    for key in ("wo", "w_down"):
+        pt["layers"][key][draft_layers:] *= damp
+    cfg_d = LlamaConfig(**{**cfg_t.__dict__, "num_layers": draft_layers})
+    pd = {**{k: v for k, v in pt.items() if k != "layers"},
+          "layers": {k: v[:draft_layers] for k, v in pt["layers"].items()}}
+    return (ModelBundle("llama", cfg_d, llama.forward), pd,
+            ModelBundle("llama", cfg_t, llama.forward), pt)
 
 
 def _int8_weight(gen: torch.Generator, k: int, n: int, n_stack: int, device) -> dict:

@@ -1,11 +1,15 @@
-// Length-aware flash-decode attention for Hopper, dense and int8 KV.
+// Length-aware flash-decode attention for Hopper, dense and int8 KV, over a
+// contiguous cache (B2) or a paged block pool (B3).
 //
-// Replaces the TPU kernel llmspeculativesampling_tpu/kernels/flash_decode.py
-// (_flash_call, body _make_kernel(paged=False)). Per batch row b and kv head
-// h, the G*S_new query rows (row r = g*S_new + s, query head h*G + g) attend
-// under one fp32 online softmax to two sources:
-//   * the cache prefix [0, lengths[b]) of [B, Hkv, S_max, D] -- only live
-//     positions are read;
+// Replaces the TPU kernels of llmspeculativesampling_tpu/kernels/flash_decode.py
+// _flash_call and _paged_flash_call (one body, _make_kernel(paged=...)). Per
+// batch row b and kv head h, the G*S_new query rows (row r = g*S_new + s,
+// query head h*G + g) attend under one fp32 online softmax to two sources:
+//   * the prefix [0, lengths[b]) -- only live positions are read. Contiguous:
+//     position p of [B, Hkv, S_max, D]. Paged: position p lives in pool block
+//     tables[b, p / page] of [N, Hkv, page, D] at offset p % page; table ids
+//     are clamped to [0, N-1] and p / page to the table's width, so a
+//     sentinel id never addresses outside the pool;
 //   * the new block's own k/v [B, Hkv, S_new, D] (compute dtype, not read
 //     back from the cache) under an additive bias [B, S_new, S_new] that is
 //     causal or a tree mask.
@@ -23,8 +27,11 @@
 // K/V chunks of 32 positions are staged in shared memory in their stored
 // type; a score is a lane-partial dot product summed across the warp
 // by shuffles, lane t keeps the score of position t, and p is broadcast back
-// by shuffle for the PV product. With B=1 and Hkv=40 this runs 40 blocks on
-// 132 SMs: the flash-decoding split-KV reduction across SMs is later work.
+// by shuffle for the PV product. The two layouts differ only in where a
+// staged position's row is read from: the paged layout looks its block up
+// per position (not per page), so any page size works. With B=1 and Hkv=40
+// this runs 40 blocks on 132 SMs; paged serving at B=16 runs 640. The
+// flash-decoding split-KV reduction across SMs is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,6 +71,41 @@ __device__ __forceinline__ void stage(void* dst, const void* src, int n_bytes) {
   const uint4* s = static_cast<const uint4*>(src);
   uint4* d = static_cast<uint4*>(dst);
   for (int i = threadIdx.x; i < n_bytes / 16; i += THREADS) d[i] = s[i];
+}
+
+// Prefix layouts: row(b, h, p) is the index of position p of (batch row b,
+// kv head h) in the [*, D] K/V storage and in the matching [*] scales; cap()
+// bounds the positions a row can hold.
+struct Contig {
+  int Hkv, S_max;
+  __device__ __forceinline__ size_t row(int b, int h, int p) const {
+    return ((size_t)b * Hkv + h) * S_max + p;
+  }
+  __device__ __forceinline__ int cap() const { return S_max; }
+};
+
+struct Paged {
+  const int* tables;  // [B, P]
+  int P, page, Hkv, max_blk;
+  __device__ __forceinline__ size_t row(int b, int h, int p) const {
+    const int j = min(p / page, P - 1);
+    const int blk = min(max(tables[(size_t)b * P + j], 0), max_blk);
+    return ((size_t)blk * Hkv + h) * page + p % page;
+  }
+  __device__ __forceinline__ int cap() const { return P * page; }
+};
+
+// Stage positions [c0, c0+n) of (b, h) from src into dst, 16 bytes a thread
+// (a position's D values are contiguous and 16-byte aligned in both layouts).
+template <int D, typename E, typename L>
+__device__ __forceinline__ void stage_prefix(void* dst, const E* src, const L& lay, int b, int h,
+                                             int c0, int n) {
+  constexpr int U = D * (int)sizeof(E) / 16;  // 16-byte units per position
+  uint4* d = static_cast<uint4*>(dst);
+  for (int i = threadIdx.x; i < n * U; i += THREADS) {
+    const int t = i / U;
+    d[i] = reinterpret_cast<const uint4*>(src + lay.row(b, h, c0 + t) * D)[i - t * U];
+  }
 }
 
 struct RowState {
@@ -124,13 +166,13 @@ __device__ __forceinline__ void attend_chunk(RowState& st, const E* ks_mem, cons
   }
 }
 
-template <int D, typename TQ, typename TC, bool QUANT>
+template <int D, typename TQ, typename TC, bool QUANT, typename L>
 __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
     const TQ* __restrict__ q, const TQ* __restrict__ k_new, const TQ* __restrict__ v_new,
     const TC* __restrict__ k_cache, const TC* __restrict__ v_cache,
     const float* __restrict__ k_scales, const float* __restrict__ v_scales,
     const int* __restrict__ lengths, const float* __restrict__ bias, TQ* __restrict__ out,
-    int Hkv, int G, int S_new, int S_max, float scale) {
+    int Hkv, int G, int S_new, L lay, float scale) {
   constexpr int DPL = D / 32;
   // large enough for a chunk of T positions of the widest type (fp32)
   __shared__ __align__(16) unsigned char kbuf[T * D * 4];
@@ -141,7 +183,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int R = G * S_new;
   const int Hq = Hkv * G;
-  const int len = lengths[b];
+  const int len = min(max(lengths[b], 0), lay.cap());
 
   // rows of this warp: r = blockIdx.y*ROWS + warp + WARPS*i
   RowState st;
@@ -179,11 +221,12 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
   // ---- the live prefix, chunk by chunk
   for (int c0 = 0; c0 < len; c0 += T) {
     const int n = min(T, len - c0);
-    stage(kbuf, k_cache + (kv_row * S_max + c0) * D, n * D * (int)sizeof(TC));
-    stage(vbuf, v_cache + (kv_row * S_max + c0) * D, n * D * (int)sizeof(TC));
+    stage_prefix<D>(kbuf, k_cache, lay, b, h, c0, n);
+    stage_prefix<D>(vbuf, v_cache, lay, b, h, c0, n);
     if (QUANT && threadIdx.x < n) {
-      ksc[threadIdx.x] = k_scales[kv_row * S_max + c0 + threadIdx.x];
-      vsc[threadIdx.x] = v_scales[kv_row * S_max + c0 + threadIdx.x];
+      const size_t r = lay.row(b, h, c0 + threadIdx.x);
+      ksc[threadIdx.x] = k_scales[r];
+      vsc[threadIdx.x] = v_scales[r];
     }
     __syncthreads();
     attend_chunk<D, TC>(st, reinterpret_cast<const TC*>(kbuf), reinterpret_cast<const TC*>(vbuf),
@@ -205,10 +248,10 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
   }
 }
 
-template <int D, typename TQ>
+template <int D, typename TQ, typename L>
 void launch_d(bool quant, const void* q, const void* kn, const void* vn, const void* kc,
               const void* vc, const float* ks, const float* vs, const int* lengths,
-              const float* bias, void* out, int B, int Hkv, int G, int S_new, int S_max,
+              const float* bias, void* out, int B, int Hkv, int G, int S_new, L lay,
               float scale, cudaStream_t st) {
   dim3 grid(B * Hkv, (G * S_new + ROWS - 1) / ROWS);
   const TQ* qq = static_cast<const TQ*>(q);
@@ -217,22 +260,41 @@ void launch_d(bool quant, const void* q, const void* kn, const void* vn, const v
   if (quant)
     flash_decode_kernel<D, TQ, int8_t, true><<<grid, THREADS, 0, st>>>(
         qq, kk, vv, static_cast<const int8_t*>(kc), static_cast<const int8_t*>(vc), ks, vs,
-        lengths, bias, static_cast<TQ*>(out), Hkv, G, S_new, S_max, scale);
+        lengths, bias, static_cast<TQ*>(out), Hkv, G, S_new, lay, scale);
   else
     flash_decode_kernel<D, TQ, TQ, false><<<grid, THREADS, 0, st>>>(
         qq, kk, vv, static_cast<const TQ*>(kc), static_cast<const TQ*>(vc), nullptr, nullptr,
-        lengths, bias, static_cast<TQ*>(out), Hkv, G, S_new, S_max, scale);
+        lengths, bias, static_cast<TQ*>(out), Hkv, G, S_new, lay, scale);
 }
 
-template <int D>
-void launch_dt(bool q_f32, bool quant, const void* q, const void* kn, const void* vn,
-               const void* kc, const void* vc, const float* ks, const float* vs,
-               const int* lengths, const float* bias, void* out, int B, int Hkv, int G,
-               int S_new, int S_max, float scale, cudaStream_t st) {
-  if (q_f32)
-    launch_d<D, float>(quant, q, kn, vn, kc, vc, ks, vs, lengths, bias, out, B, Hkv, G, S_new, S_max, scale, st);
-  else
-    launch_d<D, __nv_bfloat16>(quant, q, kn, vn, kc, vc, ks, vs, lengths, bias, out, B, Hkv, G, S_new, S_max, scale, st);
+template <typename L>
+int launch(int D, bool q_f32, bool quant, const void* q, const void* kn, const void* vn,
+           const void* kc, const void* vc, const void* k_scales, const void* v_scales,
+           const void* lengths, const void* bias, void* out, int B, int Hkv, int G, int S_new,
+           L lay, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
+  const int* ln = static_cast<const int*>(lengths);
+  const float* bs = static_cast<const float*>(bias);
+#define FD_CASE(DD)                                                                          \
+  case DD:                                                                                   \
+    if (q_f32)                                                                               \
+      launch_d<DD, float>(quant, q, kn, vn, kc, vc, ks, vs, ln, bs, out, B, Hkv, G, S_new,  \
+                          lay, scale, st);                                                   \
+    else                                                                                     \
+      launch_d<DD, __nv_bfloat16>(quant, q, kn, vn, kc, vc, ks, vs, ln, bs, out, B, Hkv, G, \
+                                  S_new, lay, scale, st);                                    \
+    break;
+  switch (D) {
+    FD_CASE(32)
+    FD_CASE(64)
+    FD_CASE(96)
+    FD_CASE(128)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FD_CASE
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -247,17 +309,19 @@ extern "C" int flash_decode(const void* q, const void* k_new, const void* v_new,
                             const void* v_scales, const void* lengths, const void* bias,
                             void* out, int B, int Hkv, int G, int S_new, int S_max, int D,
                             int q_f32, int quant, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* ks = static_cast<const float*>(k_scales);
-  const float* vs = static_cast<const float*>(v_scales);
-  const int* ln = static_cast<const int*>(lengths);
-  const float* bs = static_cast<const float*>(bias);
-  switch (D) {
-    case 32: launch_dt<32>(q_f32, quant, q, k_new, v_new, k_cache, v_cache, ks, vs, ln, bs, out, B, Hkv, G, S_new, S_max, scale, st); break;
-    case 64: launch_dt<64>(q_f32, quant, q, k_new, v_new, k_cache, v_cache, ks, vs, ln, bs, out, B, Hkv, G, S_new, S_max, scale, st); break;
-    case 96: launch_dt<96>(q_f32, quant, q, k_new, v_new, k_cache, v_cache, ks, vs, ln, bs, out, B, Hkv, G, S_new, S_max, scale, st); break;
-    case 128: launch_dt<128>(q_f32, quant, q, k_new, v_new, k_cache, v_cache, ks, vs, ln, bs, out, B, Hkv, G, S_new, S_max, scale, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch(D, q_f32, quant, q, k_new, v_new, k_cache, v_cache, k_scales, v_scales, lengths,
+                bias, out, B, Hkv, G, S_new, Contig{Hkv, S_max}, scale, stream);
+}
+
+// The paged layout: pools [N,Hkv,page,D] (scales [N,Hkv,page]) and block
+// tables [B,P] i32 in place of the caches; everything else as above.
+extern "C" int paged_flash_decode(const void* q, const void* k_new, const void* v_new,
+                                  const void* k_pool, const void* v_pool, const void* k_scales,
+                                  const void* v_scales, const void* lengths, const void* tables,
+                                  const void* bias, void* out, int B, int Hkv, int G, int S_new,
+                                  int P, int page, int N, int D, int q_f32, int quant,
+                                  float scale, void* stream) {
+  const Paged lay{static_cast<const int*>(tables), P, page, Hkv, N - 1};
+  return launch(D, q_f32, quant, q, k_new, v_new, k_pool, v_pool, k_scales, v_scales, lengths,
+                bias, out, B, Hkv, G, S_new, lay, scale, stream);
 }

@@ -33,11 +33,13 @@ from ..models.llama import unstack_layers
 from ..ops.sampling import (
     SamplingConfig,
     dist_concat,
+    dist_map,
     dist_norm,
     dist_pad_zero_rows,
     dist_prob_of,
     dist_residual,
     dist_sample,
+    dist_sample_u,
     dist_take,
 )
 from .phases import fill_phase_split
@@ -104,6 +106,41 @@ def accept_phase(scfg, gamma, eos_token_id, tokens, cur_len, q_stack, drafts, p_
     new_len = cur_len + n + 1
     tokens[0].scatter_(0, (new_len - 1).reshape(1), t.reshape(1).to(tokens.dtype))
     acc_rate_step = torch.clamp(ratio, max=1.0).sum()
+    return tokens, new_len, t, n, all_acc, acc_rate_step
+
+
+def _take_rows(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """x [B, R, ...] -> x[b, n[b]] [B, ...]."""
+    idx = n.reshape(-1, 1, *([1] * (x.dim() - 2))).expand(x.shape[0], 1, *x.shape[2:])
+    return torch.gather(x, 1, idx)[:, 0]
+
+
+def accept_phase_rows(gamma, tokens, cur_len, q_stack, drafts, p_stack, r, u_t):
+    """:func:`accept_phase` for B independent rows at once (the JAX paged
+    engine vmaps ``accept_phase`` over rows). ``q_stack`` [B, gamma, ...],
+    ``drafts`` [B, gamma], ``p_stack`` [B, gamma+1, ...], per-row
+    ``cur_len`` [B]; ``r`` [B, gamma] are the accept uniforms and ``u_t``
+    the uniforms of the resample/bonus draw (one draw's width per row).
+    Writes each row's token ``t`` into ``tokens`` [B, T] at new_len-1 (in
+    place, clamped into the buffer) and returns (tokens, new_len, t, n,
+    all_acc, acc_rate_step), each [B] on the device."""
+    q_sel = dist_prob_of(q_stack, drafts)
+    p_sel = dist_prob_of(dist_map(lambda x: x[:, :gamma], p_stack), drafts)
+    ratio = p_sel / q_sel
+    accept = r <= ratio
+    n = torch.cumprod(accept.long(), dim=1).sum(dim=1)  # leading accepts, 0..gamma
+
+    p_n = dist_map(lambda x: _take_rows(x, n), p_stack)
+    q_n = dist_map(lambda x: _take_rows(x, n), dist_pad_zero_rows(q_stack, 1, axis=1))
+    t_resample = dist_sample_u(dist_residual(p_n, q_n), u_t)
+    t_bonus = dist_sample_u(dist_map(lambda x: x[:, gamma], p_stack), u_t)
+    all_acc = n == gamma
+    t = torch.where(all_acc, t_bonus, t_resample)
+
+    new_len = cur_len + n + 1
+    col = (new_len - 1).clamp(0, tokens.shape[1] - 1)
+    tokens.scatter_(1, col[:, None], t[:, None].to(tokens.dtype))
+    acc_rate_step = torch.clamp(ratio, max=1.0).sum(dim=1)
     return tokens, new_len, t, n, all_acc, acc_rate_step
 
 

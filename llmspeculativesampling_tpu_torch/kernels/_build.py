@@ -56,10 +56,11 @@ def _target(name: str) -> Path:
 def _start(name: str):
     """Start nvcc for one source into a temporary file; returns (proc, tmp, out)."""
     out = _target(name)
+    nvcc = _nvcc()  # before the temporary file: a missing nvcc leaves nothing behind
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 

@@ -10,9 +10,13 @@ Attention dispatch follows the JAX forward: a new block of at most 32
 tokens (decode, verify, tree steps) writes the cache first and then runs
 the flash-decode kernel over the live prefix plus the new block; a longer
 block (the prefill) takes the einsum path over ``[0, S_max)`` with a mask.
-The TPU-only floors of the JAX gate (``s_max >= 2*block_t``, ``head_dim >=
-64``, a TPU backend) do not carry over. Matmuls accumulate in fp32, softmax
-and RMSNorm run in fp32, activations stay in the config dtype.
+A paged cache (``cache/paged.py``, the serving path) has per-row lengths
+on the device: short blocks go to the paged flash-decode kernel, longer ones
+to the gather path, and ``paged_prefill=True`` runs block-only causal
+attention over empty rows. The TPU-only floors of the JAX gates
+(``s_max >= 2*block_t``, ``head_dim >= 64``, ``page % 128 == 0``, a TPU
+backend) do not carry over. Matmuls accumulate in fp32, softmax and RMSNorm
+run in fp32, activations stay in the config dtype.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..cache import paged as paged_cache
 from ..cache.kvcache import (
     layer_slices,
     update_and_read_layer,
@@ -31,6 +36,7 @@ from ..cache.kvcache import (
 )
 from ..core.config import LlamaConfig, resolve_device
 from ..kernels import flash_decode
+from ..kernels.paged_flash_decode import paged_flash_decode_attention
 from .linear import linear, lm_head_logits
 
 _MASK_VALUE = -1e30
@@ -66,6 +72,27 @@ def flash_layer_attention(q, k, v, cache_slices, length, lengths, bias_blk, scal
         k_l, v_l = write_layer(cache_slices[0], cache_slices[1], length, kn, vn)
         ctx = flash_decode.flash_decode_attention(
             qh, kn.to(dtype), vn.to(dtype), k_l, v_l, lengths, bias_blk, scale=scale)
+    return ctx.transpose(1, 2).reshape(b, s, -1)
+
+
+def paged_flash_layer_attention(q, k, v, slices, block_tables, lengths, bias_blk, scale, dtype):
+    """One layer's attention through the paged flash-decode kernel.
+    ``q``/``k``/``v``: [B, S, H, D] fresh projections. Writes the new block
+    into the layer's pools at each row's ``lengths`` (in place), then attends
+    over the live prefix, read page by page through ``block_tables``, plus
+    the new block read from ``k``/``v``. Returns ctx [B, S, hidden]."""
+    b, s = q.shape[0], q.shape[1]
+    kn, vn, qh = k.transpose(1, 2), v.transpose(1, 2), q.transpose(1, 2)
+    paged_cache.paged_write_layer(slices, block_tables, lengths, kn, vn)
+    if len(slices) == 4:
+        k_q, k_s, v_q, v_s = slices
+        ctx = paged_flash_decode_attention(
+            qh, kn.to(dtype), vn.to(dtype), k_q, v_q, block_tables, lengths, bias_blk,
+            scale=scale, k_scales=k_s, v_scales=v_s)
+    else:
+        ctx = paged_flash_decode_attention(
+            qh, kn.to(dtype), vn.to(dtype), slices[0], slices[1], block_tables, lengths,
+            bias_blk, scale=scale)
     return ctx.transpose(1, 2).reshape(b, s, -1)
 
 
@@ -108,12 +135,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return (xf * cos[:, :, None, :] + rotated * sin[:, :, None, :]).to(x.dtype)
 
 
-def attention_mask(length: int, s_new: int, s_max: int, tree_mask: Optional[torch.Tensor],
+def attention_mask(length, s_new: int, s_max: int, tree_mask: Optional[torch.Tensor],
                    batch: int, device) -> torch.Tensor:
     """Boolean visibility [B, S_new, S_max]: prefix < length fully visible,
-    the new block causal or per ``tree_mask``, later positions dead."""
+    the new block causal or per ``tree_mask``, later positions dead.
+    ``length`` is an int (every row) or a per-row [B] tensor."""
     kv_pos = torch.arange(s_max, device=device)[None, None, :]
     q_idx = torch.arange(s_new, device=device)[None, :, None]
+    length = torch.as_tensor(length, device=device).reshape(-1, 1, 1)
     prefix_vis = kv_pos < length
     in_block = (kv_pos >= length) & (kv_pos < length + s_new)
     if tree_mask is None:
@@ -146,28 +175,45 @@ def forward(
     cache,
     positions: Optional[torch.Tensor] = None,
     tree_mask: Optional[torch.Tensor] = None,
+    paged_prefill: bool = False,
 ) -> Tuple[torch.Tensor, object]:
     """Run the decoder over ``tokens`` [B, S] given ``cache``.
 
-    Writes the S new positions' k/v at ``cache.length`` (in place) and
-    returns (logits [B, S, V] float32, cache with length += S)."""
+    Writes the S new positions' k/v at the cache's length (in place) and
+    returns (logits [B, S, V] float32, cache with length += S). A paged
+    cache advances every row's length on the device.
+
+    ``paged_prefill=True`` (paged caches only) declares every row empty
+    (lengths 0): attention runs block-only over the new tokens, as the JAX
+    package's admission prefill does, and reads nothing from the pools."""
     b, s = tokens.shape
     dev = tokens.device
-    s_max = cache.max_len
-    length = int(cache.length)
     dtype = cfg.torch_dtype
     layers = unstack_layers(params)["layers"]
+    paged = paged_cache.is_paged(cache)
+    if paged_prefill and not paged:
+        raise ValueError("paged_prefill needs a paged cache")
 
+    if paged:
+        lengths = cache.lengths
+        s_max = cache.max_pages * cache.page
+        offset = lengths.long()[:, None]
+        use_flash = not paged_prefill and flash_decode.should_use(s, cfg.flash)
+    else:
+        length = int(cache.length)
+        s_max = cache.max_len
+        offset = length
+        use_flash = flash_decode.should_use(s, cfg.flash)
     if positions is None:
-        positions = (length + torch.arange(s, device=dev))[None].expand(b, s)
+        positions = (offset + torch.arange(s, device=dev)[None]).expand(b, s)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, cfg.max_position)
 
-    use_flash = flash_decode.should_use(s, cfg.flash)
-    if use_flash:
+    if use_flash or paged_prefill:
         bias_blk = block_bias(s, tree_mask, b, dev)
-        lengths = torch.full((b,), length, dtype=torch.int32, device=dev)
+        if not paged:
+            lengths = torch.full((b,), length, dtype=torch.int32, device=dev)
     else:
-        mask = attention_mask(length, s, s_max, tree_mask, b, dev)
+        mask = attention_mask(lengths if paged else length, s, s_max, tree_mask, b, dev)
         bias = torch.where(mask, 0.0, _MASK_VALUE).float()[:, None]  # [B,1,S,S_max]
 
     h = params["embed"][tokens].to(dtype)
@@ -175,7 +221,7 @@ def forward(
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
     for li, lp in enumerate(layers):
-        slices = layer_slices(cache, li)
+        slices = paged_cache.layer_slices(cache, li) if paged else layer_slices(cache, li)
         r = rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
         q = linear(r, lp["wq"], lp.get("bq")).reshape(b, s, cfg.num_heads, cfg.head_dim)
         k = linear(r, lp["wk"], lp.get("bk")).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
@@ -183,15 +229,28 @@ def forward(
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
-        if use_flash:
+        if use_flash and paged:
+            ctx = paged_flash_layer_attention(
+                q, k, v, slices, cache.block_tables, lengths, bias_blk, scale, dtype).to(dtype)
+        elif use_flash:
             ctx = flash_layer_attention(
                 q, k, v, slices, length, lengths, bias_blk, scale, dtype).to(dtype)
         else:
-            _, k_all, v_all = update_and_read_layer(
-                slices, length, k.transpose(1, 2), v.transpose(1, 2), dtype)
+            kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+            if paged_prefill:
+                # empty rows: the new block attends to itself only
+                paged_cache.paged_write_layer(slices, cache.block_tables, lengths, kh, vh)
+                k_all, v_all, att_bias = kh, vh, bias_blk[:, None]
+            elif paged:
+                k_all, v_all = paged_cache.paged_update_and_read_layer(
+                    slices, cache.block_tables, lengths, kh, vh, dtype)
+                att_bias = bias
+            else:
+                _, k_all, v_all = update_and_read_layer(slices, length, kh, vh, dtype)
+                att_bias = bias
             qh = q.transpose(1, 2).reshape(b, cfg.num_kv_heads, n_rep, s, cfg.head_dim)
             scores = torch.einsum("bhgsd,bhtd->bhgst", qh.float(), k_all.float())
-            scores = scores * scale + bias[:, :, None]
+            scores = scores * scale + att_bias[:, :, None]
             probs = torch.softmax(scores, dim=-1).to(dtype)
             ctx = torch.einsum("bhgst,bhtd->bhgsd", probs.float(), v_all.float())
             ctx = ctx.to(dtype).reshape(b, cfg.num_heads, s, cfg.head_dim)
@@ -206,6 +265,8 @@ def forward(
     h = rms_norm(h, params["ln_final"], cfg.rms_norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = lm_head_logits(h, head)
+    if paged:
+        return logits, dataclasses.replace(cache, lengths=lengths + s)
     return logits, dataclasses.replace(cache, length=length + s)
 
 

@@ -7,7 +7,10 @@ guard; ``max_fn`` and the acceptance helpers with their 1e-6 guards; and
 the sparse :class:`TopKDist` path the engines take when ``top_k > 0``.
 
 Random draws come from an explicit ``torch.Generator`` on the tensors'
-device. Its bits differ from ``jax.random``'s, so the tests compare
+device, or, for batched serving, from per-row counter-based streams
+(:func:`row_keys`, :func:`row_uniform`): each row's draws depend only on
+its own key, so a request samples the same values whatever rows share its
+batch. Their bits differ from ``jax.random``'s, so the tests compare
 samplers in distribution and everything else exactly. Nothing here reads a
 device value back to the host.
 """
@@ -74,18 +77,68 @@ def norm_logits(logits: torch.Tensor, cfg: SamplingConfig) -> torch.Tensor:
     return torch.softmax(filter_logits(logits, cfg), dim=-1)
 
 
+def _gumbel_of(u: torch.Tensor) -> torch.Tensor:
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+
+
 def _gumbel(generator: Optional[torch.Generator], shape, device) -> torch.Tensor:
-    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
-    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
+    return _gumbel_of(torch.rand(shape, generator=generator, device=device, dtype=torch.float32))
+
+
+# ---- per-row counter-based streams. A row's key is [stream id, draw
+# counter] (int64, 32-bit values); draw i of a call is a hash of (stream,
+# counter, i). Plain int64 tensor ops that never overflow, so the CPU and the
+# card give the same bits.
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for x in [0, 2**32), in 16-bit halves (no int64
+    overflow)."""
+    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """The lowbias32 integer hash (C. Wellons) on 32-bit values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def row_keys(seed: int, rids, device=None) -> torch.Tensor:
+    """Keys [K, 2] of the streams of (``seed``, rid) for each rid, counters
+    at 0: independent of one another and of the rows they land on."""
+    rid = torch.as_tensor(rids, dtype=torch.long, device=device).reshape(-1) & _M32
+    base = _mix32(torch.tensor(int(seed) & _M32, dtype=torch.long, device=device) ^ 0x9E3779B9)
+    return torch.stack([_mix32(base ^ _mix32(rid)), torch.zeros_like(rid)], dim=1)
+
+
+def row_uniform(keys: torch.Tensor, n: int):
+    """``n`` uniforms in (0, 1) per row from keys [B, 2] -> (u [B, n] f32,
+    keys with every counter advanced by one)."""
+    i = torch.arange(n, device=keys.device, dtype=torch.long)[None, :]
+    h = _mix32(keys[:, :1] ^ _mix32((keys[:, 1:] + 0x85EBCA6B) & _M32))
+    h = _mix32(h ^ _mix32((i + 0xC2B2AE35) & _M32))
+    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return u, torch.stack([keys[:, 0], keys[:, 1] + 1], dim=1)
+
+
+def sample_u(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """One id per leading element from uniforms ``u`` (probs' shape):
+    Gumbel-argmax on log-probs, a draw of probability < 1e-9 replaced by the
+    argmax. Returns int64 ids."""
+    tok = torch.argmax(torch.log(probs) + _gumbel_of(u), dim=-1)
+    chosen = torch.gather(probs, -1, tok[..., None])[..., 0]
+    return torch.where(chosen < ZERO_PROB_EPS, torch.argmax(probs, dim=-1), tok)
 
 
 def sample(generator: Optional[torch.Generator], probs: torch.Tensor) -> torch.Tensor:
-    """One id per leading element: Gumbel-argmax on log-probs, a draw of
-    probability < 1e-9 replaced by the argmax. Returns int64 ids."""
-    tok = torch.argmax(torch.log(probs) + _gumbel(generator, probs.shape, probs.device), dim=-1)
-    chosen = torch.gather(probs, -1, tok[..., None])[..., 0]
-    return torch.where(chosen < ZERO_PROB_EPS, torch.argmax(probs, dim=-1), tok)
+    """:func:`sample_u` with uniforms from ``generator``."""
+    u = torch.rand(probs.shape, generator=generator, device=probs.device, dtype=torch.float32)
+    return sample_u(probs, u)
 
 
 def sample_k(generator: Optional[torch.Generator], probs: torch.Tensor, k: int) -> torch.Tensor:
@@ -141,13 +194,18 @@ def norm_logits_topk(logits: torch.Tensor, cfg: SamplingConfig) -> TopKDist:
     return TopKDist(idx, probs)
 
 
-def sample_topk(generator: Optional[torch.Generator], dist: TopKDist) -> torch.Tensor:
-    """k-space categorical draw with the zero-prob guard; returns ids."""
-    p = dist.probs
-    j = torch.argmax(torch.log(p) + _gumbel(generator, p.shape, p.device), dim=-1)
-    chosen = torch.gather(p, -1, j[..., None])[..., 0]
-    j = torch.where(chosen < ZERO_PROB_EPS, torch.argmax(p, dim=-1), j)
+def sample_topk_u(dist: TopKDist, u: torch.Tensor) -> torch.Tensor:
+    """k-space categorical draw from uniforms ``u`` (probs' shape) with the
+    zero-prob guard; returns ids."""
+    j = sample_u(dist.probs, u)
     return torch.gather(dist.idx, -1, j[..., None])[..., 0]
+
+
+def sample_topk(generator: Optional[torch.Generator], dist: TopKDist) -> torch.Tensor:
+    """:func:`sample_topk_u` with uniforms from ``generator``."""
+    p = dist.probs
+    return sample_topk_u(dist, torch.rand(p.shape, generator=generator, device=p.device,
+                                          dtype=torch.float32))
 
 
 def prob_of_topk(dist: TopKDist, token: torch.Tensor) -> torch.Tensor:
@@ -184,6 +242,20 @@ def dist_norm(logits: torch.Tensor, cfg: SamplingConfig):
 
 def dist_sample(generator, dist) -> torch.Tensor:
     return sample_topk(generator, dist) if isinstance(dist, TopKDist) else sample(generator, dist)
+
+
+def dist_width(dist) -> int:
+    """Uniforms one draw takes: the support size (k sparse, V dense)."""
+    return (dist.probs if isinstance(dist, TopKDist) else dist).shape[-1]
+
+
+def dist_sample_u(dist, u: torch.Tensor) -> torch.Tensor:
+    return sample_topk_u(dist, u) if isinstance(dist, TopKDist) else sample_u(dist, u)
+
+
+def dist_map(fn, dist):
+    """Apply ``fn`` to every tensor of a dist (both leaves of a TopKDist)."""
+    return TopKDist(fn(dist.idx), fn(dist.probs)) if isinstance(dist, TopKDist) else fn(dist)
 
 
 def dist_prob_of(dist, token: torch.Tensor) -> torch.Tensor:
