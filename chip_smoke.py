@@ -7,11 +7,12 @@ on one NVIDIA GPU.
 Phases, each printing lines before the last:
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA
      versions, and the build of every kernel source (nvcc processes started
-     together) with its ptxas register report;
+     together) with its ptxas register report (B1 must not spill);
   2. kernels: each hand-written kernel against its plain PyTorch version on
      the card, through its public wrapper, at the shapes of both paths, with
      the tolerance stated; kernel, plain, library-yardstick and bound times.
-     B1 (W8A16 matmul) at the single-stream and the serving M, B2
+     B1 (W8A16 matmul) at the single-stream and the serving M and at
+     ragged shapes (M not a multiple of 8, a K tail, N=48), B2
      (contiguous flash-decode), B3 (paged flash-decode) at the serving
      shapes, several page sizes, multi-page shuffled tables and a sentinel
      row;
@@ -42,6 +43,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -133,8 +135,11 @@ def phase_device(pkg_build):
     log(f"[device] kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     for name, text in pkg_build.BUILD_LOGS.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance" in line:
                 log(f"[ptxas {name}] {line.strip()}")
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", pkg_build.BUILD_LOGS["int8_matmul"])
+    if any(int(n) for n in spills):
+        raise AssertionError("int8_matmul: ptxas reports register spills")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -149,20 +154,29 @@ def _rotated(make):
 
 
 def phase_int8_matmul(results):
-    from llmspeculativesampling_tpu_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+    from llmspeculativesampling_tpu_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref, plan
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     rtol, atol_rel = 2.0 ** -7, 1e-3
     log(f"[int8_matmul] tolerance: |kernel-plain| <= {rtol:.2e}*|plain| + {atol_rel:.0e}*max|plain| "
         "(two bf16 ulps; both sum exact bf16 x int8 products in fp32, in other orders)")
-    fwd = {key: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-           for key in ("single", "serving")}  # one target verify forward of each path
+    # one target forward of each kind: its 40 x 7 projections and the lm_head
+    forwards = {1: "AR decode", GAMMA + 1: "single verify", SERVE_TARGET_M[0]: "serving verify",
+                SERVE_TARGET_M[1]: "serving prefill"}
+    fwd = {m: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for m in forwards}
     worst_abs = 0.0
     tm = sorted(set(TARGET_M + SERVE_TARGET_M), reverse=True)
     dm = sorted(set(DRAFT_M + SERVE_DRAFT_M), reverse=True)
     cases = [("target", m, k, n, c) for m in tm for (k, n, c) in TARGET_SHAPES + [(5120, VOCAB, 1)]]
     cases += [("draft", m, k, n, c) for m in dm for (k, n, c) in DRAFT_SHAPES + [(768, VOCAB, 1)]]
-    for model, m, k, n, per_layer in cases:
+    # ragged shapes: row tiles part-filled (M not a multiple of 8, two tiles
+    # above 256), a K tail inside a 64-row chunk, N narrower than a block
+    ragged = [("ragged", m, k, n, 0) for m in (3, 9, 37, 145, 200, 448)
+              for (k, n) in ((5120, 5120), (768, 3072))]
+    ragged += [("ragged", m, 96, 5120, 0) for m in (9, 145)]
+    ragged += [("ragged", m, 5120, 48, 0) for m in (3, 200)]
+    ragged += [("ragged", 37, 96, 48, 0)]
+    for model, m, k, n, per_layer in cases + ragged:
         x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
         ws = _rotated(lambda: torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8,
                                             device="cuda"))
@@ -173,21 +187,25 @@ def phase_int8_matmul(results):
         max_abs, rel = check_close(f"int8_matmul {model} M={m} K={k} N={n}", got, ref, rtol,
                                    atol_rel * float(ref.float().abs().max()))
         worst_abs = max(worst_abs, max_abs)
-        w16 = [w.to(torch.bfloat16) for w in ws]
         t_k = time_ms(lambda i: int8_matmul(x[None], ws[i % len(ws)], s), 20)
+        b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n)
+        shape = (f"[int8_matmul] {model} M={m:3d} K={k:5d} N={n:5d} plan {plan(m, k, n)}: "
+                 f"max_abs_err {max_abs:.3e} (rel {rel:.1e}) kernel_ms {t_k:.4f} "
+                 f"bound_us {b_ms * 1e3:.1f} ({b_by}) bound share {b_ms / t_k:.3f}")
+        if model == "ragged":
+            log(shape)
+            del ws
+            continue
+        w16 = [w.to(torch.bfloat16) for w in ws]
         t_p = time_ms(lambda i: int8_matmul_ref(x, ws[i % len(ws)], s), 5)
         t_l = time_ms(lambda i: torch.matmul(x, w16[i % len(w16)]), 20)
-        b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n)
-        log(f"[int8_matmul] {model} M={m:2d} K={k:5d} N={n:5d}: max_abs_err {max_abs:.3e} "
-            f"(rel {rel:.1e}) kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
-            f"library_ms {t_l:.4f} (torch.matmul on pre-widened bf16, 2 B/weight) "
-            f"bound_us {b_ms * 1e3:.1f} ({b_by})")
-        path = {GAMMA + 1: "single", SERVE_TARGET_M[0]: "serving"}.get(m)
-        if model == "target" and path:
+        log(f"{shape} plain_ms {t_p:.4f} library_ms {t_l:.4f} "
+            "(torch.matmul on pre-widened bf16, 2 B/weight)")
+        if model == "target" and m in fwd:
             calls = 40 * per_layer if n != VOCAB else 1
             for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms)):
-                fwd[path][key] += calls * t
-            fwd[path]["bound_by"] = b_by
+                fwd[m][key] += calls * t
+            fwd[m]["bound_by"] = b_by
         del ws, w16
     # an fp32 config takes the kernel's fp32-output instantiation: the same
     # exact products summed in fp32 in other orders over K=5120
@@ -199,13 +217,13 @@ def phase_int8_matmul(results):
                              1e-4 * float(ref.abs().max()))
     log(f"[int8_matmul] fp32 x M=25 K=5120 N=5120: max_abs_err {max_abs:.3e} "
         "(tol 1e-4*max|plain|: fp32 sums in other orders)")
-    results["int8_matmul"] = dict(**fwd["serving"], max_abs_err=worst_abs,
-                                  single_stream_verify_ms=fwd["single"]["ms"])
-    for path, m in (("single", GAMMA + 1), ("serving", SERVE_TARGET_M[0])):
-        f = fwd[path]
-        log(f"[int8_matmul] one {path} target verify forward (281 launches at M={m}): "
+    results["int8_matmul"] = dict(**fwd[SERVE_TARGET_M[0]], max_abs_err=worst_abs,
+                                  single_stream_verify_ms=fwd[GAMMA + 1]["ms"])
+    for m, what in forwards.items():
+        f = fwd[m]
+        log(f"[int8_matmul] one {what} target forward (281 launches at M={m}): "
             f"kernel_ms {f['ms']:.3f} plain_ms {f['plain_ms']:.3f} library_ms {f['library_ms']:.3f} "
-            f"bound_ms {f['bound_ms']:.3f} ({f['bound_by']})")
+            f"bound_ms {f['bound_ms']:.3f} ({f['bound_by']}) bound share {f['bound_ms'] / f['ms']:.3f}")
 
 
 def _flash_inputs(gen, b, hq, hkv, s_new, d, quant, tree, dtype=torch.bfloat16):

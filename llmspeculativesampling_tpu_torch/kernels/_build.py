@@ -33,7 +33,8 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# ptxas register/shared-memory report of each build, for the smoke log
+# ptxas register/shared-memory report of each build (kept beside the library
+# as lib<name>_<hash>.log), for the smoke log
 BUILD_LOGS: Dict[str, str] = {}
 
 
@@ -70,6 +71,7 @@ def _finish(name: str, proc, tmp: str, out: Path) -> None:
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
     BUILD_LOGS[name] = log
 
@@ -79,6 +81,10 @@ def build(names: Iterable[str]) -> None:
     started together."""
     with _LOCK:
         todo = [n for n in names if not _target(n).exists()]
+        for n in set(names) - set(todo):  # built before: its report lies beside it
+            report = _target(n).with_suffix(".log")
+            if report.exists():
+                BUILD_LOGS[n] = report.read_text()
         started = [(n, *_start(n)) for n in todo]
         try:
             for n, proc, tmp, out in started:

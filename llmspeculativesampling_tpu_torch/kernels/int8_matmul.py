@@ -2,8 +2,11 @@
 
 Counterpart of ``llmspeculativesampling_tpu/kernels/int8_matmul.py``. The
 TPU kernel it replaces is ``_int8_matmul_2d`` (``pl.pallas_call`` with body
-``_kernel``); on Hopper it is ``csrc/int8_matmul.cu``, whose header says what
-bounds it (the weight bytes) and how the design reads each weight byte once.
+``_kernel``); on Hopper it is ``csrc/int8_matmul.cu``: a tensor-core kernel
+(``wgmma`` with the widened int8 weights as the register operand and x from
+shared memory) that reads each weight byte once for every M <= 256. Its
+header says what bounds it at each path's M. :func:`plan` picks the row
+tile (the ``wgmma`` N) and the split of K for a call.
 
 :func:`int8_matmul` launches the CUDA kernel for a CUDA tensor, or raises;
 :func:`int8_matmul_ref`, the plain PyTorch version, serves CPU tensors and
@@ -14,12 +17,23 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
-BN, BK, MAX_MT = 128, 64, 32
+BN, BK = 128, 64  # weight columns of a block, k-rows of a pipeline chunk
+MTS = (8, 16, 32, 64, 128, 160, 256)  # row tiles the kernel is built for (the wgmma N)
+SMS = 132  # H100 SXM
+WS_CAP = 16 << 20  # bytes of split-K partials, well inside the 50 MB L2
+FILL = 3  # chunks' worth of time a block spends before its ring is full
+
+
+def blocks_per_sm(mt: int) -> int:
+    """Blocks of row tile ``mt`` resident on one SM (the kernel's
+    ``Cfg<MT>::MIN_BLOCKS``)."""
+    return 2 if mt <= 160 else 1
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -33,19 +47,35 @@ def int8_matmul_ref(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> 
     return (y * scale.float()[None, :]).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def plan(m: int, k: int, n: int):
-    """(row tile MT, ksplit, chunks per split) for an [m, k] x [k, n] call:
-    enough blocks for about two per SM (four at small MT, where a block is
-    light) without splitting K finer than one 64-row chunk."""
-    mt = 1
-    while mt < min(m, MAX_MT):
-        mt *= 2
+    """(row tile MT, ksplit, chunks per split) for an [m, k] x [k, n] call.
+
+    MT is the smallest built tile that covers m, or m split evenly over
+    ceil(m/256) tiles, so every m <= 256 reads each weight byte once. K is
+    split into ``ksplit`` ranges of whole 64-row chunks: at least one block
+    per SM where the column tiles and chunks allow it within the workspace
+    cap, and among those the least ``waves * (chunks per block + FILL)``,
+    FILL standing for a block's start: its first copies in flight."""
+    m_tiles = _cdiv(m, MTS[-1])
+    mt = next(t for t in MTS if t >= _cdiv(m, m_tiles))
     tiles = _cdiv(n, BN) * _cdiv(m, mt)
     chunks = _cdiv(k, BK)
-    target = 264 if mt >= 16 else 528
-    ksplit = min(chunks, max(1, _cdiv(target, tiles)))
-    cps = _cdiv(chunks, ksplit)
-    return mt, _cdiv(chunks, cps), cps
+    slots = SMS * blocks_per_sm(mt)
+    options = {}  # ksplit -> chunks per split
+    for want in range(1, chunks + 1):
+        cps = _cdiv(chunks, want)
+        ksplit = _cdiv(chunks, cps)
+        if ksplit > 1 and ksplit * m * n * 4 > WS_CAP:
+            break
+        options[ksplit] = cps
+    fill = min(SMS, tiles * max(options))
+
+    def cost(ksplit):
+        return tiles * ksplit < fill, _cdiv(tiles * ksplit, slots) * (options[ksplit] + FILL)
+
+    ksplit = min(options, key=cost)
+    return mt, ksplit, options[ksplit]
 
 
 def _launch(x2: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -86,6 +116,8 @@ def _lib():
     lib = _build.load("int8_matmul")
     fn = lib.w8a16_matmul
     if not fn.argtypes:
+        lib.w8a16_init.restype = ctypes.c_int
+        _build.check(lib.w8a16_init(), "w8a16_init")  # shared-memory limits, once per load
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int

@@ -67,15 +67,40 @@ def test_wrapper_on_cpu_uses_plain_version_and_keeps_lead_dims():
     assert torch.equal(out.reshape(6, 64), ref)
 
 
+def _max_ksplit(m, k, n):
+    """The most K ranges the workspace cap admits (1 always)."""
+    chunks = -(-k // port.BK)
+    return max([1] + [ks for ks in range(2, chunks + 1) if ks * m * n * 4 <= port.WS_CAP])
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 5120, 5120), (25, 5120, 13824), (25, 13824, 5120),
                                    (64, 5120, 32000), (2, 768, 768), (1, 3072, 768), (25, 96, 48)])
 def test_plan_covers_k_and_fills_the_card(m, k, n):
     mt, ksplit, cps = port.plan(m, k, n)
-    assert mt in (1, 2, 4, 8, 16, 32) and mt >= min(m, 32)
+    m_tiles = -(-m // port.MTS[-1])
+    assert mt in port.MTS and mt >= -(-m // m_tiles)  # the wgmma N covers the row tile
+    assert mt == min(t for t in port.MTS if t >= -(-m // m_tiles))  # and is the smallest that does
     chunks = -(-k // port.BK)
     assert (ksplit - 1) * cps < chunks <= ksplit * cps  # every chunk in exactly one split
-    blocks = -(-n // port.BN) * -(-m // mt) * ksplit
-    assert blocks >= min(264, -(-n // port.BN) * -(-m // mt) * chunks)
+    tiles = -(-n // port.BN) * -(-m // mt)
+    assert tiles * ksplit >= min(port.SMS, tiles * _max_ksplit(m, k, n))  # a block per SM if possible
+    assert ksplit == 1 or ksplit * m * n * 4 <= port.WS_CAP  # the partials stay under the L2 cap
+
+
+TARGET_KN = [(5120, 5120), (5120, 13824), (13824, 5120), (5120, 32000)]
+DRAFT_KN = [(768, 768), (768, 3072), (3072, 768), (768, 32000)]
+
+
+@pytest.mark.parametrize("model", ["target", "draft"])
+@pytest.mark.parametrize("m", [1, 2, 16, 25, 32, 64, 128, 144, 448, 512])
+def test_plan_reads_weights_once_up_to_256_rows(m, model):
+    """Every M the single-stream and serving paths launch: up to 256 rows
+    one row tile (each weight byte read once), above it ceil(M/256) tiles."""
+    for k, n in TARGET_KN if model == "target" else DRAFT_KN:
+        mt, ksplit, _ = port.plan(m, k, n)
+        weight_reads = -(-m // mt)
+        assert weight_reads == (1 if m <= 256 else -(-m // 256))
+        assert ksplit >= 1 and mt in port.MTS
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_cannot_take():
