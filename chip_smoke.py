@@ -15,7 +15,11 @@ Phases, each printing lines before the last:
      ragged shapes (M not a multiple of 8, a K tail, N=48), B2
      (contiguous flash-decode), B3 (paged flash-decode) at the serving
      shapes, several page sizes, multi-page shuffled tables and a sentinel
-     row;
+     row, lengths on split and page edges, per-row lengths with partly
+     empty splits, tree bias, G=4 x S_new=25; each attention case also
+     bit-identical across a repeat and between the forward's transposed
+     views and contiguous copies, one launch a call, the ticket counters
+     back at 0; timing rows at the verify, AR-decode and draft shapes;
   3. forward: logits of a 2-layer, full-width (5120) int8 Llama slice on the
      card with the kernels vs the same weights on the CPU with the plain
      versions, through a contiguous cache and through a paged int8 pool
@@ -251,43 +255,121 @@ def _flash_inputs(gen, b, hq, hkv, s_new, d, quant, tree, dtype=torch.bfloat16):
     return q, kn, vn, kc.to(dtype), vc.to(dtype), bias, None, None
 
 
-def phase_flash_decode(results):
+def _check_case(name, fn, ref, args, kw, rtol, atol):
+    """One attention case through its public wrapper: the inputs as the
+    forward passes them and as contiguous copies give bit-identical output,
+    so does a second call, every call is one launch and the ticket counters
+    are back at 0 after a synchronize; then the output against the plain
+    version. Returns (max_abs_err, rel)."""
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import _COUNTERS
+
+    before = fn.launches
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
+    contig = fn(*[x.contiguous() if isinstance(x, torch.Tensor) else x for x in args], **kw)
+    torch.cuda.synchronize()
+    if fn.launches - before != 3:
+        raise AssertionError(f"{name}: 3 calls made {fn.launches - before} launches")
+    if not (torch.equal(got, again) and torch.equal(got, contig)):
+        raise AssertionError(f"{name}: repeated or contiguous calls are not bit-identical")
+    if any(int(c.count_nonzero()) for c in _COUNTERS.values()):
+        raise AssertionError(f"{name}: ticket counters not back at 0")
+    return check_close(name, got, ref(*args, **kw), rtol, atol)
+
+
+def _flash_bound(hkv, s_new, length, quant, rows=1, extra_bytes=0):
+    """Least time of one call: live prefix K/V (and scales) read once, q,
+    k_new, v_new, out, bias, lengths (and ``extra_bytes``: block tables)
+    once; QK^T and PV in bf16."""
+    kv_b = 1 if quant else 2
+    nbytes = (2 * length * hkv * 128 * kv_b + (2 * length * hkv * 4 if quant else 0)
+              + 4 * rows * hkv * s_new * 128 * 2 + rows * s_new * s_new * 4 + rows * 4
+              + extra_bytes)
+    return bound(nbytes, 2 * 2 * hkv * s_new * (length + rows * s_new) * 128)
+
+
+def _time_flash(gen, hkv, s_new, length, quant, with_lib):
+    """Kernel, plain and (dense) SDPA times of B2 at B=1, Hq=Hkv, D=128.
+    Inputs rotate through > L2 bytes and are contiguous, so that only the
+    kernel runs inside the timed graph."""
     import torch.nn.functional as F
 
     from llmspeculativesampling_tpu_torch.kernels.flash_decode import (
         flash_decode_attention, flash_decode_ref)
 
+    def make():
+        t = _flash_inputs(gen, 1, hkv, hkv, s_new, 128, quant, False)
+        return [x.contiguous() if x is not None else None for x in t]
+
+    sets = _rotated(make)
+    lengths = torch.full((1,), length, dtype=torch.int32, device="cuda")
+
+    def kern(i):
+        q, kn, vn, kc, vc, bias, ks, vs = sets[i % len(sets)]
+        return flash_decode_attention(q, kn, vn, kc, vc, lengths, bias, scale=1.0,
+                                      k_scales=ks, v_scales=vs)
+
+    def plain(i):
+        q, kn, vn, kc, vc, bias, ks, vs = sets[i % len(sets)]
+        return flash_decode_ref(q, kn, vn, kc, vc, lengths, bias, scale=1.0, k_scales=ks, v_scales=vs)
+
+    t_k, t_p, t_l = time_ms(kern, 50), time_ms(plain, 20), None
+    if with_lib:
+        lib_sets = []
+        for q, kn, vn, kc, vc, bias, _, _ in sets:
+            mask = torch.cat([torch.ones((s_new, length), dtype=torch.bool, device="cuda"),
+                              bias[0] == 0], dim=1)
+            lib_sets.append((q, torch.cat([kc[:, :, :length], kn], dim=2),
+                             torch.cat([vc[:, :, :length], vn], dim=2), mask))
+
+        def lib(i):
+            q, k_all, v_all, mask = lib_sets[i % len(lib_sets)]
+            return F.scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask, scale=1.0)
+
+        t_l = time_ms(lib, 50)
+    b_ms, b_by = _flash_bound(hkv, s_new, length, quant)
+    return t_k, t_p, t_l, b_ms, b_by, len(sets)
+
+
+def phase_flash_decode(results):
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import (
+        flash_decode_attention, flash_decode_ref, plan)
+
     gen = torch.Generator(device="cuda").manual_seed(2)
     rtol = atol = 2.0 ** -7
     log(f"[flash_decode] tolerance: |kernel-plain| <= {atol:.2e} + {rtol:.2e}*|plain| "
-        "(q pre-scaled in bf16 for both; fp32 softmax in both, bf16 output: ~1 ulp)")
+        "(q pre-scaled in bf16 for both; fp32 softmax in both, bf16 output: ~1 ulp); each case "
+        "also bit-identical across a repeat and contiguous inputs, one launch a call, counters 0")
     worst = 0.0
-    n_cases = 0
     cases = []
     for quant in (False, True):
         for hkv in (40, 6):
             for s_new in (1, 2, 25):
-                for length in (0, 1, 127, 128, 200, S_MAX - s_new):
+                ps = plan(1, hkv, s_new, S_MAX).ps
+                edges = (ps - 1, ps, ps + 1, 2 * ps - 1, 2 * ps, 2 * ps + 1)
+                for length in sorted({0, 1, 127, 128, 200, S_MAX - s_new, *edges}):
                     for tree in (False, True):
                         cases.append((1, hkv, hkv, s_new, 128, quant, tree, [length]))
     cases += [(1, 16, 4, 25, 128, q, True, [130]) for q in (False, True)]   # GQA, G=4
+    cases += [(2, 16, 4, 25, 128, q, True, [33, S_MAX - 25]) for q in (False, True)]  # 100 rows
     cases += [(1, 12, 12, 25, 64, q, False, [100]) for q in (False, True)]  # D=64
     cases += [(1, 12, 12, 25, 32, q, True, [200]) for q in (False, True)]   # D=32
     cases += [(1, 8, 8, 25, 96, q, False, [129]) for q in (False, True)]    # D=96
     cases += [(3, 8, 8, 5, 128, q, False, [0, 64, 251]) for q in (False, True)]  # per-row
+    # per-row lengths whose splits are partly empty: a row past every edge,
+    # one on an edge, one empty, one full
+    cases += [(4, 8, 8, 9, 128, q, True, [33, 64, 0, S_MAX - 9]) for q in (False, True)]
     for b, hq, hkv, s_new, d, quant, tree, lens in cases:
         q, kn, vn, kc, vc, bias, ks, vs = _flash_inputs(gen, b, hq, hkv, s_new, d, quant, tree)
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        got = flash_decode_attention(q, kn, vn, kc, vc, lengths, bias, scale=1.0,
-                                     k_scales=ks, v_scales=vs)
-        ref = flash_decode_ref(q, kn, vn, kc, vc, lengths, bias, scale=1.0, k_scales=ks, v_scales=vs)
-        torch.cuda.synchronize()
-        max_abs, _ = check_close(
+        max_abs, _ = _check_case(
             f"flash_decode quant={quant} B={b} Hq={hq} Hkv={hkv} S_new={s_new} D={d} "
-            f"len={lens} tree={tree}", got, ref, rtol, atol)
+            f"len={lens} tree={tree}", flash_decode_attention, flash_decode_ref,
+            (q, kn, vn, kc, vc, lengths, bias), dict(scale=1.0, k_scales=ks, v_scales=vs), rtol, atol)
         worst = max(worst, max_abs)
-        n_cases += 1
-    log(f"[flash_decode] {n_cases} cases within tolerance, worst max_abs_err {worst:.3e}")
+    log(f"[flash_decode] {len(cases)} cases within tolerance (lengths at split edges k*ps-1, "
+        f"k*ps, k*ps+1, 0, S_max-S_new; tree bias; G=4 x S_new=25 over two row tiles; per-row "
+        f"lengths), worst max_abs_err {worst:.3e}")
     # fp32 configs take the kernel's fp32 instantiations: same math in fp32
     # throughout, sums in other orders
     for d in (128, 96, 64, 32):
@@ -295,65 +377,28 @@ def phase_flash_decode(results):
             q, kn, vn, kc, vc, bias, ks, vs = _flash_inputs(gen, 1, 8, 4, 25, d, quant, True,
                                                             torch.float32)
             lengths = torch.tensor([200], dtype=torch.int32, device="cuda")
-            got = flash_decode_attention(q, kn, vn, kc, vc, lengths, bias, scale=d ** -0.5,
-                                         k_scales=ks, v_scales=vs)
-            ref = flash_decode_ref(q, kn, vn, kc, vc, lengths, bias, scale=d ** -0.5,
-                                   k_scales=ks, v_scales=vs)
-            torch.cuda.synchronize()
-            max_abs, _ = check_close(f"flash_decode fp32 quant={quant} D={d}", got, ref, 1e-4, 1e-4)
+            max_abs, _ = _check_case(
+                f"flash_decode fp32 quant={quant} D={d}", flash_decode_attention, flash_decode_ref,
+                (q, kn, vn, kc, vc, lengths, bias), dict(scale=d ** -0.5, k_scales=ks, v_scales=vs),
+                1e-4, 1e-4)
             log(f"[flash_decode] fp32 q, quant={quant}, D={d}, GQA 8/4, tree, len=200: "
                 f"max_abs_err {max_abs:.3e} (tol 1e-4 + 1e-4*|plain|: fp32 throughout)")
 
-    # timing at the verify shape: Hkv=40, S_new=25, a mid-generation prefix;
-    # inputs rotate through > L2 bytes, as in the matmul phase, and are
-    # contiguous so that only the kernel runs inside the timed graph
-    for quant in (False, True):
-        length = 128
-
-        def make():
-            t = _flash_inputs(gen, 1, 40, 40, GAMMA + 1, 128, quant, False)
-            return [x.contiguous() if x is not None else None for x in t]
-
-        sets = _rotated(make)
-        lengths = torch.full((1,), length, dtype=torch.int32, device="cuda")
-
-        def kern(i):
-            q, kn, vn, kc, vc, bias, ks, vs = sets[i % len(sets)]
-            return flash_decode_attention(q, kn, vn, kc, vc, lengths, bias, scale=1.0,
-                                          k_scales=ks, v_scales=vs)
-
-        def plain(i):
-            q, kn, vn, kc, vc, bias, ks, vs = sets[i % len(sets)]
-            return flash_decode_ref(q, kn, vn, kc, vc, lengths, bias, scale=1.0,
-                                    k_scales=ks, v_scales=vs)
-
-        t_k = time_ms(kern, 50)
-        t_p = time_ms(plain, 20)
-        kv_b = 1 if quant else 2
-        live = 2 * 40 * length * 128 * kv_b + (2 * 40 * length * 4 if quant else 0)
-        small = 40 * (GAMMA + 1) * 128 * 2 * 4 + (GAMMA + 1) ** 2 * 4 + 4
-        ops = 2 * 2 * 40 * (GAMMA + 1) * (length + GAMMA + 1) * 128
-        b_ms, b_by = bound(live + small, ops)
-        t_l = None
-        if not quant:
-            lib_sets = []
-            for q, kn, vn, kc, vc, bias, _, _ in sets:
-                mask = torch.cat([torch.ones((GAMMA + 1, length), dtype=torch.bool, device="cuda"),
-                                  bias[0] == 0], dim=1)
-                lib_sets.append((q, torch.cat([kc[:, :, :length], kn], dim=2),
-                                 torch.cat([vc[:, :, :length], vn], dim=2), mask))
-
-            def lib(i):
-                q, k_all, v_all, mask = lib_sets[i % len(lib_sets)]
-                return F.scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask, scale=1.0)
-
-            t_l = time_ms(lib, 50)
-        log(f"[flash_decode] {'int8-KV' if quant else 'dense'} Hkv=40 S_new=25 len={length}: "
-            f"kernel_ms {t_k:.4f} plain_ms {t_p:.4f} library_ms "
-            f"{'n/a' if t_l is None else f'{t_l:.4f}'} (F.scaled_dot_product_attention over "
-            f"[0,len) + block, dense only) bound_us {b_ms * 1e3:.2f} ({b_by}); "
-            f"{len(sets)} input sets rotated")
-        if not quant:
+    # timing: the verify shape (Hkv=40, S_new=25, len 128, dense and int8),
+    # AR decode (S_new=1, len 128 and 255) and the draft (Hkv=6, S_new 1, 2)
+    shapes = [("single verify", 40, GAMMA + 1, 128, False), ("single verify", 40, GAMMA + 1, 128, True),
+              ("AR decode", 40, 1, 128, False), ("AR decode", 40, 1, 255, False),
+              ("draft decode", 6, 1, 128, False), ("draft first step", 6, 2, 128, False)]
+    for what, hkv, s_new, length, quant in shapes:
+        t_k, t_p, t_l, b_ms, b_by, n_sets = _time_flash(gen, hkv, s_new, length, quant, not quant)
+        p = plan(1, hkv, s_new, S_MAX)
+        log(f"[flash_decode] {what}: {'int8-KV' if quant else 'dense'} Hkv={hkv} S_new={s_new} "
+            f"len={length} plan ps={p.ps} blocks={p.blocks(1, hkv)}: kernel_ms {t_k:.4f} "
+            f"plain_ms {t_p:.4f} library_ms {'n/a' if t_l is None else f'{t_l:.4f}'} "
+            f"(F.scaled_dot_product_attention over [0,len) + block, dense only) "
+            f"bound_us {b_ms * 1e3:.2f} ({b_by}) bound share {b_ms / t_k:.3f}; "
+            f"{n_sets} input sets rotated")
+        if what == "single verify" and not quant:
             results["flash_decode"] = dict(
                 ms=40 * t_k, plain_ms=40 * t_p, library_ms=40 * t_l, bound_ms=40 * b_ms,
                 max_abs_err=worst, bound_by=b_by)
@@ -404,24 +449,85 @@ def _uniform_lens(gen, b):
     return torch.randint(64, 122, (b,), generator=gen, device="cuda").tolist()
 
 
-def phase_paged_flash_decode(results):
+MIXED_LENS = [121, 640, 70, 512, 99, 600, 64, 77, 545, 88, 101, 119, 66, 630, 90, 74]
+
+
+def _time_paged(gen, lens, p_max, hkv, s_new, quant):
+    """Kernel, plain and SDPA times of B3 at B=16, Hq=Hkv, D=128, page 128.
+    Inputs rotate past L2; the library yardstick attends over a
+    pre-gathered contiguous (dequantized) view, the gather untimed."""
     import torch.nn.functional as F
 
     from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
         gather_pages, paged_flash_decode_attention, paged_flash_decode_ref)
 
+    def make():
+        t = _paged_inputs(gen, lens, hkv, hkv, s_new, 128, PAGE, p_max, quant)
+        return [x.contiguous() if x is not None else None for x in t]
+
+    sets = _rotated(make)
+
+    def kern(i):
+        q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = sets[i % len(sets)]
+        return paged_flash_decode_attention(q, kn, vn, kp, vp, tables, lengths, bias,
+                                            scale=1.0, k_scales=ks, v_scales=vs)
+
+    def plain(i):
+        q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = sets[i % len(sets)]
+        return paged_flash_decode_ref(q, kn, vn, kp, vp, tables, lengths, bias,
+                                      scale=1.0, k_scales=ks, v_scales=vs)
+
+    lib_sets = []
+    for q, kn, vn, kp, vp, tables, lengths, bias, ks, vs in sets:
+        kc, vc = gather_pages(kp, tables), gather_pages(vp, tables)
+        if quant:
+            kc = kc.float() * gather_pages(ks, tables)[..., None]
+            vc = vc.float() * gather_pages(vs, tables)[..., None]
+        width = kc.shape[2]
+        pre = torch.arange(width, device="cuda")[None, None, :] < lengths[:, None, None]
+        mask = torch.cat([pre.expand(ROWS, s_new, width), bias == 0], dim=2)[:, None]
+        lib_sets.append((q, torch.cat([kc.to(q.dtype), kn], 2), torch.cat([vc.to(q.dtype), vn], 2),
+                         mask))
+
+    def lib(i):
+        q, k_all, v_all, mask = lib_sets[i % len(lib_sets)]
+        return F.scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask, scale=1.0)
+
+    t_k, t_p, t_l = time_ms(kern, 50), time_ms(plain, 20), time_ms(lib, 50)
+    b_ms, b_by = _flash_bound(hkv, s_new, sum(lens), quant, rows=ROWS,
+                              extra_bytes=ROWS * p_max * 4)
+    n = len(sets)
+    del sets, lib_sets
+    return t_k, t_p, t_l, b_ms, b_by, n
+
+
+def phase_paged_flash_decode(results):
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import plan
+    from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
+        paged_flash_decode_attention, paged_flash_decode_ref)
+
     gen = torch.Generator(device="cuda").manual_seed(4)
     rtol = atol = 2.0 ** -7
     log(f"[paged_flash_decode] tolerance: |kernel-plain| <= {atol:.2e} + {rtol:.2e}*|plain| "
-        "(bf16 q pre-scaled for both; fp32 softmax in both, bf16 output: ~1 ulp); fp32: 1e-4")
-    mixed = [121, 640, 70, 512, 99, 600, 64, 77, 545, 88, 101, 119, 66, 630, 90, 74]
-    cases = []  # (lens, hq, hkv, s_new, d, page, P, tree)
+        "(bf16 q pre-scaled for both; fp32 softmax in both, bf16 output: ~1 ulp); fp32: 1e-4; "
+        "each case also bit-identical across a repeat and contiguous inputs, one launch a call, "
+        "counters 0")
+    mixed = MIXED_LENS
+    # the draft's serving plan cuts a page in two: lengths at its split edges
+    ps = plan(ROWS, 6, 1, PAGE, 1).ps
+    draft_edges = [ps - 1, ps, ps + 1, 2 * ps - 1, 2 * ps, 0, 1, 100, 37, ps + 7, 90, 2, 120,
+                   ps - 2, 3, 127][:ROWS]
+    page_edges = [PAGE - 1, PAGE, PAGE + 1, 2 * PAGE - 1, 2 * PAGE, 2 * PAGE + 1, 0, 6 * PAGE,
+                  5 * PAGE + 3, 64, 700, 1, 3 * PAGE, 400, 129, 511]
+    cases = []  # (lens, hq, hkv, s_new, d, page, P, tree, quant)
     for quant in (True, False):
         cases += [(_uniform_lens(gen, ROWS), 40, 40, SERVE_GAMMA + 1, 128, PAGE, 1, False, quant),
-                  (mixed, 40, 40, SERVE_GAMMA + 1, 128, PAGE, 6, False, quant)]
+                  (mixed, 40, 40, SERVE_GAMMA + 1, 128, PAGE, 6, False, quant),
+                  (page_edges, 40, 40, SERVE_GAMMA + 1, 128, PAGE, 6, True, quant)]
         for s_new in (1, 2):  # draft decode and the two-token re-feed
             cases += [(_uniform_lens(gen, ROWS), 6, 6, s_new, 128, PAGE, 1, False, quant),
-                      (mixed, 6, 6, s_new, 128, PAGE, 6, False, quant)]
+                      (mixed, 6, 6, s_new, 128, PAGE, 6, False, quant),
+                      (draft_edges, 6, 6, s_new, 128, PAGE, 1, s_new == 2, quant)]
         # multi-page: lengths to 1024 ending mid-page and on a page edge, a
         # row of length 0 with an all-sentinel table
         cases.append(([1024, 0, 640, 129, 127, 128, 1, 1000], 8, 8, 9, 128, PAGE, 8, True, quant))
@@ -430,97 +536,51 @@ def phase_paged_flash_decode(results):
                 cases.append(([8 * page, 0, 5 * page - 3, page, 2 * page + 1, 37],
                               16, 4, 9, d, page, 8, d == 64, quant))
         cases.append(([200, 64, 0], 12, 12, 25, 64, PAGE, 2, True, quant))
+        cases.append(([200, 64, 0, 100], 16, 4, 25, 128, PAGE, 2, True, quant))  # G=4, 100 rows
     worst = 0.0
     for lens, hq, hkv, s_new, d, page, p_max, tree, quant in cases:
         q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = _paged_inputs(
             gen, lens, hq, hkv, s_new, d, page, p_max, quant, tree)
-        got = paged_flash_decode_attention(q, kn, vn, kp, vp, tables, lengths, bias, scale=1.0,
-                                           k_scales=ks, v_scales=vs)
-        ref = paged_flash_decode_ref(q, kn, vn, kp, vp, tables, lengths, bias, scale=1.0,
-                                     k_scales=ks, v_scales=vs)
-        torch.cuda.synchronize()
-        max_abs, _ = check_close(
+        max_abs, _ = _check_case(
             f"paged_flash_decode quant={quant} B={len(lens)} Hq={hq} Hkv={hkv} S_new={s_new} D={d} "
-            f"page={page} P={p_max} lens={lens}", got, ref, rtol, atol)
+            f"page={page} P={p_max} lens={lens}", paged_flash_decode_attention,
+            paged_flash_decode_ref, (q, kn, vn, kp, vp, tables, lengths, bias),
+            dict(scale=1.0, k_scales=ks, v_scales=vs), rtol, atol)
         worst = max(worst, max_abs)
     log(f"[paged_flash_decode] {len(cases)} cases within tolerance (pages 16/32/128, D 32-128, "
-        f"up to 8 pages a row, a sentinel row), worst max_abs_err {worst:.3e}")
+        f"up to 8 pages a row, a sentinel row, lengths at page and split edges, G=4 x S_new=25), "
+        f"worst max_abs_err {worst:.3e}")
     for d in (128, 96, 64, 32):
         for quant in (False, True):
             q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = _paged_inputs(
                 gen, [200, 0, 37, 129], 8, 4, 9, d, 32, 8, quant, True, torch.float32)
-            got = paged_flash_decode_attention(q, kn, vn, kp, vp, tables, lengths, bias,
-                                               scale=d ** -0.5, k_scales=ks, v_scales=vs)
-            ref = paged_flash_decode_ref(q, kn, vn, kp, vp, tables, lengths, bias,
-                                         scale=d ** -0.5, k_scales=ks, v_scales=vs)
-            torch.cuda.synchronize()
-            max_abs, _ = check_close(f"paged_flash_decode fp32 quant={quant} D={d}", got, ref,
-                                     1e-4, 1e-4)
+            max_abs, _ = _check_case(
+                f"paged_flash_decode fp32 quant={quant} D={d}", paged_flash_decode_attention,
+                paged_flash_decode_ref, (q, kn, vn, kp, vp, tables, lengths, bias),
+                dict(scale=d ** -0.5, k_scales=ks, v_scales=vs), 1e-4, 1e-4)
             log(f"[paged_flash_decode] fp32 q, quant={quant}, D={d}, GQA 8/4, tree, page 32: "
                 f"max_abs_err {max_abs:.3e} (tol 1e-4 + 1e-4*|plain|: fp32 throughout)")
 
-    # timing at the target verify of the serving path: 16 rows, Hkv=40,
-    # S_new=9, int8 pool (as served) and bf16; uniform lengths on one page
-    # and mixed lengths on up to six. Inputs rotate past L2.
-    for quant in (True, False):
+    # timing at the serving path's target verify (Hkv=40, S_new=9; int8
+    # pool as served, and bf16) and its draft (Hkv=6, S_new 1 and 2, int8):
+    # uniform lengths on one page, mixed lengths on up to six
+    shapes = [("target verify", 40, SERVE_GAMMA + 1, q) for q in (True, False)]
+    shapes += [("draft step", 6, 1, True), ("draft re-feed", 6, 2, True)]
+    for what, hkv, s_new, quant in shapes:
         for mix, p_max in (("uniform", 1), ("mixed", 6)):
             lens = _uniform_lens(gen, ROWS) if mix == "uniform" else mixed
-
-            def make():
-                t = _paged_inputs(gen, lens, 40, 40, SERVE_GAMMA + 1, 128, PAGE, p_max, quant)
-                return [x.contiguous() if x is not None else None for x in t]
-
-            sets = _rotated(make)
-
-            def kern(i):
-                q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = sets[i % len(sets)]
-                return paged_flash_decode_attention(q, kn, vn, kp, vp, tables, lengths, bias,
-                                                    scale=1.0, k_scales=ks, v_scales=vs)
-
-            def plain(i):
-                q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = sets[i % len(sets)]
-                return paged_flash_decode_ref(q, kn, vn, kp, vp, tables, lengths, bias,
-                                              scale=1.0, k_scales=ks, v_scales=vs)
-
-            # the library yardstick attends over a pre-gathered contiguous
-            # (dequantized) view; the gather is not timed
-            lib_sets = []
-            s_new = SERVE_GAMMA + 1
-            for q, kn, vn, kp, vp, tables, lengths, bias, ks, vs in sets:
-                kc, vc = gather_pages(kp, tables), gather_pages(vp, tables)
-                if quant:
-                    kc = kc.float() * gather_pages(ks, tables)[..., None]
-                    vc = vc.float() * gather_pages(vs, tables)[..., None]
-                width = kc.shape[2]
-                pre = torch.arange(width, device="cuda")[None, None, :] < lengths[:, None, None]
-                mask = torch.cat([pre.expand(ROWS, s_new, width), bias == 0], dim=2)[:, None]
-                lib_sets.append((q, torch.cat([kc.to(q.dtype), kn], 2), torch.cat([vc.to(q.dtype), vn], 2),
-                                 mask))
-
-            def lib(i):
-                q, k_all, v_all, mask = lib_sets[i % len(lib_sets)]
-                return F.scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask, scale=1.0)
-
-            t_k = time_ms(kern, 50)
-            t_p = time_ms(plain, 20)
-            t_l = time_ms(lib, 50)
-            live = sum(lens)
-            kv_b = 1 if quant else 2
-            nbytes = (2 * live * 40 * 128 * kv_b + (2 * live * 40 * 4 if quant else 0)
-                      + 4 * ROWS * 40 * s_new * 128 * 2 + ROWS * s_new * s_new * 4
-                      + ROWS * (p_max + 1) * 4)
-            ops = 2 * 2 * 40 * s_new * (live + ROWS * s_new) * 128
-            b_ms, b_by = bound(nbytes, ops)
-            log(f"[paged_flash_decode] {'int8' if quant else 'bf16'} pool, {mix} lengths "
-                f"(B=16, Hkv=40, S_new=9, page 128, P={p_max}, {live} live positions): "
-                f"kernel_ms {t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} "
-                f"(F.scaled_dot_product_attention over a pre-gathered view, gather untimed) "
-                f"bound_us {b_ms * 1e3:.2f} ({b_by}); {len(sets)} input sets rotated")
-            if quant and mix == "uniform":
+            t_k, t_p, t_l, b_ms, b_by, n_sets = _time_paged(gen, lens, p_max, hkv, s_new, quant)
+            p = plan(ROWS, hkv, s_new, PAGE, p_max)
+            log(f"[paged_flash_decode] {what}: {'int8' if quant else 'bf16'} pool, {mix} lengths "
+                f"(B=16, Hkv={hkv}, S_new={s_new}, page 128, P={p_max}, {sum(lens)} live positions; "
+                f"plan ps={p.ps} blocks={p.blocks(ROWS, hkv)}): kernel_ms {t_k:.4f} plain_ms "
+                f"{t_p:.4f} library_ms {t_l:.4f} (F.scaled_dot_product_attention over a "
+                f"pre-gathered view, gather untimed) bound_us {b_ms * 1e3:.2f} ({b_by}) "
+                f"bound share {b_ms / t_k:.3f}; {n_sets} input sets rotated")
+            if what == "target verify" and quant and mix == "uniform":
                 results["paged_flash_decode"] = dict(
                     ms=40 * t_k, plain_ms=40 * t_p, library_ms=40 * t_l, bound_ms=40 * b_ms,
                     max_abs_err=worst, bound_by=b_by)
-            del sets, lib_sets
     r = results["paged_flash_decode"]
     log(f"[paged_flash_decode] one serving target verify forward (40 launches, int8 pool, uniform): "
         f"kernel_ms {r['ms']:.3f} bound_ms {r['bound_ms']:.4f}")

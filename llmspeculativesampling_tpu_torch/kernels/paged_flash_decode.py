@@ -5,8 +5,9 @@ Counterpart of ``paged_flash_decode_attention`` in
 ``llmspeculativesampling_tpu/kernels/flash_decode.py``. The TPU kernel it
 replaces is ``_paged_flash_call`` (``pl.pallas_call`` with body
 ``_make_kernel(paged=True)``); on Hopper it is the ``Paged`` layout of
-``csrc/flash_decode.cu``, which shares its body with the contiguous kernel
-and looks each staged position's block up in the table. The TPU-only floors
+``csrc/flash_decode.cu``, which shares its split-KV body with the
+contiguous kernel; a split never crosses a page and looks its block up
+once (``flash_decode.plan`` cuts each page into splits). The TPU-only floors
 and workarounds (``page % 128 == 0``, ``page <= 512``, lane folding, the
 1-column new-block pad, the q-row pad, pad-to-128 pools) are not carried
 over: any page size and any head size of ``HEAD_DIMS`` run.
@@ -19,13 +20,11 @@ version, serves CPU tensors and is the oracle.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
-from . import _build
-from .flash_decode import HEAD_DIMS, MAX_S_NEW, flash_decode_ref
+from .flash_decode import flash_decode_ref, launch_common
 
 
 def gather_pages(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -52,59 +51,16 @@ def paged_flash_decode_ref(
     )
 
 
-def _lib():
-    lib = _build.load("flash_decode")
-    fn = lib.paged_flash_decode
-    if not fn.argtypes:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 10 + [ctypes.c_float, p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def _launch(q, k_new, v_new, k_pool, v_pool, block_tables, lengths, block_bias, scale,
             k_scales, v_scales):
-    bsz, hq, s_new, d = q.shape
-    n_blk, hkv, page, d2 = k_pool.shape
-    quant = k_scales is not None
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
-    if d != d2 or d not in HEAD_DIMS:
-        raise ValueError(f"head_dim must be one of {HEAD_DIMS} (q {d}, pool {d2})")
-    if not 1 <= s_new <= MAX_S_NEW:
-        raise ValueError(f"new block of {s_new} rows; the kernel takes 1..{MAX_S_NEW}")
-    if hq % hkv:
-        raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
-    want_pool = torch.int8 if quant else q.dtype
-    if k_pool.dtype != want_pool or v_pool.dtype != want_pool:
-        raise TypeError(f"pool must be {want_pool}, got {k_pool.dtype}")
+    bsz = q.shape[0]
     if block_tables.dim() != 2 or block_tables.shape[0] != bsz:
         raise ValueError(f"block tables must be [B={bsz}, P], got {tuple(block_tables.shape)}")
     dev = q.device
-    q = q.contiguous()
-    k_new = k_new.to(q.dtype).contiguous()
-    v_new = v_new.to(q.dtype).contiguous()
-    k_pool = k_pool.contiguous()
-    v_pool = v_pool.contiguous()
     tables = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     lens = lengths.to(device=dev, dtype=torch.int32).reshape(-1).expand(bsz).contiguous()
-    bias = block_bias.to(torch.float32).expand(bsz, s_new, s_new).contiguous()
-    if quant:
-        k_scales = k_scales.to(torch.float32).contiguous()
-        v_scales = v_scales.to(torch.float32).contiguous()
-    for t in (q, k_new, v_new, k_pool, v_pool):
-        if t.device != dev or t.data_ptr() % 16:
-            raise ValueError("tensors must lie on q's device, 16-byte aligned")
-    out = torch.empty_like(q)
-    err = _lib().paged_flash_decode(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,
-        lens.data_ptr(), tables.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        bsz, hkv, hq // hkv, s_new, tables.shape[1], page, n_blk, d,
-        int(q.dtype == torch.float32), int(quant), float(scale),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "paged_flash_decode")
+    out = launch_common(q, k_new, v_new, k_pool, v_pool, lens, block_bias, scale, k_scales,
+                        v_scales, page=k_pool.shape[2], pages=tables.shape[1], tables=tables)
     paged_flash_decode_attention.launches += 1
     return out
 

@@ -54,45 +54,46 @@ def block_bias(s_new: int, tree_mask: Optional[torch.Tensor], batch: int, device
     return torch.where(vis, zero, torch.full_like(zero, _MASK_VALUE)).contiguous()
 
 
-def flash_layer_attention(q, k, v, cache_slices, length, lengths, bias_blk, scale, dtype):
+def flash_layer_attention(q, k, v, cache_slices, length, lengths, bias_blk, scale):
     """One layer's attention through the flash-decode kernel. ``q``/``k``/``v``:
-    [B, S, H, D] fresh projections. Writes the new block into the layer's
-    cache buffers at the host ``length`` (in place), then attends over the
-    live prefix (``lengths``, int32 [B] on the device) plus the new block,
-    read from ``k``/``v`` and not back from the cache. Returns ctx
-    [B, S, hidden]."""
+    [B, S, H, D] fresh projections, passed to the kernel as [B, H, S, D]
+    views (no copy). Writes the new block into the layer's cache buffers at
+    the host ``length`` (in place), then attends over the live prefix
+    (``lengths``, int32 [B] on the device) plus the new block, read from
+    ``k``/``v`` and not back from the cache. Returns ctx [B, S, hidden]: on
+    the card the kernel writes [B, S, H, D] memory, so this is a view."""
     b, s = q.shape[0], q.shape[1]
     kn, vn, qh = k.transpose(1, 2), v.transpose(1, 2), q.transpose(1, 2)
     if len(cache_slices) == 4:
         k_q_l, k_s_l, v_q_l, v_s_l = write_layer_quant(*cache_slices, length, kn, vn)
         ctx = flash_decode.flash_decode_attention(
-            qh, kn.to(dtype), vn.to(dtype), k_q_l, v_q_l, lengths, bias_blk,
-            scale=scale, k_scales=k_s_l, v_scales=v_s_l)
+            qh, kn, vn, k_q_l, v_q_l, lengths, bias_blk, scale=scale, k_scales=k_s_l,
+            v_scales=v_s_l)
     else:
         k_l, v_l = write_layer(cache_slices[0], cache_slices[1], length, kn, vn)
-        ctx = flash_decode.flash_decode_attention(
-            qh, kn.to(dtype), vn.to(dtype), k_l, v_l, lengths, bias_blk, scale=scale)
+        ctx = flash_decode.flash_decode_attention(qh, kn, vn, k_l, v_l, lengths, bias_blk,
+                                                  scale=scale)
     return ctx.transpose(1, 2).reshape(b, s, -1)
 
 
-def paged_flash_layer_attention(q, k, v, slices, block_tables, lengths, bias_blk, scale, dtype):
+def paged_flash_layer_attention(q, k, v, slices, block_tables, lengths, bias_blk, scale):
     """One layer's attention through the paged flash-decode kernel.
-    ``q``/``k``/``v``: [B, S, H, D] fresh projections. Writes the new block
-    into the layer's pools at each row's ``lengths`` (in place), then attends
-    over the live prefix, read page by page through ``block_tables``, plus
-    the new block read from ``k``/``v``. Returns ctx [B, S, hidden]."""
+    ``q``/``k``/``v``: [B, S, H, D] fresh projections, passed as [B, H, S, D]
+    views. Writes the new block into the layer's pools at each row's
+    ``lengths`` (in place), then attends over the live prefix, read page by
+    page through ``block_tables``, plus the new block read from ``k``/``v``.
+    Returns ctx [B, S, hidden] (a view on the card, as above)."""
     b, s = q.shape[0], q.shape[1]
     kn, vn, qh = k.transpose(1, 2), v.transpose(1, 2), q.transpose(1, 2)
     paged_cache.paged_write_layer(slices, block_tables, lengths, kn, vn)
     if len(slices) == 4:
         k_q, k_s, v_q, v_s = slices
         ctx = paged_flash_decode_attention(
-            qh, kn.to(dtype), vn.to(dtype), k_q, v_q, block_tables, lengths, bias_blk,
+            qh, kn, vn, k_q, v_q, block_tables, lengths, bias_blk,
             scale=scale, k_scales=k_s, v_scales=v_s)
     else:
         ctx = paged_flash_decode_attention(
-            qh, kn.to(dtype), vn.to(dtype), slices[0], slices[1], block_tables, lengths,
-            bias_blk, scale=scale)
+            qh, kn, vn, slices[0], slices[1], block_tables, lengths, bias_blk, scale=scale)
     return ctx.transpose(1, 2).reshape(b, s, -1)
 
 
@@ -231,10 +232,9 @@ def forward(
 
         if use_flash and paged:
             ctx = paged_flash_layer_attention(
-                q, k, v, slices, cache.block_tables, lengths, bias_blk, scale, dtype).to(dtype)
+                q, k, v, slices, cache.block_tables, lengths, bias_blk, scale)
         elif use_flash:
-            ctx = flash_layer_attention(
-                q, k, v, slices, length, lengths, bias_blk, scale, dtype).to(dtype)
+            ctx = flash_layer_attention(q, k, v, slices, length, lengths, bias_blk, scale)
         else:
             kh, vh = k.transpose(1, 2), v.transpose(1, 2)
             if paged_prefill:

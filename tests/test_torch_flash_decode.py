@@ -157,3 +157,103 @@ def test_kernel_wrapper_rejects_what_the_kernel_cannot_take():
     with pytest.raises(ValueError):  # head_dim 48: no instantiation
         port._launch(q[..., :48], kn[..., :48], vn[..., :48], kc[..., :48], vc[..., :48],
                      lengths, bias, 0.125, None, None)
+    with pytest.raises(ValueError):  # D not contiguous: the kernel reads rows of D
+        port._launch(q[..., ::2], kn[..., ::2], vn[..., ::2], kc[..., :32], vc[..., :32],
+                     lengths, bias, 0.125, None, None)
+
+
+# ------------------------------------------------------------ split-KV plan
+
+PATH_PLANS = [
+    # (B, Hkv, G*S_new, page, pages) -> (ps, n_split, warps, tiles, blocks)
+    ((1, 40, 25, 256, 1), (64, 4, 2, 1, 200)),     # B2, single-stream verify
+    ((16, 40, 9, 128, 1), (128, 1, 1, 1, 1280)),   # B3, serving verify, uniform
+    ((16, 40, 9, 128, 6), (128, 6, 1, 1, 4480)),   # B3, serving verify, mixed
+]
+
+
+@pytest.mark.parametrize("shape,want", PATH_PLANS)
+def test_plan_grid_at_the_path_shapes(shape, want):
+    p = port.plan(*shape)
+    assert (p.ps, p.n_split, p.warps, p.tiles, p.blocks(*shape[:2])) == want
+    assert p.blocks(*shape[:2]) <= port.MAX_BLOCKS_PER_SM * port.SMS or p.ps == shape[3]
+
+
+@pytest.mark.parametrize("shape", [s for s, _ in PATH_PLANS] + [
+    (1, 6, 1, 256, 1), (1, 6, 2, 256, 1), (16, 6, 1, 128, 1), (16, 6, 2, 128, 6),
+    (1, 4, 100, 256, 1), (3, 8, 5, 256, 1), (8, 4, 36, 16, 8), (6, 4, 9, 32, 8), (2, 3, 7, 100, 3),
+])
+def test_plan_covers_every_position_once(shape):
+    """Every position a row can hold lies in exactly one prefix split, in
+    order; a paged split never crosses a page; the new block is the one
+    split after them; the row tiles cover the G*S_new rows."""
+    bsz, hkv, rows, page, pages = shape
+    p = port.plan(*shape)
+    ranges = port.split_ranges(p, page)
+    assert len(ranges) == p.n_split and p.n_split == pages * p.ppp
+    pos = [x for s, e in ranges for x in range(s, e)]
+    assert pos == list(range(page * pages))
+    assert all(s // page == (e - 1) // page and e - s <= p.ps for s, e in ranges)
+    assert p.blocks(bsz, hkv) == bsz * hkv * p.tiles * (p.n_split + 1)
+    assert 16 * p.warps * p.tiles >= rows > 16 * p.warps * (p.tiles - 1)
+    assert 1 <= p.warps <= port.MAX_WARPS
+
+
+def split_merge(q, kn, vn, kc, vc, lens, bias, scale, ranges, ks=None, vs=None):
+    """The plain version split by split: per batch row, the partials of each
+    live prefix split (cut at the row's length) and of the new block, merged
+    with ``combine_ref``. kc/vc: [B, Hkv, span, D], the contiguous cache or
+    the gathered pages."""
+    bsz, hq, s_new, d = q.shape
+    hkv = kc.shape[1]
+    g = hq // hkv
+    qg = q.float().reshape(bsz, hkv, g * s_new, d) * scale
+    bias_rows = bias.float().repeat(1, g, 1)  # row g*S_new + s takes bias row s
+    outs = []
+    for b in range(bsz):
+        parts = []
+        for s, e in ranges:
+            e = min(e, int(lens[b]))
+            if s < e:
+                parts.append(port.partial_ref(
+                    qg[b:b + 1], kc[b:b + 1, :, s:e], vc[b:b + 1, :, s:e],
+                    k_scales=None if ks is None else ks[b:b + 1, :, s:e],
+                    v_scales=None if vs is None else vs[b:b + 1, :, s:e]))
+        parts.append(port.partial_ref(qg[b:b + 1], kn[b:b + 1], vn[b:b + 1], bias_rows[b:b + 1]))
+        outs.append(port.combine_ref(parts))
+    return torch.cat(outs).reshape(bsz, hq, s_new, d)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("b,hq,hkv,s_new,lens", [
+    (1, 2, 2, 25, [128]),            # the single-stream verify, scaled down
+    (1, 2, 2, 25, [231]),            # S_max - S_new
+    (1, 2, 2, 1, [0]),               # length 0: the new block alone
+    (3, 8, 2, 5, [63, 64, 65]),      # split edges, GQA G=4
+    (2, 16, 4, 25, [95, 256 - 25]),  # G=4 x S_new=25: 100 rows over two row tiles
+])
+def test_split_and_combine_match_the_plain_versions(b, hq, hkv, s_new, lens, quant):
+    """The kernel's arithmetic on the CPU: the plain version over the plan's
+    splits, merged in split order, against the port's and the JAX package's
+    flash_decode_ref (fp32, sums in other orders: 2e-5)."""
+    q, kn, vn, kc, vc, bias = _mk(b, hq, hkv, s_new, 256, 64, seed=7, tree=True)
+    t = torch.from_numpy
+    ks = vs = None
+    kw_j, kw_t = {}, {}
+    if quant:
+        kq, ks_ = jax_quantize_kv(jnp.asarray(kc))
+        vq, vs_ = jax_quantize_kv(jnp.asarray(vc))
+        kc, vc = np.asarray(kq), np.asarray(vq)
+        ks, vs = t(np.array(ks_)), t(np.array(vs_))
+        kw_j, kw_t = dict(k_scales=ks_, v_scales=vs_), dict(k_scales=ks, v_scales=vs)
+    p = port.plan(b, hkv, s_new * hq // hkv, 256)
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    got = split_merge(t(q), t(kn), t(vn), t(kc), t(vc), lengths, t(bias), 0.125,
+                      port.split_ranges(p, 256), ks, vs)
+    ref_t = port.flash_decode_ref(t(q), t(kn), t(vn), t(kc), t(vc), lengths, t(bias), scale=0.125,
+                                  **kw_t)
+    ref_j = jax_ref(jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(kc),
+                    jnp.asarray(vc), jnp.asarray(lens, jnp.int32), jnp.asarray(bias), scale=0.125,
+                    **kw_j)
+    np.testing.assert_allclose(to_np(got), to_np(ref_t), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(to_np(got), np.asarray(ref_j), rtol=2e-5, atol=2e-5)

@@ -35,6 +35,7 @@ from llmspeculativesampling_tpu_torch.kernels import paged_flash_decode as tpfd
 from llmspeculativesampling_tpu_torch.models import llama as tl
 
 from _torch_port import rel_err, to_np, to_port
+from test_torch_flash_decode import split_merge
 
 
 def _bias(b, s_new, tree=False, seed=0):
@@ -293,3 +294,76 @@ def test_dest_indices_send_what_jax_drops_to_the_trash_block():
     np.testing.assert_array_equal(to_np(tblk)[~dropped], jblk[~dropped])
     assert (to_np(tblk)[dropped] == 6).all() and dropped[0, 2:].all() and dropped[2].all()
     np.testing.assert_array_equal(to_np(toff), np.asarray(joff))
+
+
+# ------------------------------------------------------------ split-KV plan
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("page,s_new,hq,hkv,lens", [
+    (16, 9, 2, 2, [6 * 16 - 3, 3 * 16, 0, 4 * 16 + 7]),  # the serving verify, scaled down
+    (32, 1, 6, 6, [31, 32, 33, 0]),                       # draft decode, split edges
+    (16, 2, 8, 2, [17, 96, 1, 15]),                       # the re-feed, GQA
+    (48, 9, 4, 4, [100, 200, 47, 144]),                   # pages cut into two splits
+])
+def test_paged_split_and_combine_match_the_plain_versions(page, s_new, hq, hkv, lens, quant):
+    """The kernel's arithmetic over the paged plan's splits (one page, or a
+    part of one, each), merged in split order, against the port's paged
+    plain version and JAX's flash_decode_ref over the gathered view
+    (fp32, sums in other orders: 2e-5)."""
+    from llmspeculativesampling_tpu_torch.kernels import flash_decode as tfd
+
+    b, p, n_blocks, d = 4, 6, 24, 64
+    q, kn, vn, kp, vp = _attn_inputs(page + s_new, b, hq, hkv, s_new, d, n_blocks, page)
+    perm = np.random.default_rng(page).permutation(n_blocks)
+    tables = np.full((b, p), n_blocks, np.int32)  # sentinel = n_blocks
+    for i, ln in enumerate(lens):
+        take = -(-ln // page)
+        tables[i, :take], perm = perm[:take], perm[take:]
+    lengths = np.asarray(lens, np.int32)
+    bias = _bias(b, s_new, tree=True, seed=page)
+    t = torch.from_numpy
+    ks = vs = None
+    kw = {}
+    if quant:
+        kq, ks, vq, vs = *t_quantize_kv(t(kp)), *t_quantize_kv(t(vp))
+        kw = dict(k_scales=ks, v_scales=vs)
+        kp_t, vp_t = kq, vq
+        k_deq, v_deq = to_np(kq) * to_np(ks)[..., None], to_np(vq) * to_np(vs)[..., None]
+    else:
+        kp_t, vp_t, k_deq, v_deq = t(kp), t(vp), kp, vp
+    tt = t(tables)
+    pl = tfd.plan(b, hkv, s_new * hq // hkv, page, p)
+    gks = None if ks is None else tpfd.gather_pages(ks, tt)
+    gvs = None if vs is None else tpfd.gather_pages(vs, tt)
+    got = split_merge(t(q), t(kn), t(vn), tpfd.gather_pages(kp_t, tt), tpfd.gather_pages(vp_t, tt),
+                      lengths, t(bias), d ** -0.5, tfd.split_ranges(pl, page), gks, gvs)
+    ref_t = tpfd.paged_flash_decode_ref(t(q), t(kn), t(vn), kp_t, vp_t, tt, t(lengths), t(bias),
+                                        scale=d ** -0.5, **kw)
+
+    def gather(pool):
+        g = pool[np.minimum(tables, n_blocks - 1)]
+        return jnp.asarray(g.transpose(0, 2, 1, 3, 4).reshape(b, hkv, p * page, d))
+
+    ref_j = jfd.flash_decode_ref(jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), gather(k_deq),
+                                 gather(v_deq), jnp.asarray(lengths), jnp.asarray(bias),
+                                 scale=d ** -0.5)
+    np.testing.assert_allclose(to_np(got), to_np(ref_t), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(to_np(got), np.asarray(ref_j), rtol=2e-5, atol=2e-5)
+
+
+def test_paged_kernel_wrapper_rejects_what_the_kernel_cannot_take():
+    b, hq, hkv, s_new, d, page = 2, 2, 2, 33, 64, 16
+    q, kn, vn, kp, vp = (torch.from_numpy(a) for a in _attn_inputs(9, b, hq, hkv, s_new, d, 4, page))
+    tables = torch.zeros((b, 2), dtype=torch.int32)
+    lengths = torch.zeros(b, dtype=torch.int32)
+    bias = torch.from_numpy(_bias(b, s_new))
+    with pytest.raises(ValueError):  # new block longer than 32
+        tpfd._launch(q, kn, vn, kp, vp, tables, lengths, bias, 0.125, None, None)
+    q, kn, vn, bias = q[:, :, :9], kn[:, :, :9], vn[:, :, :9], bias[:, :9, :9]
+    with pytest.raises(ValueError):  # head_dim 48: no instantiation
+        tpfd._launch(q[..., :48], kn[..., :48], vn[..., :48], kp[..., :48], vp[..., :48], tables,
+                     lengths, bias, 0.125, None, None)
+    with pytest.raises(ValueError):  # tables not [B, P]
+        tpfd._launch(q, kn, vn, kp, vp, tables[0], lengths, bias, 0.125, None, None)
+    with pytest.raises(TypeError):  # int8 scales with a float pool
+        tpfd._launch(q, kn, vn, kp, vp, tables, lengths, bias, 0.125, kp[..., 0], vp[..., 0])
