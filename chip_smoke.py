@@ -16,14 +16,19 @@ Phases, each printing lines before the last:
      (contiguous flash-decode), B3 (paged flash-decode) at the serving
      shapes, several page sizes, multi-page shuffled tables and a sentinel
      row, lengths on split and page edges, per-row lengths with partly
-     empty splits, tree bias, G=4 x S_new=25; each attention case also
-     bit-identical across a repeat and between the forward's transposed
-     views and contiguous copies, one launch a call, the ticket counters
-     back at 0; timing rows at the verify, AR-decode and draft shapes;
+     empty splits, tree bias, G=4 x S_new=25, and B2 at the tree/beam
+     path's shapes (tree verify B 1/4 x 17 tokens under ancestor biases,
+     multi's B=4 x 5, the beam draft's B=4 x Hkv 6); each attention case
+     also bit-identical across a repeat and between the forward's
+     transposed views and contiguous copies, one launch a call, the ticket
+     counters back at 0; timing rows at the verify, AR-decode and draft
+     shapes of every path;
   3. forward: logits of a 2-layer, full-width (5120) int8 Llama slice on the
      card with the kernels vs the same weights on the CPU with the plain
      versions, through a contiguous cache and through a paged int8 pool
-     (per-row lengths, rollbacks, a sentinel row, a page crossing);
+     (per-row lengths, rollbacks, a sentinel row, a page crossing), and a
+     tree forward (4 rows x 17 tokens, positions and ancestor mask) whose
+     cache ``compact_tree_paths`` compacts alike on the card and the CPU;
   4. single-stream path: the 13B-shaped int8 target + 768-wide int8 draft,
      born on the card from a seed; autoregressive and speculative decoding
      with bench.py's settings (64-token prompt, 128 new tokens, gamma=24,
@@ -32,11 +37,18 @@ Phases, each printing lines before the last:
      ``BatchedInferenceServer`` with the settings of ``scripts/bench_paged.py
      --config 13b --kv_int8 --steps_per_sync 8`` (16 rows, 32 int8 blocks of
      128, gamma=8), two traffic mixes (uniform, with one request over HTTP
-     on a loopback port, and mixed) from concurrent client threads.
+     on a loopback port, and mixed) from concurrent client threads; then 8
+     requests through the engine as a burst and one at a time, whose output
+     ids must be equal;
+  6. tree/beam path: the same pair through multi iid (width 4), beam v1 and
+     beam v2 (4 beams) with ``scripts/bench_beam.py --thirteen_b``'s
+     settings (gamma 4, 64 new tokens); B2 must serve every tree verify,
+     multi's acc_rate must reach 0.6 and v2's mean acc_len exceed 1; the
+     time of the row gathers (``select_rows``) a step.
      Each path's launch counters are set to 0 just before it and read just
-     after; each kernel of a path must have run on it, and B2 must not run
-     on the paged path;
-  6. a ``{"kernels": [...]}`` line, the card line again, and as the last
+     after; each kernel of a path must have run on it, B2 must not run on
+     the paged path and B3 not on the others;
+  7. a ``{"kernels": [...]}`` line, the card line again, and as the last
      line ``{"ok": true, "device": {...}}``.
 Any failed check raises: the script exits non-zero and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -72,6 +84,14 @@ REPS = 3                # timed reps of each method on the main path, after one 
 ROWS, BLOCKS, PAGE, SERVE_GAMMA, SYNC = 16, 32, 128, 8, 8
 SERVE_TARGET_M = (ROWS * (SERVE_GAMMA + 1), 8 * 64)  # verify, prefill of 8 prompts of 64
 SERVE_DRAFT_M = (ROWS, 2 * ROWS, 8 * 64)             # draft step, two-token re-feed, prefill
+# tree/beam path (scripts/bench_beam.py --thirteen_b settings): gamma 4, 4
+# beams or candidates, 64 new tokens
+TREE_GAMMA, TREE_BEAMS, TREE_NEW = 4, 4, 64
+TREE_TOKENS = TREE_GAMMA * TREE_BEAMS + 1                 # anchor + 16 nodes
+TREE_TARGET_M = (TREE_TOKENS, TREE_BEAMS * (TREE_GAMMA + 1), TREE_BEAMS * TREE_TOKENS,
+                 TREE_BEAMS * 64)  # v2 verify (1 row), multi verify, v1 verify (4 rows), prefill
+TREE_DRAFT_M = (TREE_BEAMS, 2 * TREE_BEAMS, TREE_BEAMS * 64)  # beam step, re-feed, prefill
+TREE_PREFIX = 96  # a mid-run committed length of the tree path (64 prompt + up to 64 new)
 
 
 def log(*a):
@@ -165,12 +185,19 @@ def phase_int8_matmul(results):
     log(f"[int8_matmul] tolerance: |kernel-plain| <= {rtol:.2e}*|plain| + {atol_rel:.0e}*max|plain| "
         "(two bf16 ulps; both sum exact bf16 x int8 products in fp32, in other orders)")
     # one target forward of each kind: its 40 x 7 projections and the lm_head
-    forwards = {1: "AR decode", GAMMA + 1: "single verify", SERVE_TARGET_M[0]: "serving verify",
-                SERVE_TARGET_M[1]: "serving prefill"}
+    forwards = {1: "AR decode", TARGET_M[0]: "single prefill", GAMMA + 1: "single verify",
+                SERVE_TARGET_M[0]: "serving verify",
+                SERVE_TARGET_M[1]: "serving prefill", TREE_TARGET_M[0]: "v2 tree verify",
+                TREE_TARGET_M[1]: "multi verify", TREE_TARGET_M[2]: "v1 tree verify",
+                TREE_TARGET_M[3]: "4-row prefill"}
     fwd = {m: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for m in forwards}
+    # the admission prefill's M (64 x requests) plans B1 batch-invariant: time
+    # that plan beside the one chosen from M at each prefill M
+    prefill_m = {TARGET_M[0], TREE_TARGET_M[3], SERVE_TARGET_M[1]}
+    inv = {m: 0.0 for m in prefill_m}
     worst_abs = 0.0
-    tm = sorted(set(TARGET_M + SERVE_TARGET_M), reverse=True)
-    dm = sorted(set(DRAFT_M + SERVE_DRAFT_M), reverse=True)
+    tm = sorted(set(TARGET_M + SERVE_TARGET_M + TREE_TARGET_M), reverse=True)
+    dm = sorted(set(DRAFT_M + SERVE_DRAFT_M + TREE_DRAFT_M), reverse=True)
     cases = [("target", m, k, n, c) for m in tm for (k, n, c) in TARGET_SHAPES + [(5120, VOCAB, 1)]]
     cases += [("draft", m, k, n, c) for m in dm for (k, n, c) in DRAFT_SHAPES + [(768, VOCAB, 1)]]
     # ragged shapes: row tiles part-filled (M not a multiple of 8, two tiles
@@ -203,8 +230,18 @@ def phase_int8_matmul(results):
         w16 = [w.to(torch.bfloat16) for w in ws]
         t_p = time_ms(lambda i: int8_matmul_ref(x, ws[i % len(ws)], s), 5)
         t_l = time_ms(lambda i: torch.matmul(x, w16[i % len(w16)]), 20)
+        t_inv = None
+        if model == "target" and m in prefill_m:
+            got_inv = int8_matmul(x[None], ws[0], s, batch_invariant=True)[0]
+            check_close(f"int8_matmul batch-invariant M={m} K={k} N={n}", got_inv, ref, rtol,
+                        atol_rel * float(ref.float().abs().max()))
+            t_inv = time_ms(lambda i: int8_matmul(x[None], ws[i % len(ws)], s,
+                                                  batch_invariant=True), 20)
+            inv[m] += (40 * per_layer if n != VOCAB else 1) * t_inv
         log(f"{shape} plain_ms {t_p:.4f} library_ms {t_l:.4f} "
-            "(torch.matmul on pre-widened bf16, 2 B/weight)")
+            "(torch.matmul on pre-widened bf16, 2 B/weight)"
+            + ("" if t_inv is None else f"; batch-invariant plan {plan(m, k, n, True)} kernel_ms "
+               f"{t_inv:.4f}"))
         if model == "target" and m in fwd:
             calls = 40 * per_layer if n != VOCAB else 1
             for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms)):
@@ -222,12 +259,16 @@ def phase_int8_matmul(results):
     log(f"[int8_matmul] fp32 x M=25 K=5120 N=5120: max_abs_err {max_abs:.3e} "
         "(tol 1e-4*max|plain|: fp32 sums in other orders)")
     results["int8_matmul"] = dict(**fwd[SERVE_TARGET_M[0]], max_abs_err=worst_abs,
-                                  single_stream_verify_ms=fwd[GAMMA + 1]["ms"])
+                                  single_stream_verify_ms=fwd[GAMMA + 1]["ms"],
+                                  tree_forwards_ms={forwards[m]: fwd[m]["ms"] for m in TREE_TARGET_M})
     for m, what in forwards.items():
         f = fwd[m]
         log(f"[int8_matmul] one {what} target forward (281 launches at M={m}): "
             f"kernel_ms {f['ms']:.3f} plain_ms {f['plain_ms']:.3f} library_ms {f['library_ms']:.3f} "
-            f"bound_ms {f['bound_ms']:.3f} ({f['bound_by']}) bound share {f['bound_ms'] / f['ms']:.3f}")
+            f"bound_ms {f['bound_ms']:.3f} ({f['bound_by']}) bound share {f['bound_ms'] / f['ms']:.3f}"
+            + (f"; batch-invariant plan (the admission prefill's) kernel_ms {inv[m]:.3f}"
+               if m in inv else ""))
+    results["int8_matmul"]["prefill_ms"] = {m: (fwd[m]["ms"], inv[m]) for m in sorted(inv)}
 
 
 def _flash_inputs(gen, b, hq, hkv, s_new, d, quant, tree, dtype=torch.bfloat16):
@@ -286,49 +327,6 @@ def _flash_bound(hkv, s_new, length, quant, rows=1, extra_bytes=0):
               + 4 * rows * hkv * s_new * 128 * 2 + rows * s_new * s_new * 4 + rows * 4
               + extra_bytes)
     return bound(nbytes, 2 * 2 * hkv * s_new * (length + rows * s_new) * 128)
-
-
-def _time_flash(gen, hkv, s_new, length, quant, with_lib):
-    """Kernel, plain and (dense) SDPA times of B2 at B=1, Hq=Hkv, D=128.
-    Inputs rotate through > L2 bytes and are contiguous, so that only the
-    kernel runs inside the timed graph."""
-    import torch.nn.functional as F
-
-    from llmspeculativesampling_tpu_torch.kernels.flash_decode import (
-        flash_decode_attention, flash_decode_ref)
-
-    def make():
-        t = _flash_inputs(gen, 1, hkv, hkv, s_new, 128, quant, False)
-        return [x.contiguous() if x is not None else None for x in t]
-
-    sets = _rotated(make)
-    lengths = torch.full((1,), length, dtype=torch.int32, device="cuda")
-
-    def kern(i):
-        q, kn, vn, kc, vc, bias, ks, vs = sets[i % len(sets)]
-        return flash_decode_attention(q, kn, vn, kc, vc, lengths, bias, scale=1.0,
-                                      k_scales=ks, v_scales=vs)
-
-    def plain(i):
-        q, kn, vn, kc, vc, bias, ks, vs = sets[i % len(sets)]
-        return flash_decode_ref(q, kn, vn, kc, vc, lengths, bias, scale=1.0, k_scales=ks, v_scales=vs)
-
-    t_k, t_p, t_l = time_ms(kern, 50), time_ms(plain, 20), None
-    if with_lib:
-        lib_sets = []
-        for q, kn, vn, kc, vc, bias, _, _ in sets:
-            mask = torch.cat([torch.ones((s_new, length), dtype=torch.bool, device="cuda"),
-                              bias[0] == 0], dim=1)
-            lib_sets.append((q, torch.cat([kc[:, :, :length], kn], dim=2),
-                             torch.cat([vc[:, :, :length], vn], dim=2), mask))
-
-        def lib(i):
-            q, k_all, v_all, mask = lib_sets[i % len(lib_sets)]
-            return F.scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask, scale=1.0)
-
-        t_l = time_ms(lib, 50)
-    b_ms, b_by = _flash_bound(hkv, s_new, length, quant)
-    return t_k, t_p, t_l, b_ms, b_by, len(sets)
 
 
 def phase_flash_decode(results):
@@ -390,7 +388,7 @@ def phase_flash_decode(results):
               ("AR decode", 40, 1, 128, False), ("AR decode", 40, 1, 255, False),
               ("draft decode", 6, 1, 128, False), ("draft first step", 6, 2, 128, False)]
     for what, hkv, s_new, length, quant in shapes:
-        t_k, t_p, t_l, b_ms, b_by, n_sets = _time_flash(gen, hkv, s_new, length, quant, not quant)
+        t_k, t_p, t_l, b_ms, b_by, n_sets = _time_flash(gen, hkv, s_new, [length], quant)
         p = plan(1, hkv, s_new, S_MAX)
         log(f"[flash_decode] {what}: {'int8-KV' if quant else 'dense'} Hkv={hkv} S_new={s_new} "
             f"len={length} plan ps={p.ps} blocks={p.blocks(1, hkv)}: kernel_ms {t_k:.4f} "
@@ -404,6 +402,131 @@ def phase_flash_decode(results):
                 max_abs_err=worst, bound_by=b_by)
     log(f"[flash_decode] one target verify forward (40 launches, len=128): "
         f"kernel_ms {results['flash_decode']['ms']:.3f} bound_ms {results['flash_decode']['bound_ms']:.4f}")
+
+
+def _tree_bias(gen, b):
+    """[B, 17, 17] additive bias of a tree verify, as ``tree_verify`` makes
+    it: the anchor column visible to all, nodes see their ancestors under
+    random parents (gamma 4, 4 beams), through the forward's block_bias."""
+    from llmspeculativesampling_tpu_torch.engine.beam_tree import ancestor_matrix
+    from llmspeculativesampling_tpu_torch.models.llama import block_bias
+
+    parents = torch.randint(0, TREE_BEAMS, (TREE_GAMMA, TREE_BEAMS), generator=gen, device="cuda")
+    block = torch.zeros((TREE_TOKENS, TREE_TOKENS), dtype=torch.bool, device="cuda")
+    block[:, 0] = True
+    block[1:, 1:] = ancestor_matrix(parents, TREE_GAMMA, TREE_BEAMS)
+    return block_bias(TREE_TOKENS, block[None].expand(b, TREE_TOKENS, TREE_TOKENS), b, "cuda")
+
+
+def _rows_inputs(gen, b, hkv, s_new, quant, lens, tree):
+    """B2 inputs at B = len(lens) rows with per-row lengths, Hq = Hkv,
+    D=128: the causal bias, or (``tree``) a tree verify's ancestor bias."""
+    q, kn, vn, kc, vc, bias, ks, vs = _flash_inputs(gen, b, hkv, hkv, s_new, 128, quant, False)
+    if tree:
+        bias = _tree_bias(gen, b)
+    return q, kn, vn, kc, vc, torch.tensor(lens, dtype=torch.int32, device="cuda"), bias, ks, vs
+
+
+def _time_flash(gen, hkv, s_new, lens, quant=False, tree=False):
+    """Kernel, plain and (dense only) SDPA times of B2 at B = len(lens) rows
+    (see :func:`_rows_inputs`). Inputs rotate through > L2 bytes and are
+    contiguous, so that only the kernel runs inside the timed graph; SDPA
+    attends [0, max len) + the block under a float mask (-inf past a row's
+    length, the causal or tree bias on the block)."""
+    import torch.nn.functional as F
+
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import (
+        flash_decode_attention, flash_decode_ref)
+
+    b = len(lens)
+
+    def make():
+        t = _rows_inputs(gen, b, hkv, s_new, quant, lens, tree)
+        return [x.contiguous() if x is not None else None for x in t]
+
+    sets = _rotated(make)
+
+    def kern(i):
+        q, kn, vn, kc, vc, lengths, bias, ks, vs = sets[i % len(sets)]
+        return flash_decode_attention(q, kn, vn, kc, vc, lengths, bias, scale=1.0,
+                                      k_scales=ks, v_scales=vs)
+
+    def plain(i):
+        q, kn, vn, kc, vc, lengths, bias, ks, vs = sets[i % len(sets)]
+        return flash_decode_ref(q, kn, vn, kc, vc, lengths, bias, scale=1.0, k_scales=ks, v_scales=vs)
+
+    t_k, t_p, t_l = time_ms(kern, 50), time_ms(plain, 20), None
+    if not quant:
+        width = max(lens)
+        lib_sets = []
+        for q, kn, vn, kc, vc, lengths, bias, _, _ in sets:
+            pre = torch.arange(width, device="cuda")[None, None, :] < lengths[:, None, None]
+            pre = torch.where(pre, 0.0, float("-inf")).expand(b, s_new, width)
+            mask = torch.cat([pre, torch.where(bias == 0, 0.0, float("-inf"))], dim=2)[:, None]
+            lib_sets.append((q, torch.cat([kc[:, :, :width], kn], 2),
+                             torch.cat([vc[:, :, :width], vn], 2), mask.contiguous()))
+
+        def lib(i):
+            q, k_all, v_all, mask = lib_sets[i % len(lib_sets)]
+            return F.scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask, scale=1.0)
+
+        t_l = time_ms(lib, 50)
+        del lib_sets
+    b_ms, b_by = _flash_bound(hkv, s_new, sum(lens), quant, rows=b)
+    n = len(sets)
+    del sets
+    return t_k, t_p, t_l, b_ms, b_by, n
+
+
+def phase_flash_tree(results):
+    """B2 at the tree/beam path's shapes: the tree verify (B 1 and 4, Hkv
+    40, S_new 17 under an ancestor bias), multi's causal verify (B=4,
+    S_new 5) and the beam draft (B=4, Hkv 6, S_new 1 and 2)."""
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import (
+        flash_decode_attention, flash_decode_ref, plan)
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rtol = atol = 2.0 ** -7
+    lens4 = [[64, 97, 150, 200], [200, 64, 129, 65], [TREE_PREFIX] * 4]
+    cases = []  # (what, b, hkv, s_new, lens, tree)
+    for lens in ([64], [130], [200], [TREE_PREFIX]):
+        cases.append(("tree verify", 1, 40, TREE_TOKENS, lens, True))
+    for lens in lens4:
+        cases.append(("tree verify", 4, 40, TREE_TOKENS, lens, True))
+        cases.append(("multi verify", 4, 40, TREE_GAMMA + 1, lens, False))
+        for s_new in (1, 2):
+            cases.append(("beam draft", 4, 6, s_new, lens, False))
+    worst = 0.0
+    for quant in (False, True):
+        for what, b, hkv, s_new, lens, tree in cases:
+            q, kn, vn, kc, vc, lengths, bias, ks, vs = _rows_inputs(gen, b, hkv, s_new, quant,
+                                                                   lens, tree)
+            max_abs, _ = _check_case(
+                f"flash_decode {what} quant={quant} B={b} Hkv={hkv} S_new={s_new} len={lens}",
+                flash_decode_attention, flash_decode_ref, (q, kn, vn, kc, vc, lengths, bias),
+                dict(scale=1.0, k_scales=ks, v_scales=vs), rtol, atol)
+            worst = max(worst, max_abs)
+    log(f"[flash_decode tree] {2 * len(cases)} cases within tolerance (bf16 and int8 KV; tree "
+        f"verify B 1/4 x S_new {TREE_TOKENS} under ancestor biases of random parents, multi verify "
+        f"B=4 x S_new {TREE_GAMMA + 1}, beam draft B=4 x Hkv 6 x S_new 1/2; lengths 64-200), "
+        f"worst max_abs_err {worst:.3e}")
+    rows = {}
+    for what, b, hkv, s_new, tree in (("tree verify", 1, 40, TREE_TOKENS, True),
+                                      ("tree verify", 4, 40, TREE_TOKENS, True),
+                                      ("multi verify", 4, 40, TREE_GAMMA + 1, False),
+                                      ("beam draft", 4, 6, 1, False),
+                                      ("beam draft re-feed", 4, 6, 2, False)):
+        lens = [TREE_PREFIX] * b
+        t_k, t_p, t_l, b_ms, b_by, n_sets = _time_flash(gen, hkv, s_new, lens, tree=tree)
+        p = plan(b, hkv, s_new, S_MAX)
+        log(f"[flash_decode tree] {what}: dense B={b} Hkv={hkv} S_new={s_new} len={TREE_PREFIX} "
+            f"plan ps={p.ps} blocks={p.blocks(b, hkv)}: kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
+            f"library_ms {t_l:.4f} (F.scaled_dot_product_attention, {'tree' if tree else 'causal'} "
+            f"as a float mask) bound_us {b_ms * 1e3:.2f} ({b_by}) bound share {b_ms / t_k:.3f}; "
+            f"{n_sets} input sets rotated")
+        rows[f"{what} B={b}"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                                     bound_by=b_by)
+    results["flash_decode_tree"] = dict(max_abs_err=worst, per_call=rows)
 
 
 def _paged_inputs(gen, lens, hq, hkv, s_new, d, page, p_max, quant, tree=False,
@@ -687,6 +810,94 @@ def phase_paged_forward():
     del pt, pc
 
 
+def phase_tree_forward():
+    """A tree forward (4 rows x 17 tokens: ``positions`` and ``tree_mask``
+    as ``tree_verify`` builds them, so B2 runs under the ancestor bias) of
+    the 2-layer slice through a contiguous bf16 cache, card vs CPU; then
+    ``compact_tree_paths`` of the card's cache on the card and of the same
+    cache copied to the CPU must agree bit for bit (and on an int8 cache)."""
+    import dataclasses
+
+    from llmspeculativesampling_tpu_torch.cache.kvcache import (
+        QuantKVCache, compact_tree_paths, kv_buffers, rollback)
+    from llmspeculativesampling_tpu_torch.core.synthetic import synthetic_pair_int8
+    from llmspeculativesampling_tpu_torch.engine.beam_tree import ancestor_matrix, backtrack_path
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import flash_decode_attention
+
+    _, _, bt, pt = synthetic_pair_int8(num_layers=2, draft_layers=2, seed=9, device="cuda")
+    pc = _to_cpu(pt)
+    cfg = bt.cfg
+    rng = np.random.default_rng(9)
+    rows, n, cur_len = TREE_BEAMS, TREE_GAMMA * TREE_BEAMS, 64
+    prompt = torch.as_tensor(rng.integers(100, 31000, (rows, cur_len)), dtype=torch.long)
+    parents = torch.as_tensor(rng.integers(0, TREE_BEAMS, (TREE_GAMMA, TREE_BEAMS)))
+    nodes = torch.as_tensor(rng.integers(100, 31000, n), dtype=torch.long)
+    block = torch.zeros((n + 1, n + 1), dtype=torch.bool)
+    block[:, 0] = True
+    block[1:, 1:] = ancestor_matrix(parents, TREE_GAMMA, TREE_BEAMS)
+    level = torch.arange(TREE_GAMMA).repeat_interleave(TREE_BEAMS)
+    positions = torch.cat([torch.tensor([cur_len - 1]), cur_len + level])[None].expand(rows, n + 1)
+    vin = torch.cat([prompt[:, -1:], nodes[None].expand(rows, n)], dim=1)
+    outs, caches = {}, {}
+    launches = flash_decode_attention.launches
+    for dev, params in (("cuda", pt), ("cpu", pc)):
+        cache = bt.make_cache(rows, S_MAX, device=dev)
+        _, cache = bt.forward(params, cfg, prompt.to(dev), cache)
+        cache = rollback(cache, cur_len - 1)
+        logits, cache = bt.forward(params, cfg, vin.to(dev), cache, positions=positions.to(dev),
+                                   tree_mask=block[None].expand(rows, n + 1, n + 1).to(dev))
+        outs[dev], caches[dev] = logits.float().cpu(), cache
+    if flash_decode_attention.launches - launches != cfg.num_layers:
+        raise AssertionError("the tree forward did not take the flash-decode kernel")
+    g, r = outs["cuda"], outs["cpu"]
+    rel_tol = 3e-2
+    max_abs = float((g - r).abs().max())
+    rel = max_abs / float(r.abs().max())
+    top2 = r.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * max_abs
+    agree = (g.argmax(-1) == r.argmax(-1)) | ~clear
+    log(f"[tree forward] 2-layer 5120-wide int8, {rows} rows x {n + 1} tree tokens at prefix "
+        f"{cur_len - 1}: max|gpu-cpu|/max|cpu| {rel:.2e} (tol {rel_tol:.0e}); argmax agrees at "
+        f"{int(agree.sum())}/{agree.numel()} positions ({int(clear.sum())} with a clear top-2 gap, "
+        f"which must agree)")
+    if not torch.isfinite(g).all() or g.shape != (rows, n + 1, cfg.vocab_size):
+        raise AssertionError(f"tree forward: bad logits {tuple(g.shape)}")
+    if rel > rel_tol or not bool(agree.all()):
+        raise AssertionError("tree forward: gpu and cpu logits disagree")
+    kv_rel = max(float((a.float().cpu() - b.float()).abs().max()) / float(b.float().abs().max())
+                 for a, b in zip(kv_buffers(caches["cuda"]), kv_buffers(caches["cpu"])))
+    log(f"[tree forward] cache after the tree forward: max|gpu-cpu|/max|cpu| {kv_rel:.2e} "
+        f"(tol {rel_tol:.0e})")
+    if kv_rel > rel_tol:
+        raise AssertionError("tree forward: gpu and cpu caches disagree")
+
+    # compaction of one cache's content on both devices: the card's tree cache,
+    # and a random int8 cache
+    quant = QuantKVCache(*(torch.randint(-127, 128, (2, rows, 40, S_MAX, 128), dtype=torch.int8)
+                           for _ in range(2)),
+                         *(torch.rand((2, rows, 40, S_MAX)) for _ in range(2)), cur_len + n)
+    for name, src in (("bf16 tree cache", caches["cuda"]), ("int8 cache", quant)):
+        for max_l in (0, 2, TREE_GAMMA):
+            parent = torch.as_tensor(rng.integers(0, TREE_BEAMS, rows))
+            _, _, path_nodes, _ = backtrack_path(parents, nodes.reshape(TREE_GAMMA, TREE_BEAMS),
+                                                 parent, max_l, TREE_GAMMA, TREE_BEAMS)
+            valid = (torch.arange(TREE_GAMMA) < max_l)[None].expand(rows, TREE_GAMMA)
+            got = compact_tree_paths(
+                dataclasses.replace(src, **{f.name: getattr(src, f.name).cuda().clone()
+                                            for f in dataclasses.fields(src) if f.name != "length"}),
+                path_nodes.cuda(), valid.cuda(), cur_len)
+            ref = compact_tree_paths(
+                dataclasses.replace(src, **{f.name: getattr(src, f.name).cpu().clone()
+                                            for f in dataclasses.fields(src) if f.name != "length"}),
+                path_nodes, valid, cur_len)
+            if got.length != ref.length or not all(
+                    torch.equal(a.cpu(), b) for a, b in zip(kv_buffers(got), kv_buffers(ref))):
+                raise AssertionError(f"compact_tree_paths: card and CPU differ ({name}, max_l {max_l})")
+    log("[tree forward] compact_tree_paths: card == CPU bit for bit (bf16 tree cache and an int8 "
+        "cache; accepted depths 0, 2, 4)")
+    del pt, pc
+
+
 # ---------------------------------------------------------------- phase 4
 def _counters():
     from llmspeculativesampling_tpu_torch.kernels.flash_decode import flash_decode_attention
@@ -774,6 +985,105 @@ def phase_main_path(results, reps: int, pair):
     results["launches"] = {"single_stream": launches}
     results["main"] = dict(ar_tok_s=float(np.median(ar_rates)), spec_tok_s=float(np.median(sp_rates)),
                            acc_rate=float(np.mean(acc)))
+
+
+# ---------------------------------------------------------------- phase 6
+def _time_select_rows(cache, rows: int, reps: int = 20) -> float:
+    """Device ms of one ``select_rows`` of ``cache`` into ``rows`` rows (CUDA
+    events around eager calls: each allocates its copy)."""
+    from llmspeculativesampling_tpu_torch.cache.kvcache import select_rows
+
+    idx = torch.zeros((rows,), dtype=torch.long, device="cuda")
+    select_rows(cache, idx)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        select_rows(cache, idx)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_tree_path(results, reps: int, pair):
+    """The tree/beam path on the 13B-int8 pair with scripts/bench_beam.py's
+    --thirteen_b settings: multi iid (width 4), beam v1 (4 beams) and beam
+    v2 (4 beams, extra_sample_cnt 1, expect_thres 0.7); gamma 4, top_k 20,
+    top_p 0.9, 64 new tokens from a 64-token prompt, eos 2. One warm-up,
+    then ``reps`` timed runs a engine, with the launch counts of those."""
+    from llmspeculativesampling_tpu_torch.cache.kvcache import kv_buffers
+    from llmspeculativesampling_tpu_torch.engine.beam_tree import (
+        beam_speculative_generate, beam_speculative_v2_generate)
+    from llmspeculativesampling_tpu_torch.engine.multi import multi_speculative_generate
+
+    card = card_line()
+    bd, pd, bt, pt = pair
+    prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
+    kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, details=True, device="cuda")
+    g, nb = TREE_GAMMA, TREE_BEAMS
+    engines = {
+        "multi": lambda gen: multi_speculative_generate(
+            bd, pd, bt, pt, prompt, TREE_NEW, gamma=g, width=nb, generator=gen, **kw),
+        "beam_v1": lambda gen: beam_speculative_generate(
+            bd, pd, bt, pt, prompt, TREE_NEW, gamma=g, num_beams=nb, generator=gen, **kw),
+        "beam_v2": lambda gen: beam_speculative_v2_generate(
+            bd, pd, bt, pt, prompt, TREE_NEW, gamma=g, num_beams=nb, extra_sample_cnt=1,
+            expect_thres=0.7, generator=gen, **kw),
+    }
+    out_res, total_launches = {}, {}
+    for name, run in engines.items():
+        run(torch.Generator(device="cuda").manual_seed(0))  # warm-up, phase-split calibration
+        torch.cuda.synchronize()
+        reset_launches()
+        ds = []
+        for k in range(1, reps + 1):
+            out, d = run(torch.Generator(device="cuda").manual_seed(k))
+            ds.append(d)
+            gen_ids = out[64:]
+            # the loop checks the budget before a step, which adds up to gamma+1 tokens
+            if not (np.array_equal(out[:64], np.asarray(prompt)) and 1 <= len(gen_ids) <= TREE_NEW + g
+                    and gen_ids.min() >= 0 and gen_ids.max() < VOCAB):
+                raise AssertionError(f"tree path {name}: bad output of length {len(out)}")
+        launches = read_launches()
+        steps = [d["target_call_times"] for d in ds]
+        rates = [d["tokens_per_s"] for d in ds]
+        acc = [d["acc_rate"] for d in ds]
+        acc_len = [float(np.mean(d["acc_len"])) for d in ds]
+        log(f"[tree {name}] tok/s median {np.median(rates):.2f} min {min(rates):.2f} max "
+            f"{max(rates):.2f} over {reps} reps; acc_rate {np.mean(acc):.4f}, mean acc_len "
+            f"{np.mean(acc_len):.3f} (per rep {[round(a, 3) for a in acc_len]}), steps per rep "
+            f"{steps}; launches {launches} ({card})")
+        if launches["int8_matmul"] <= 0 or launches["paged_flash_decode"] != 0:
+            raise AssertionError(f"tree path {name}: B1 did not run, or B3 ran")
+        if launches["flash_decode"] < bt.cfg.num_layers * sum(steps):
+            raise AssertionError(f"tree path {name}: {launches['flash_decode']} B2 launches for "
+                                 f"{sum(steps)} verify forwards of {bt.cfg.num_layers} layers: "
+                                 "the verify skipped B2")
+        if name == "multi" and np.mean(acc) < 0.6:
+            raise AssertionError(f"tree path multi: acceptance {np.mean(acc):.3f} < 0.6")
+        if name == "beam_v2" and np.mean(acc_len) <= 1.0:
+            raise AssertionError(f"tree path beam_v2: mean acc_len {np.mean(acc_len):.3f} <= 1: "
+                                 "the tree verify is likely wrong")
+        out_res[name] = dict(tok_s=float(np.median(rates)), acc_rate=float(np.mean(acc)),
+                             acc_len=float(np.mean(acc_len)), steps=steps, launches=launches)
+        for kname, n in launches.items():
+            total_launches[kname] = total_launches.get(kname, 0) + n
+
+    # select_rows: the row gathers of a step, at this path's caches
+    tc4 = bt.make_cache(nb, 256, device="cuda")
+    tc1 = bt.make_cache(1, 256, device="cuda")
+    dc4 = bd.make_cache(nb, 256, device="cuda")
+    t4, t1, d4 = _time_select_rows(tc4, nb), _time_select_rows(tc1, 1), _time_select_rows(dc4, nb)
+    per_step = {"multi": t4 + d4, "beam_v1": t4 + (g + 1) * d4, "beam_v2": t1 + (g + 1) * d4}
+    gb = sum(x.nbytes for x in kv_buffers(tc4)) / 1e9
+    log(f"[tree select_rows] target 4 rows x 256 ({gb:.2f} GB bf16) {t4:.3f} ms, target 1 row "
+        f"{t1:.3f} ms, draft 4 rows {d4:.4f} ms; a step's gathers: multi {per_step['multi']:.3f} ms, "
+        f"v1 {per_step['beam_v1']:.3f} ms, v2 {per_step['beam_v2']:.3f} ms ({card})")
+    del tc4, tc1, dc4
+    torch.cuda.empty_cache()
+    results["tree"] = dict(engines=out_res, select_rows_ms=dict(target4=t4, target1=t1, draft4=d4),
+                           select_rows_per_step_ms=per_step)
+    results["launches"]["tree_beam"] = total_launches
 
 
 # ---------------------------------------------------------------- phase 5
@@ -916,6 +1226,55 @@ def _serve_mix(kind: str, pair) -> dict:
                     "latency_p50_s", "latency_p95_s", "ttft_p50_s", "ttft_p95_s")})
 
 
+def phase_burst_trickle(results, pair, n_req: int = 8):
+    """The same requests through one ``PagedEngine`` (the uniform mix's
+    settings) once as a burst (one admission prefill of all of them) and
+    once one at a time (an admission each), under the same rids, so the
+    same per-request random streams: the output ids must be equal. Each
+    admission prefill has M = requests x 64 rows; its B1 calls are planned
+    batch-invariant (the split of K from (K, N) alone), and every other
+    call of a step has the same shapes however many requests are live."""
+    from llmspeculativesampling_tpu_torch.kernels.int8_matmul import plan
+    from llmspeculativesampling_tpu_torch.serve.paged import PagedEngine
+
+    bd, pd, bt, pt = pair
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(100, 31000, 64).astype(np.int32) for _ in range(n_req)]
+    engine = PagedEngine(
+        bd, pd, bt, pt, batch_rows=ROWS, num_blocks=BLOCKS, page=PAGE, max_pages_per_req=1,
+        max_new_cap=48, gamma=SERVE_GAMMA, eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9,
+        prompt_bucket=64, steps_per_sync=SYNC, kv_quant=True, device="cuda")
+    for rid, p in enumerate(prompts):
+        engine.submit_with_rid(rid, p, 48)
+    engine.run_until_idle()
+    burst = [engine.result(rid).output_ids for rid in range(n_req)]
+    trickle = []
+    for rid, p in enumerate(prompts):
+        engine.submit_with_rid(rid, p, 48)
+        engine.run_until_idle()
+        trickle.append(engine.result(rid).output_ids)
+    diff = []  # (rid, first differing position)
+    for rid, (a, b) in enumerate(zip(burst, trickle)):
+        if not np.array_equal(a, b):
+            n = min(len(a), len(b))
+            neq = np.nonzero(a[:n] != b[:n])[0]
+            diff.append((rid, int(neq[0]) if neq.size else n))
+    ks = {m: plan(m, 5120, 5120, True)[1] for m in (64, n_req * 64)}
+    if diff:
+        log(f"[burst vs trickle] {len(diff)}/{n_req} requests differ: (rid, first differing "
+            f"position) {diff}; B1 ksplit of a 5120x5120 admission prefill projection: M=64 -> "
+            f"{ks[64]}, M={n_req * 64} -> {ks[n_req * 64]}")
+    else:
+        log(f"[burst vs trickle] all {n_req} requests give identical output ids "
+            f"({sum(len(o) - 64 for o in burst)} generated tokens; B1 ksplit at the prefill: "
+            f"M=64 -> {ks[64]}, M={n_req * 64} -> {ks[n_req * 64]})")
+    results["burst_trickle"] = dict(requests=n_req, differ=diff)
+    if diff:
+        raise AssertionError("burst vs trickle: a request's output depends on its admission batch")
+    del engine
+    torch.cuda.empty_cache()
+
+
 def phase_serving(results, pair):
     serving = {kind: _serve_mix(kind, pair) for kind in ("uniform", "mixed")}
     results["serving"] = serving
@@ -938,12 +1297,16 @@ def main() -> int:
     phase_device(_build)
     phase_int8_matmul(results)
     phase_flash_decode(results)
+    phase_flash_tree(results)
     phase_paged_flash_decode(results)
     phase_forward()
     phase_paged_forward()
+    phase_tree_forward()
     pair = build_pair()
     phase_main_path(results, REPS, pair)
+    phase_tree_path(results, REPS, pair)
     phase_serving(results, pair)
+    phase_burst_trickle(results, pair)
     del pair
     by_path = results["launches"]
     kernels = [

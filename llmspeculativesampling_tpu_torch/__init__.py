@@ -10,3 +10,33 @@ Entry points run on the CUDA device unless the caller passes
 hand-written kernel (``csrc/``) or raises; the plain PyTorch version beside
 each kernel serves CPU tensors (the tests) only.
 """
+
+from .engine import (  # noqa: E402
+    ModelBundle,
+    autoregressive_generate,
+    beam_speculative_generate,
+    beam_speculative_v2_generate,
+    multi_speculative_generate,
+    speculative_generate,
+)
+
+# the reference's names for the ported entry points
+speculative_sampling = speculative_generate
+autoregressive_sampling = autoregressive_generate
+multi_speculative_sampling = multi_speculative_generate
+beam_speculative_sampling = beam_speculative_generate
+beam_speculative_sampling_v2 = beam_speculative_v2_generate
+
+__all__ = [
+    "ModelBundle",
+    "autoregressive_generate",
+    "beam_speculative_generate",
+    "beam_speculative_v2_generate",
+    "multi_speculative_generate",
+    "speculative_generate",
+    "speculative_sampling",
+    "autoregressive_sampling",
+    "multi_speculative_sampling",
+    "beam_speculative_sampling",
+    "beam_speculative_sampling_v2",
+]

@@ -16,7 +16,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -84,6 +84,56 @@ def init_quant_cache(num_layers, batch, num_kv_heads, max_len, head_dim,
 def rollback(cache, new_length: int):
     """Truncate to ``new_length`` positions: only the pointer moves."""
     return dataclasses.replace(cache, length=int(new_length))
+
+
+def kv_buffers(cache) -> tuple:
+    """The cache's buffers: dense (k, v); int8 (k_q, v_q, k_s, v_s). Every
+    buffer has positions on dim 3."""
+    if isinstance(cache, QuantKVCache):
+        return (cache.k_q, cache.v_q, cache.k_s, cache.v_s)
+    return (cache.k, cache.v)
+
+
+def read_positions(cache, start: int, size: int) -> tuple:
+    """Copies of positions [start, start+size) of every buffer (the window
+    clamped into the cache, as ``dynamic_slice`` does)."""
+    st = _start(start, size, cache.max_len)
+    return tuple(b[:, :, :, st:st + size].clone() for b in kv_buffers(cache))
+
+
+def write_positions(cache, parts: tuple, start: int):
+    """Write ``parts`` (one per buffer, as :func:`read_positions` returns)
+    at ``start`` of every buffer, in place."""
+    for buf, part in zip(kv_buffers(cache), parts):
+        st = _start(start, part.shape[3], buf.shape[3])
+        buf[:, :, :, st:st + part.shape[3]] = part.to(buf.dtype)
+    return cache
+
+
+def compact_tree_paths(cache, path_idx: torch.Tensor, path_valid: torch.Tensor, prefix_len: int,
+                       new_length: Optional[int] = None):
+    """Compact a tree-layout tail to one accepted path per row, in place.
+
+    Positions ``< prefix_len`` stay; output tail slot j of row b takes the
+    k/v (and scales) of tail offset ``path_idx[b, j]``, zeroed where
+    ``path_valid[b, j]`` is false, written at ``prefix_len + j``. The new
+    length is ``prefix_len + sum(path_valid[0])``: pass it as
+    ``new_length`` when the host knows it, or the count is read from the
+    device. ``path_idx`` int [B, T], ``path_valid`` bool [B, T]."""
+    t = path_idx.shape[1]
+    dev = kv_buffers(cache)[0].device
+    src = prefix_len + path_idx.to(device=dev, dtype=torch.long)  # [B, T] absolute
+    rows = torch.arange(src.shape[0], device=dev)[:, None].expand_as(src)
+    valid = path_valid.to(device=dev, dtype=torch.bool)
+    st = _start(prefix_len, t, cache.max_len)
+    for buf in kv_buffers(cache):
+        g = buf[:, rows, :, src]  # [B, T, L, H(, D)]
+        g = g.permute(2, 0, 3, 1, 4) if buf.dim() == 5 else g.permute(2, 0, 3, 1)
+        mask = valid[None, :, None, :, None] if buf.dim() == 5 else valid[None, :, None, :]
+        buf[:, :, :, st:st + t] = torch.where(mask, g, torch.zeros((), dtype=buf.dtype, device=dev))
+    if new_length is None:
+        new_length = prefix_len + int(valid[0].sum())
+    return rollback(cache, new_length)
 
 
 def _map_kv(cache, fn):

@@ -28,6 +28,8 @@ MTS = (8, 16, 32, 64, 128, 160, 256)  # row tiles the kernel is built for (the w
 SMS = 132  # H100 SXM
 WS_CAP = 16 << 20  # bytes of split-K partials, well inside the 50 MB L2
 FILL = 3  # chunks' worth of time a block spends before its ring is full
+# rows of one prompt bucket: a batch-invariant call splits K as an M=64 call does
+INVARIANT_M = 64
 
 
 def blocks_per_sm(mt: int) -> int:
@@ -48,7 +50,7 @@ def int8_matmul_ref(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> 
 
 
 @functools.lru_cache(maxsize=None)
-def plan(m: int, k: int, n: int):
+def plan(m: int, k: int, n: int, batch_invariant: bool = False):
     """(row tile MT, ksplit, chunks per split) for an [m, k] x [k, n] call.
 
     MT is the smallest built tile that covers m, or m split evenly over
@@ -56,9 +58,17 @@ def plan(m: int, k: int, n: int):
     split into ``ksplit`` ranges of whole 64-row chunks: at least one block
     per SM where the column tiles and chunks allow it within the workspace
     cap, and among those the least ``waves * (chunks per block + FILL)``,
-    FILL standing for a block's start: its first copies in flight."""
+    FILL standing for a block's start: its first copies in flight.
+
+    A row's sums depend on the split of K, and the row tile does not change
+    them. ``batch_invariant=True`` takes the split an ``INVARIANT_M``-row
+    call gets, chosen from (K, N) alone, so a row's output is the same
+    bits however many rows share the call (the paged engine's admission
+    prefill, whose M is 64 times the requests admitted together)."""
     m_tiles = _cdiv(m, MTS[-1])
     mt = next(t for t in MTS if t >= _cdiv(m, m_tiles))
+    if batch_invariant and m != INVARIANT_M:
+        return (mt, *plan(INVARIANT_M, k, n)[1:])
     tiles = _cdiv(n, BN) * _cdiv(m, mt)
     chunks = _cdiv(k, BK)
     slots = SMS * blocks_per_sm(mt)
@@ -78,7 +88,8 @@ def plan(m: int, k: int, n: int):
     return mt, ksplit, options[ksplit]
 
 
-def _launch(x2: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, out_dtype) -> torch.Tensor:
+def _launch(x2: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, out_dtype,
+            batch_invariant: bool = False) -> torch.Tensor:
     m, k = x2.shape
     n = w_q.shape[1]
     if w_q.dtype != torch.int8:
@@ -97,7 +108,7 @@ def _launch(x2: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, out_dtype)
     s = scale.to(torch.float32).contiguous()
     if w.data_ptr() % 16:
         raise ValueError("w_q must be 16-byte aligned")
-    mt, ksplit, cps = plan(m, k, n)
+    mt, ksplit, cps = plan(m, k, n, batch_invariant)
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     ws = torch.empty((ksplit, m, n), dtype=torch.float32, device=dev) if ksplit > 1 else None
     lib = _lib()
@@ -124,15 +135,17 @@ def _lib():
     return lib
 
 
-def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                batch_invariant: bool = False) -> torch.Tensor:
     """``x [..., K] @ dequant(w_q [K, N], scale [N]) -> [..., N]`` in x's
-    dtype. CPU tensors take the plain version; CUDA tensors the kernel."""
+    dtype. CPU tensors take the plain version; CUDA tensors the kernel,
+    planned with ``batch_invariant`` (see :func:`plan`)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cpu":
         out = int8_matmul_ref(x2, w_q, scale)
     elif x.device.type == "cuda":
-        out = _launch(x2, w_q, scale, x.dtype)
+        out = _launch(x2, w_q, scale, x.dtype, batch_invariant)
     else:
         raise ValueError(f"unsupported device {x.device}")
     return out.reshape(*lead, w_q.shape[1])

@@ -14,9 +14,13 @@ from ..kernels.int8_matmul import int8_matmul
 from ..quant.core import QUANT_LEAF_Q, QUANT_LEAF_S, is_quantized_leaf
 
 
-def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
+           batch_invariant: bool = False) -> torch.Tensor:
+    """``x @ w (+ bias)``; ``batch_invariant`` plans the W8A16 kernel so a
+    row's output does not depend on the rows beside it
+    (``kernels/int8_matmul.py::plan``)."""
     if is_quantized_leaf(w):
-        y = int8_matmul(x, w[QUANT_LEAF_Q], w[QUANT_LEAF_S])
+        y = int8_matmul(x, w[QUANT_LEAF_Q], w[QUANT_LEAF_S], batch_invariant)
     else:
         y = x @ w
     if bias is not None:
@@ -24,9 +28,9 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None) -> torch.Ten
     return y
 
 
-def lm_head_logits(h: torch.Tensor, head) -> torch.Tensor:
+def lm_head_logits(h: torch.Tensor, head, batch_invariant: bool = False) -> torch.Tensor:
     """fp32 logits from the dense ``[V, H]`` head or the quantized
     ``{"q": [H, V], "s": [V]}`` re-layout."""
     if is_quantized_leaf(head):
-        return int8_matmul(h, head[QUANT_LEAF_Q], head[QUANT_LEAF_S]).float()
+        return int8_matmul(h, head[QUANT_LEAF_Q], head[QUANT_LEAF_S], batch_invariant).float()
     return h.float() @ head.float().t()

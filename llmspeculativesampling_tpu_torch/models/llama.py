@@ -22,6 +22,7 @@ run in fp32, activations stay in the config dtype.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -186,7 +187,9 @@ def forward(
 
     ``paged_prefill=True`` (paged caches only) declares every row empty
     (lengths 0): attention runs block-only over the new tokens, as the JAX
-    package's admission prefill does, and reads nothing from the pools."""
+    package's admission prefill does, and reads nothing from the pools. Its
+    W8A16 calls are planned batch-invariant, so a request's prefill gives
+    the same bits whatever requests are admitted with it."""
     b, s = tokens.shape
     dev = tokens.device
     dtype = cfg.torch_dtype
@@ -221,12 +224,13 @@ def forward(
     n_rep = cfg.num_heads // cfg.num_kv_heads
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
+    lin = functools.partial(linear, batch_invariant=paged_prefill)
     for li, lp in enumerate(layers):
         slices = paged_cache.layer_slices(cache, li) if paged else layer_slices(cache, li)
         r = rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
-        q = linear(r, lp["wq"], lp.get("bq")).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = linear(r, lp["wk"], lp.get("bk")).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = linear(r, lp["wv"], lp.get("bv")).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = lin(r, lp["wq"], lp.get("bq")).reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k = lin(r, lp["wk"], lp.get("bk")).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = lin(r, lp["wv"], lp.get("bv")).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 
@@ -255,16 +259,16 @@ def forward(
             ctx = torch.einsum("bhgst,bhtd->bhgsd", probs.float(), v_all.float())
             ctx = ctx.to(dtype).reshape(b, cfg.num_heads, s, cfg.head_dim)
             ctx = ctx.transpose(1, 2).reshape(b, s, cfg.hidden_size)
-        h = h + linear(ctx, lp["wo"])
+        h = h + lin(ctx, lp["wo"])
 
         r = rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps)
-        gate = torch.nn.functional.silu(linear(r, lp["w_gate"]).float()).to(dtype)
-        up = linear(r, lp["w_up"])
-        h = h + linear(gate * up, lp["w_down"])
+        gate = torch.nn.functional.silu(lin(r, lp["w_gate"]).float()).to(dtype)
+        up = lin(r, lp["w_up"])
+        h = h + lin(gate * up, lp["w_down"])
 
     h = rms_norm(h, params["ln_final"], cfg.rms_norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = lm_head_logits(h, head)
+    logits = lm_head_logits(h, head, batch_invariant=paged_prefill)
     if paged:
         return logits, dataclasses.replace(cache, lengths=lengths + s)
     return logits, dataclasses.replace(cache, length=length + s)

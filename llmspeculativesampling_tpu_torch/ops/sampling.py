@@ -188,9 +188,7 @@ def norm_logits_topk(logits: torch.Tensor, cfg: SamplingConfig) -> TopKDist:
     vals, idx = torch.topk(x, k, dim=-1)
     probs = torch.softmax(vals, dim=-1)
     if cfg.top_p > 0.0:
-        cum = torch.cumsum(probs, dim=-1)
-        probs = torch.where((cum - probs) <= cfg.top_p, probs, torch.zeros_like(probs))
-        probs = probs / probs.sum(dim=-1, keepdim=True)
+        probs = _nucleus(probs, cfg.top_p)
     return TopKDist(idx, probs)
 
 
@@ -227,6 +225,155 @@ def dense_probs(dist: TopKDist, vocab_size: int) -> torch.Tensor:
     out = torch.zeros(dist.probs.shape[:-1] + (vocab_size,), dtype=torch.float32,
                       device=dist.probs.device)
     return out.scatter_add_(-1, dist.idx, dist.probs.float())
+
+
+# ---- sparse JOINT (beam x vocab) distributions of the tree/beam engines.
+# With top-k warping active every joint's support lies inside the union of
+# the per-row top-k candidates (<= B*k flat ids), so these build TopKDists
+# whose ``idx`` are FLAT ids (row * V + token) and never sort [B*V].
+
+def _nucleus(probs: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Shifted-cumsum top-p over sorted ``probs`` (first entry kept),
+    renormalized."""
+    cum = torch.cumsum(probs, dim=-1)
+    probs = torch.where((cum - probs) <= top_p, probs, torch.zeros_like(probs))
+    return probs / probs.sum(dim=-1, keepdim=True)
+
+
+def _flat_ids(idx: torch.Tensor, vocab: int) -> torch.Tensor:
+    """[B, k] per-row ids -> [B*k] flat ids row * vocab + id."""
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return (rows * vocab + idx).reshape(-1)
+
+
+def joint_topk_from_dists(row_dists: TopKDist, row_scores: torch.Tensor, valid: torch.Tensor,
+                          cfg: SamplingConfig, vocab: int, out_k: Optional[int] = None) -> TopKDist:
+    """Warped joint over flat ids from per-row sparse dists [B, k]: the
+    dense ``norm_logits((log(p) + scores).reshape(1, -1))`` with invalid
+    rows masked. ``out_k`` candidates are kept (default cfg.top_k; B*k for
+    the plain softmax of the v1 walk, which skips top-p)."""
+    b, k = row_dists.probs.shape
+    vals = torch.log(row_dists.probs + 1e-30) + row_scores[:, None]
+    vals = torch.where(valid[:, None] & (row_dists.probs > 0.0), vals,
+                       torch.full_like(vals, _NEG_INF)).reshape(-1)
+    flat = _flat_ids(row_dists.idx, vocab)
+    if cfg.temperature != 1.0:
+        vals = vals / cfg.temperature
+    kk = out_k if out_k is not None else (cfg.top_k if cfg.top_k > 0 else b * k)
+    top_vals, pos = torch.topk(vals, min(kk, b * k))
+    probs = torch.softmax(top_vals, dim=-1)
+    if cfg.top_p > 0.0 and out_k is None:
+        probs = _nucleus(probs, cfg.top_p)
+    # fully masked candidates (padding when fewer than kk are real) get 0
+    probs = torch.where(top_vals == _NEG_INF, torch.zeros_like(probs), probs)
+    return TopKDist(flat[pos], probs / probs.sum().clamp_min(1e-30))
+
+
+def joint_topk_from_logp(logp: torch.Tensor, row_scores: torch.Tensor,
+                         cfg: SamplingConfig) -> TopKDist:
+    """Warped joint over flat ids from dense per-row log-probs [B, V]:
+    per-row top-k, then a global top-k merge (never a [B*V] sort)."""
+    if cfg.top_k <= 0:
+        raise ValueError("the sparse joint requires top-k filtering")
+    b, v = logp.shape
+    k = min(cfg.top_k, v)
+    x = logp + row_scores[:, None]
+    if cfg.temperature != 1.0:
+        x = x / cfg.temperature
+    vals, idx = torch.topk(x, k, dim=-1)
+    top_vals, pos = torch.topk(vals.reshape(-1), k)
+    probs = torch.softmax(top_vals, dim=-1)
+    if cfg.top_p > 0.0:
+        probs = _nucleus(probs, cfg.top_p)
+    return TopKDist(_flat_ids(idx, v)[pos], probs)
+
+
+def joint_rowwarp_dense(logp: torch.Tensor, row_scores: torch.Tensor,
+                        cfg: SamplingConfig) -> torch.Tensor:
+    """The beam draft's joint: top-k/top-p warp EACH ROW of ``logp``
+    [B, V], add the row priors, one softmax over the flattened [B*V]. The
+    support is the union of the per-row nuclei (up to B*k candidates). A
+    per-row constant prior moves neither mask, so the masks come from
+    ``logp`` alone. The reference's beam joint has no temperature: pass
+    1.0 for its semantics."""
+    filt = filter_logits(logp, cfg)
+    return torch.softmax((filt + row_scores[:, None]).reshape(-1), dim=-1)
+
+
+def joint_rowwarp_topk(logp: torch.Tensor, row_scores: torch.Tensor,
+                       cfg: SamplingConfig) -> TopKDist:
+    """Sparse :func:`joint_rowwarp_dense`: per-row top-k candidates (B*k
+    flat ids), the per-row nucleus mask, one softmax over all that is
+    kept."""
+    if cfg.top_k <= 0:
+        raise ValueError("the sparse joint requires top-k filtering")
+    b, v = logp.shape
+    k = min(cfg.top_k, v)
+    x = logp.float()
+    if cfg.temperature != 1.0:
+        x = x / cfg.temperature
+    vals, idx = torch.topk(x, k, dim=-1)
+    if cfg.top_p > 0.0:
+        # the nucleus within the row's top-k is the nucleus of the filtered row
+        probs_row = torch.softmax(vals, dim=-1)
+        cum = torch.cumsum(probs_row, dim=-1)
+        vals = torch.where((cum - probs_row) <= cfg.top_p, vals, torch.full_like(vals, _NEG_INF))
+    joint = (vals + row_scores[:, None]).reshape(-1)
+    return TopKDist(_flat_ids(idx, v), torch.softmax(joint, dim=-1))
+
+
+def rewarp_topk(dist: TopKDist, cfg: SamplingConfig) -> TopKDist:
+    """The full warp (temperature -> top-k -> top-p -> softmax) of a
+    distribution already restricted to candidates: the dense
+    ``norm_logits(log(p))`` over a sparse support."""
+    vals = torch.log(dist.probs + 1e-30)
+    vals = torch.where(dist.probs > 0.0, vals, torch.full_like(vals, _NEG_INF))
+    if cfg.temperature != 1.0:
+        vals = vals / cfg.temperature
+    n = vals.shape[-1]
+    top_vals, pos = torch.topk(vals, min(cfg.top_k, n) if cfg.top_k > 0 else n, dim=-1)
+    ids = torch.gather(dist.idx, -1, pos)
+    probs = torch.softmax(top_vals, dim=-1)
+    if cfg.top_p > 0.0:
+        probs = _nucleus(probs, cfg.top_p)
+    probs = torch.where(top_vals == _NEG_INF, torch.zeros_like(probs), probs)
+    return TopKDist(ids, probs / probs.sum(dim=-1, keepdim=True).clamp_min(1e-30))
+
+
+def sample_k_topk(generator: Optional[torch.Generator], dist: TopKDist, n: int) -> torch.Tensor:
+    """``n`` draws without replacement (Gumbel top-k) in candidate space;
+    over-drawn zero-prob winners become the argmax, as :func:`sample_k`.
+    Fewer candidates than draws are padded with zero-prob entries, which
+    the same guard resolves. Returns ids [..., n]."""
+    k = dist.probs.shape[-1]
+    if n > k:
+        dist = TopKDist(_pad_rows(dist.idx, n - k, -1), _pad_rows(dist.probs, n - k, -1))
+    g = _gumbel(generator, dist.probs.shape, dist.probs.device)
+    pos = torch.topk(torch.log(dist.probs) + g, n, dim=-1).indices
+    chosen = torch.gather(dist.probs, -1, pos)
+    safe = torch.argmax(dist.probs, dim=-1, keepdim=True).expand_as(pos)
+    pos = torch.where(chosen < ZERO_PROB_EPS, safe, pos)
+    return torch.gather(dist.idx, -1, pos)
+
+
+def min_sum(p: TopKDist, q: TopKDist) -> torch.Tensor:
+    """Acceptance probability sum q*min(1, p/(q + 1e-6)) in candidate
+    space: only q's support matters."""
+    match = q.idx[..., :, None] == p.idx[..., None, :]
+    p_at_q = torch.where(match, p.probs[..., None, :], torch.zeros((), device=p.probs.device)).sum(-1)
+    ratio = p_at_q / (q.probs + MAX_FN_EPS)
+    return (torch.clamp(ratio, max=1.0) * q.probs).sum(dim=-1)
+
+
+def acceptance_alphas_topk(p: TopKDist, q: TopKDist, m: int) -> torch.Tensor:
+    """Sparse ``ops.dp.acceptance_alphas``: alpha_i with p residual-updated
+    between draws; the residual never leaves p's support. float32 [m]."""
+    cur = TopKDist(p.idx, p.probs.float())
+    alphas = []
+    for _ in range(m):
+        alphas.append(min_sum(cur, q))
+        cur = residual_topk(cur, q)
+    return torch.stack(alphas)
 
 
 # ---- representation-agnostic dispatch: dense [..., V] tensors or TopKDist,

@@ -3,6 +3,7 @@ and arrays across to the PyTorch port on the CPU, bit for bit."""
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from llmspeculativesampling_tpu_torch.core.convert import params_from_numpy
@@ -26,3 +27,15 @@ def rel_err(got, ref) -> float:
     """max |got - ref| / max |ref|."""
     got, ref = to_np(got).astype(np.float64), to_np(ref).astype(np.float64)
     return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1e-30))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for a module of tiny-tensor tests: it is the
+    fastest setting for them, and it keeps the workers of a parallel test
+    run from oversubscribing the cores (each thread pool spins on its
+    barriers). Import it into a test module to apply it there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

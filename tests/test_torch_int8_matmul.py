@@ -112,3 +112,41 @@ def test_kernel_wrapper_rejects_what_the_kernel_cannot_take():
         port._launch(x[:, :60], torch.zeros((60, 32), dtype=torch.int8), s, torch.bfloat16)
     with pytest.raises(TypeError):
         port._launch(x.half(), torch.zeros((64, 32), dtype=torch.int8), s, torch.float16)
+
+
+@pytest.mark.parametrize("model", ["target", "draft"])
+def test_batch_invariant_plan_splits_k_from_k_and_n_alone(model):
+    """The admission prefill's M is 64 x the requests admitted together; a
+    batch-invariant plan gives every such M the M=64 split of K (so a row's
+    sums do not depend on the batch) and still covers M with its row tile."""
+    for k, n in TARGET_KN if model == "target" else DRAFT_KN:
+        ref = port.plan(64, k, n)
+        assert port.plan(64, k, n, True) == ref
+        for m in range(64, 513, 64):
+            mt, ksplit, cps = port.plan(m, k, n, True)
+            assert (ksplit, cps) == ref[1:]
+            assert mt == port.plan(m, k, n)[0]
+
+
+def test_paged_prefill_plans_every_w8a16_call_batch_invariant(monkeypatch):
+    """The forward asks B1 for the batch-invariant plan on the admission
+    prefill (``paged_prefill=True``) and only there."""
+    from llmspeculativesampling_tpu_torch.cache.paged import init_paged_cache
+    from llmspeculativesampling_tpu_torch.core.synthetic import synthetic_pair_int8
+    from llmspeculativesampling_tpu_torch.models import linear
+
+    _, _, bt, pt = synthetic_pair_int8(hidden_size=128, intermediate_size=256, num_layers=2,
+                                       num_heads=2, vocab_size=256, device="cpu")
+    seen = []
+    real = linear.int8_matmul
+    monkeypatch.setattr(linear, "int8_matmul",
+                        lambda x, q, s, inv=False: seen.append(inv) or real(x, q, s, inv))
+    c = bt.cfg
+    cache = init_paged_cache(c.num_layers, 4, c.num_kv_heads, 32, c.head_dim, 2, 2, device="cpu")
+    cache.block_tables[:, 0] = torch.tensor([0, 1], dtype=torch.int32)
+    toks = torch.arange(10, 26).reshape(2, 8)
+    _, cache = bt.forward(pt, c, toks, cache, paged_prefill=True)
+    assert len(seen) == 2 * 7 + 1 and all(seen)
+    seen.clear()
+    bt.forward(pt, c, toks[:, :2], cache)
+    assert len(seen) == 2 * 7 + 1 and not any(seen)
