@@ -18,7 +18,9 @@ Phases, each printing lines before the last:
      row, lengths on split and page edges, per-row lengths with partly
      empty splits, tree bias, G=4 x S_new=25, and B2 at the tree/beam
      path's shapes (tree verify B 1/4 x 17 tokens under ancestor biases,
-     multi's B=4 x 5, the beam draft's B=4 x Hkv 6); each attention case
+     multi's B=4 x 5, the beam draft's B=4 x Hkv 6) and at the remaining
+     algorithms' (MJSD's default B=8 x 5, BiLD's check 1 x 11, random
+     beam's B=4 x 1), B1 also at their M (11, 40, 4); each attention case
      also bit-identical across a repeat and between the forward's
      transposed views and contiguous copies, one launch a call, the ticket
      counters back at 0; timing rows at the verify, AR-decode and draft
@@ -45,10 +47,17 @@ Phases, each printing lines before the last:
      settings (gamma 4, 64 new tokens); B2 must serve every tree verify,
      multi's acc_rate must reach 0.6 and v2's mean acc_len exceed 1; the
      time of the row gathers (``select_rows``) a step.
+  7. remaining algorithms: the same pair and settings through multi's
+     'beam' strategy (width 4), MJSD (width = num_beams = 4, accept_thres
+     0.1), BiLD (gamma 10, fallback 0.6, rollback 5.0), the cache-less
+     speculative v2 and random-width beam (4 beams); B2 must serve every
+     target forward but v2's, and never run in v2 (each v2 forward
+     recomputes the whole prefix); v2's acc_rate must reach 0.6, and MJSD
+     must accept every draft at accept_thres 0 and none at 1.5.
      Each path's launch counters are set to 0 just before it and read just
      after; each kernel of a path must have run on it, B2 must not run on
      the paged path and B3 not on the others;
-  7. a ``{"kernels": [...]}`` line, the card line again, and as the last
+  8. a ``{"kernels": [...]}`` line, the card line again, and as the last
      line ``{"ok": true, "device": {...}}``.
 Any failed check raises: the script exits non-zero and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -92,6 +101,11 @@ TREE_TARGET_M = (TREE_TOKENS, TREE_BEAMS * (TREE_GAMMA + 1), TREE_BEAMS * TREE_T
                  TREE_BEAMS * 64)  # v2 verify (1 row), multi verify, v1 verify (4 rows), prefill
 TREE_DRAFT_M = (TREE_BEAMS, 2 * TREE_BEAMS, TREE_BEAMS * 64)  # beam step, re-feed, prefill
 TREE_PREFIX = 96  # a mid-run committed length of the tree path (64 prompt + up to 64 new)
+# the remaining algorithms (same settings; BiLD at JAX's defaults gamma 10,
+# fallback 0.6, rollback 5.0): B1 at BiLD's check window, MJSD's default
+# verify (width 8 x 5 tokens) and random beam's 4-row decode
+BILD_GAMMA = 10
+ALG_TARGET_M = (BILD_GAMMA + 1, 8 * (TREE_GAMMA + 1), TREE_BEAMS)
 
 
 def log(*a):
@@ -188,15 +202,17 @@ def phase_int8_matmul(results):
     forwards = {1: "AR decode", TARGET_M[0]: "single prefill", GAMMA + 1: "single verify",
                 SERVE_TARGET_M[0]: "serving verify",
                 SERVE_TARGET_M[1]: "serving prefill", TREE_TARGET_M[0]: "v2 tree verify",
-                TREE_TARGET_M[1]: "multi verify", TREE_TARGET_M[2]: "v1 tree verify",
-                TREE_TARGET_M[3]: "4-row prefill"}
+                TREE_TARGET_M[1]: "multi / multi-beam / MJSD-4 verify",
+                TREE_TARGET_M[2]: "v1 tree verify", TREE_TARGET_M[3]: "4-row prefill",
+                ALG_TARGET_M[0]: "BiLD check", ALG_TARGET_M[1]: "MJSD-8 verify",
+                ALG_TARGET_M[2]: "random-beam decode"}
     fwd = {m: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for m in forwards}
     # the admission prefill's M (64 x requests) plans B1 batch-invariant: time
     # that plan beside the one chosen from M at each prefill M
     prefill_m = {TARGET_M[0], TREE_TARGET_M[3], SERVE_TARGET_M[1]}
     inv = {m: 0.0 for m in prefill_m}
     worst_abs = 0.0
-    tm = sorted(set(TARGET_M + SERVE_TARGET_M + TREE_TARGET_M), reverse=True)
+    tm = sorted(set(TARGET_M + SERVE_TARGET_M + TREE_TARGET_M + ALG_TARGET_M), reverse=True)
     dm = sorted(set(DRAFT_M + SERVE_DRAFT_M + TREE_DRAFT_M), reverse=True)
     cases = [("target", m, k, n, c) for m in tm for (k, n, c) in TARGET_SHAPES + [(5120, VOCAB, 1)]]
     cases += [("draft", m, k, n, c) for m in dm for (k, n, c) in DRAFT_SHAPES + [(768, VOCAB, 1)]]
@@ -260,7 +276,9 @@ def phase_int8_matmul(results):
         "(tol 1e-4*max|plain|: fp32 sums in other orders)")
     results["int8_matmul"] = dict(**fwd[SERVE_TARGET_M[0]], max_abs_err=worst_abs,
                                   single_stream_verify_ms=fwd[GAMMA + 1]["ms"],
-                                  tree_forwards_ms={forwards[m]: fwd[m]["ms"] for m in TREE_TARGET_M})
+                                  tree_forwards_ms={forwards[m]: fwd[m]["ms"] for m in TREE_TARGET_M},
+                                  algorithm_forwards_ms={forwards[m]: fwd[m]["ms"]
+                                                         for m in ALG_TARGET_M})
     for m, what in forwards.items():
         f = fwd[m]
         log(f"[int8_matmul] one {what} target forward (281 launches at M={m}): "
@@ -527,6 +545,50 @@ def phase_flash_tree(results):
         rows[f"{what} B={b}"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                                      bound_by=b_by)
     results["flash_decode_tree"] = dict(max_abs_err=worst, per_call=rows)
+
+
+def phase_flash_algorithms(results):
+    """B2 at the remaining algorithms' shapes: MJSD's default verify (B=8,
+    S_new 5, causal), BiLD's check window (B=1, S_new 11, causal) and
+    random beam's 4-row decode (S_new 1), Hkv 40 each."""
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import (
+        flash_decode_attention, flash_decode_ref, plan)
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rtol = atol = 2.0 ** -7
+    s5, s11 = TREE_GAMMA + 1, BILD_GAMMA + 1
+    cases = [("MJSD-8 verify", 8, s5, lens) for lens in
+             ([TREE_PREFIX] * 8, [64, 80, 96, 110, 127, 128, 129, S_MAX - s5])]
+    cases += [("BiLD check", 1, s11, [n]) for n in (64 - s11, 64, TREE_PREFIX, 128, S_MAX - s11)]
+    cases += [("random-beam decode", 4, 1, lens) for lens in
+              ([65] * 4, [TREE_PREFIX] * 4, [127] * 4, [128] * 4)]
+    worst = 0.0
+    for quant in (False, True):
+        for what, b, s_new, lens in cases:
+            q, kn, vn, kc, vc, lengths, bias, ks, vs = _rows_inputs(gen, b, 40, s_new, quant, lens,
+                                                                   False)
+            max_abs, _ = _check_case(
+                f"flash_decode {what} quant={quant} B={b} Hkv=40 S_new={s_new} len={lens}",
+                flash_decode_attention, flash_decode_ref, (q, kn, vn, kc, vc, lengths, bias),
+                dict(scale=1.0, k_scales=ks, v_scales=vs), rtol, atol)
+            worst = max(worst, max_abs)
+    log(f"[flash_decode algorithms] {2 * len(cases)} cases within tolerance (bf16 and int8 KV; "
+        f"MJSD-8 verify B=8 x S_new {s5}, BiLD check B=1 x S_new {s11}, random-beam decode B=4 x "
+        f"S_new 1; causal; lengths 53-251), worst max_abs_err {worst:.3e}")
+    rows = {}
+    for what, b, s_new in (("MJSD-8 verify", 8, s5), ("BiLD check", 1, s11),
+                           ("random-beam decode", 4, 1)):
+        lens = [TREE_PREFIX] * b
+        t_k, t_p, t_l, b_ms, b_by, n_sets = _time_flash(gen, 40, s_new, lens)
+        p = plan(b, 40, s_new, S_MAX)
+        log(f"[flash_decode algorithms] {what}: dense B={b} Hkv=40 S_new={s_new} len={TREE_PREFIX} "
+            f"plan ps={p.ps} blocks={p.blocks(b, 40)}: kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
+            f"library_ms {t_l:.4f} (F.scaled_dot_product_attention, causal as a float mask) "
+            f"bound_us {b_ms * 1e3:.2f} ({b_by}) bound share {b_ms / t_k:.3f}; {n_sets} input sets "
+            "rotated")
+        rows[f"{what} B={b}"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                                     bound_by=b_by)
+    results["flash_decode_algorithms"] = dict(max_abs_err=worst, per_call=rows)
 
 
 def _paged_inputs(gen, lens, hq, hkv, s_new, d, page, p_max, quant, tree=False,
@@ -1086,6 +1148,95 @@ def phase_tree_path(results, reps: int, pair):
     results["launches"]["tree_beam"] = total_launches
 
 
+def phase_algorithms(results, reps: int, pair):
+    """The remaining algorithms on the 13B-int8 pair with the tree/beam
+    path's settings (64-token prompt, 64 new tokens, gamma 4, top_k 20,
+    top_p 0.9, eos 2): multi through strategy='beam' (width 4), MJSD at
+    width = num_beams = 4 and accept_thres 0.1, BiLD at JAX's defaults
+    (gamma 10, fallback 0.6, rollback 5.0), the cache-less v2 and random
+    beam at 4 beams. One warm-up, then ``reps`` timed runs an engine with
+    their launch counts; then MJSD's two threshold guards."""
+    from llmspeculativesampling_tpu_torch import (
+        bild_generate, mjsd_generate, multi_speculative_generate, random_width_beam_generate,
+        speculative_generate_v2)
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    bd, pd, bt, pt = pair
+    prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
+    kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, details=True, device="cuda")
+    g, nb, new = TREE_GAMMA, TREE_BEAMS, TREE_NEW
+    engines = {  # name -> (run, most new tokens a run may return)
+        "multi_beam": (lambda gen, **o: multi_speculative_generate(
+            bd, pd, bt, pt, prompt, new, gamma=g, width=nb, strategy="beam", generator=gen,
+            **{**kw, **o}), new + g),
+        "mjsd": (lambda gen, **o: mjsd_generate(
+            bd, pd, bt, pt, prompt, new, gamma=g, width=nb, num_beams=nb, generator=gen,
+            **{**kw, "accept_thres": 0.1, **o}), new + g),
+        "bild": (lambda gen, **o: bild_generate(
+            bd, pd, bt, pt, prompt, new, gamma=BILD_GAMMA, fallback_thres=0.6, rollback_thres=5.0,
+            generator=gen, **{**kw, **o}), new + 1),
+        "spec_v2": (lambda gen, **o: speculative_generate_v2(
+            bd, pd, bt, pt, prompt, new, gamma=g, generator=gen, **{**kw, **o}), new + g),
+        "random_beam": (lambda gen, **o: random_width_beam_generate(
+            bt, pt, prompt, new, max_num_beams=nb, generator=gen, **{**kw, **o}), new),
+    }
+    out_res, total_launches = {}, {}
+    for name, (run, cap) in engines.items():
+        run(torch.Generator(device="cuda").manual_seed(0))  # warm-up, phase-split calibration
+        torch.cuda.synchronize()
+        reset_launches()
+        ds = []
+        for k in range(1, reps + 1):
+            out, d = run(torch.Generator(device="cuda").manual_seed(k))
+            ds.append(d)
+            gen_ids = out[64:]
+            if not (np.array_equal(out[:64], np.asarray(prompt)) and 1 <= len(gen_ids) <= cap
+                    and gen_ids.min() >= 0 and gen_ids.max() < VOCAB):
+                raise AssertionError(f"algorithms {name}: bad output of length {len(out)}")
+        launches = read_launches()
+        steps = [d["target_call_times"] for d in ds]
+        rates = [d["tokens_per_s"] for d in ds]
+        acc = [d.get("acc_rate", float("nan")) for d in ds]
+        acc_len = [float(np.mean(d["acc_len"])) if d.get("acc_len") else float("nan") for d in ds]
+        small = [d["approx_call_times"] for d in ds]
+        log(f"[algorithms {name}] tok/s median {np.median(rates):.2f} min {min(rates):.2f} max "
+            f"{max(rates):.2f} over {reps} reps; acc_rate {np.mean(acc):.4f}, mean acc_len "
+            f"{np.mean(acc_len):.3f} (per rep {[round(a, 3) for a in acc_len]}), target forwards "
+            f"per rep {steps}, draft calls per rep {small}; launches {launches} ({card})")
+        if launches["int8_matmul"] <= 0 or launches["paged_flash_decode"] != 0:
+            raise AssertionError(f"algorithms {name}: B1 did not run, or B3 ran")
+        if name == "spec_v2":
+            # every forward covers the whole live prefix (> 32 tokens): B2 never runs
+            if launches["flash_decode"] != 0:
+                raise AssertionError(f"algorithms spec_v2: {launches['flash_decode']} B2 launches: "
+                                     "a forward did not recompute the prefix")
+            if np.mean(acc) < 0.6:
+                raise AssertionError(f"algorithms spec_v2: acceptance {np.mean(acc):.3f} < 0.6")
+        elif launches["flash_decode"] < bt.cfg.num_layers * sum(steps):
+            raise AssertionError(f"algorithms {name}: {launches['flash_decode']} B2 launches for "
+                                 f"{sum(steps)} target forwards of {bt.cfg.num_layers} layers")
+        out_res[name] = dict(tok_s=float(np.median(rates)), acc_rate=float(np.mean(acc)),
+                             acc_len=float(np.mean(acc_len)), steps=steps, draft_calls=small,
+                             launches=launches)
+        for kname, n in launches.items():
+            total_launches[kname] = total_launches.get(kname, 0) + n
+
+    # MJSD's deterministic guards: accept_thres 0 takes every draft, 1.5 none
+    mjsd = engines["mjsd"][0]
+    _, d0 = mjsd(torch.Generator(device="cuda").manual_seed(7), accept_thres=0.0)
+    _, d1 = mjsd(torch.Generator(device="cuda").manual_seed(7), accept_thres=1.5)
+    log(f"[algorithms mjsd guards] accept_thres 0: mean acc_len {np.mean(d0['acc_len']):.3f} "
+        f"(gamma {g}); accept_thres 1.5: accepted {d1['accepted_count']} over "
+        f"{d1['target_call_times']} steps")
+    if np.mean(d0["acc_len"]) != g or d1["accepted_count"] != 0:
+        raise AssertionError("algorithms mjsd: the threshold guards failed")
+    elapsed = time.perf_counter() - t_phase
+    log(f"[algorithms] phase took {elapsed:.1f} s")
+    results["algorithms"] = dict(engines=out_res, seconds=elapsed)
+    results["launches"]["algorithms"] = total_launches
+
+
 # ---------------------------------------------------------------- phase 5
 def _workload(kind: str, rng):
     """scripts/bench_paged.py's mixes: (prompt_len, max_new) per request.
@@ -1298,6 +1449,7 @@ def main() -> int:
     phase_int8_matmul(results)
     phase_flash_decode(results)
     phase_flash_tree(results)
+    phase_flash_algorithms(results)
     phase_paged_flash_decode(results)
     phase_forward()
     phase_paged_forward()
@@ -1305,6 +1457,7 @@ def main() -> int:
     pair = build_pair()
     phase_main_path(results, REPS, pair)
     phase_tree_path(results, REPS, pair)
+    phase_algorithms(results, REPS, pair)
     phase_serving(results, pair)
     phase_burst_trickle(results, pair)
     del pair

@@ -16,27 +16,45 @@ from .engine import (  # noqa: E402
     autoregressive_generate,
     beam_speculative_generate,
     beam_speculative_v2_generate,
+    bild_generate,
+    mjsd_generate,
+    multi_beam_generate,
     multi_speculative_generate,
+    random_width_beam_generate,
     speculative_generate,
+    speculative_generate_v2,
 )
 
-# the reference's names for the ported entry points
+# the reference's names for the entry points
 speculative_sampling = speculative_generate
+speculative_sampling_v2 = speculative_generate_v2
 autoregressive_sampling = autoregressive_generate
 multi_speculative_sampling = multi_speculative_generate
+mjsd_speculative_sampling = mjsd_generate
 beam_speculative_sampling = beam_speculative_generate
 beam_speculative_sampling_v2 = beam_speculative_v2_generate
+BiLD_sampling = bild_generate
+random_width_beam_sampling = random_width_beam_generate
 
 __all__ = [
     "ModelBundle",
     "autoregressive_generate",
     "beam_speculative_generate",
     "beam_speculative_v2_generate",
+    "bild_generate",
+    "mjsd_generate",
+    "multi_beam_generate",
     "multi_speculative_generate",
+    "random_width_beam_generate",
     "speculative_generate",
+    "speculative_generate_v2",
     "speculative_sampling",
+    "speculative_sampling_v2",
     "autoregressive_sampling",
     "multi_speculative_sampling",
+    "mjsd_speculative_sampling",
     "beam_speculative_sampling",
     "beam_speculative_sampling_v2",
+    "BiLD_sampling",
+    "random_width_beam_sampling",
 ]

@@ -1,5 +1,8 @@
-"""Multi-candidate speculative sampling, iid strategy
+"""Multi-candidate speculative sampling
 (counterpart of ``llmspeculativesampling_tpu/engine/multi.py``).
+
+The ``iid`` strategy runs here; ``beam`` and ``acc_beam`` delegate to the
+beam-draft engine (``engine/beam_spec.py``), as in the JAX package.
 
 The draft proposes ``width`` candidate continuations i.i.d. (the prefix
 repeated ``width`` times in the batch); ONE batched target forward verifies
@@ -38,6 +41,7 @@ from ..ops.sampling import (
     dist_take,
     sample,
 )
+from .beam_spec import multi_beam_generate
 from .phases import fill_phase_split
 from .types import ModelBundle, aligned_total, first_eos_truncate, pad_prompt
 
@@ -123,20 +127,23 @@ def multi_speculative_generate(
     details: bool = False,
     device=None,
 ):
-    """Multi-candidate speculative sampling, ``strategy='iid'``. Returns
-    numpy int32 [T] (prompt included, cut after the first generated EOS);
-    with ``details=True`` also the reference-schema dict. 'diverse' raises
-    as the reference does; 'beam' and 'acc_beam' (the beam-draft engine,
-    ``engine/beam_spec.py`` in the JAX package) are not ported yet (ROADMAP
-    A11 step 3). ``random_seed`` reuses one fixed uniform for every accept
-    test (the reference's reseed-before-every-draw quirk)."""
-    del num_beams
+    """Multi-candidate speculative sampling. Returns numpy int32 [T]
+    (prompt included, cut after the first generated EOS); with
+    ``details=True`` also the reference-schema dict. ``strategy='iid'``
+    runs here; 'beam' and 'acc_beam' delegate to the beam-draft engine
+    (:func:`engine.beam_spec.multi_beam_generate`, ``num_beams`` defaulting
+    to max(4, width)); 'diverse' raises as the reference does.
+    ``random_seed`` reuses one fixed uniform for every accept test (the
+    reference's reseed-before-every-draw quirk)."""
     if strategy == "diverse":
         raise NotImplementedError("diverse strategy (reference :1510)")
     if strategy in ("beam", "acc_beam"):
-        raise NotImplementedError(
-            f"multi strategy {strategy!r} runs the beam-draft engine beam_spec, which is not "
-            "ported yet (ROADMAP A11 step 3)")
+        return multi_beam_generate(
+            bundle_d, params_d, bundle_t, params_t, prompt, max_new_tokens,
+            gamma=gamma, width=width, num_beams=num_beams,
+            eos_token_id=eos_token_id, temperature=temperature, top_k=top_k, top_p=top_p,
+            generator=generator, random_seed=random_seed, details=details, device=device,
+        )
     if strategy != "iid":
         raise RuntimeError("Strategy not implemented " + strategy)
     dev = resolve_device(device)

@@ -1,11 +1,12 @@
 """Calibrated phase-time split
 (counterpart of ``llmspeculativesampling_tpu/engine/phases.py``).
 
-The non-stepwise speculative engine fills the reference's
+The non-stepwise engines fill the reference's
 ``approx_time``/``target_time``/``other_time`` keys from a one-time
-calibration at the engine's exact shapes: the gamma-step draft loop and one
-verify forward, each timed warm (best of 3) and cached per configuration,
-then multiplied by the step count. Times end in ``torch.cuda.synchronize()``
+calibration at the engine's exact shapes: the gamma-step draft loop (or,
+for the cache-less v2 engine, gamma full-buffer forwards) and one verify
+forward, each timed warm (best of 3) and cached per configuration, then
+multiplied by the step count. Times end in ``torch.cuda.synchronize()``
 on the card; on the CPU they are plain wall time.
 """
 
@@ -60,20 +61,33 @@ def _verify_forward(bundle, params, cache, tokens, device):
 def calibrate_phase_times(
     bundle_d, params_d, bundle_t, params_t, *,
     draft_rows: int, verify_rows: int, gamma: int, verify_tokens: int,
-    max_total: int, device,
+    max_total: int, device, draft_mode: str = "loop",
 ) -> Tuple[float, float]:
     """(t_draft_phase, t_verify_forward) in seconds, warm, cached per
-    configuration."""
+    configuration.
+
+    ``draft_mode='loop'``: gamma sequential cached single-token forwards
+    (every cached engine). ``draft_mode='full'``: gamma full-buffer
+    forwards, the cache-less v2 engine's draft shape; its verify is then
+    one full-buffer forward too."""
     device = torch.device(device)
-    ck = (bundle_d, bundle_t, draft_rows, verify_rows, gamma, verify_tokens, max_total, str(device))
+    ck = (bundle_d, bundle_t, draft_rows, verify_rows, gamma, verify_tokens, max_total,
+          str(device), draft_mode)
     hit = _CAL.get(ck)
     if hit is not None:
         return hit
     params_d, params_t = unstack_layers(params_d), unstack_layers(params_t)
     dc = _prefill_sim(bundle_d, params_d, draft_rows, max_total, device)
     tc = _prefill_sim(bundle_t, params_t, verify_rows, max_total, device)
-    t_draft = _best_of(lambda: _draft_loop(bundle_d, params_d, dc, gamma, device), device)
-    t_verify = _best_of(lambda: _verify_forward(bundle_t, params_t, tc, verify_tokens, device), device)
+    if draft_mode == "full":
+        full = max_total - 8  # the prefill sim already holds 8 positions
+        t_draft = gamma * _best_of(lambda: _verify_forward(bundle_d, params_d, dc, full, device),
+                                   device)
+        t_verify = _best_of(lambda: _verify_forward(bundle_t, params_t, tc, full, device), device)
+    else:
+        t_draft = _best_of(lambda: _draft_loop(bundle_d, params_d, dc, gamma, device), device)
+        t_verify = _best_of(lambda: _verify_forward(bundle_t, params_t, tc, verify_tokens, device),
+                            device)
     _CAL[ck] = (t_draft, t_verify)
     return _CAL[ck]
 
@@ -82,7 +96,7 @@ def fill_phase_split(
     d: dict, wall: float, steps: int,
     bundle_d, params_d, bundle_t, params_t, *,
     draft_rows: int, verify_rows: int, gamma: int, verify_tokens: int,
-    max_total: int, device,
+    max_total: int, device, draft_mode: str = "loop",
 ) -> dict:
     """Fill the phase keys into ``d`` from the calibrated per-dispatch
     times x ``steps`` (rescaled into ``wall`` when they exceed it)."""
@@ -90,6 +104,7 @@ def fill_phase_split(
         bundle_d, params_d, bundle_t, params_t,
         draft_rows=draft_rows, verify_rows=verify_rows, gamma=gamma,
         verify_tokens=verify_tokens, max_total=max_total, device=device,
+        draft_mode=draft_mode,
     )
     approx = steps * t_draft
     target = steps * t_verify

@@ -14,9 +14,16 @@ candidates, top_k 20, top_p 0.9), prints:
   tokens) and the beam draft step (4 rows x 1 token): host ms per forward,
   device-busy ms split by kernel (B1, B2, other) and the kernel count, as
   scripts/torch_profile_main_path.py measures them;
-* for one whole generation of multi iid, beam v1 and beam v2: tok/s on the
-  host clock (untraced, after a warm-up run), the device-busy time of a
-  traced run of the same seed, and the device's idle share 1 - busy/wall.
+* the same for the remaining algorithms' forwards: BiLD's check window (1
+  row x 11 tokens), random beam's decode (4 rows x 1) and the cache-less
+  v2's whole-prefix forwards (target 1 x 100, draft 1 x 97, from an empty
+  cache);
+* for one whole generation of multi iid, beam v1, beam v2 and of the
+  remaining algorithms (multi's beam strategy at width 4, MJSD at width =
+  num_beams = 4, BiLD at gamma 10 / fallback 0.6 / rollback 5.0, v2, random
+  beam at 4 beams): tok/s on the host clock (untraced, after a warm-up
+  run), the device-busy time of a traced run of the same seed, and the
+  device's idle share 1 - busy/wall.
 
 All host-clock numbers are taken before the first trace. Every line carries
 the card's name and power limit. It imports nothing of JAX and nothing of
@@ -70,10 +77,23 @@ def forward_setup(bundle, params, rows, s_new, tree):
     return lambda: bundle.forward(params, bundle.cfg, step, cache, **kw)
 
 
+def prefix_setup(bundle, params, n):
+    """v2's forward: ``n`` tokens from an empty cache, through the engine's
+    own helper."""
+    from llmspeculativesampling_tpu_torch.engine.speculative_v2 import prefix_logits
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    tokens = torch.randint(100, 31000, (1, S_MAX), generator=gen, device="cuda")
+    cache = bundle.make_cache(1, S_MAX, device="cuda")
+    return lambda: prefix_logits(bundle, params, tokens, n, cache)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_tree: CUDA is not available", file=sys.stderr)
         return 1
+    from llmspeculativesampling_tpu_torch import (
+        bild_generate, mjsd_generate, random_width_beam_generate, speculative_generate_v2)
     from llmspeculativesampling_tpu_torch.core.synthetic import synthetic_pair_int8_small_draft
     from llmspeculativesampling_tpu_torch.engine.beam_tree import (
         beam_speculative_generate, beam_speculative_v2_generate)
@@ -90,6 +110,10 @@ def main() -> int:
         "v1_tree_verify_4x17": forward_setup(bt, pt, BEAMS, tokens, True),
         "multi_verify_4x5": forward_setup(bt, pt, BEAMS, GAMMA + 1, False),
         "beam_draft_4x1": forward_setup(bd, pd, BEAMS, 1, False),
+        "bild_check_1x11": forward_setup(bt, pt, 1, 11, False),
+        "random_beam_decode_4x1": forward_setup(bt, pt, BEAMS, 1, False),
+        "v2_target_prefix_1x100": prefix_setup(bt, pt, PREFIX + GAMMA),
+        "v2_draft_prefix_1x97": prefix_setup(bd, pd, PREFIX + 1),
     }
     prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
     kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, device="cuda", details=True)
@@ -105,6 +129,18 @@ def main() -> int:
         "beam_v2": lambda: beam_speculative_v2_generate(
             bd, pd, bt, pt, prompt, NEW, gamma=GAMMA, num_beams=BEAMS, extra_sample_cnt=1,
             expect_thres=0.7, generator=gen(), **kw),
+        "multi_beam": lambda: multi_speculative_generate(
+            bd, pd, bt, pt, prompt, NEW, gamma=GAMMA, width=BEAMS, strategy="beam",
+            generator=gen(), **kw),
+        "mjsd": lambda: mjsd_generate(bd, pd, bt, pt, prompt, NEW, gamma=GAMMA, width=BEAMS,
+                                      num_beams=BEAMS, accept_thres=0.1, generator=gen(), **kw),
+        "bild": lambda: bild_generate(bd, pd, bt, pt, prompt, NEW, gamma=10, fallback_thres=0.6,
+                                      rollback_thres=5.0, generator=gen(), **kw),
+        "spec_v2": lambda: speculative_generate_v2(bd, pd, bt, pt, prompt, NEW, gamma=GAMMA,
+                                                   generator=gen(), **kw),
+        "random_beam": lambda: random_width_beam_generate(bt, pt, prompt, NEW,
+                                                          max_num_beams=BEAMS, generator=gen(),
+                                                          **kw),
     }
     # host-clock numbers first: a trace slows later launches
     out = {"card": card, "forward": {}, "generate": {}}
@@ -120,7 +156,8 @@ def main() -> int:
         out["generate"][name] = {"tokens": d["tokens_generated"], "wall_ms": wall * 1e3,
                                  "tok_s": d["tokens_generated"] / wall,
                                  "steps": d["target_call_times"],
-                                 "mean_acc_len": float(np.mean(d["acc_len"]))}
+                                 "mean_acc_len": (float(np.mean(d["acc_len"])) if d.get("acc_len")
+                                                  else float("nan"))}
 
     for name, run in forwards.items():
         r = out["forward"][name]

@@ -9,6 +9,9 @@ on converted weights, on the CPU.
   draft equal to the target accepts every level, so its runs also go
   through the tree compaction and the draft-cache rebuild every step.
 * The ``details`` key sets equal JAX's.
+* multi's 'beam' / 'acc_beam' strategies run the beam-draft engine
+  (``tests/test_torch_beam_spec.py`` holds it against JAX); the package
+  exports every engine name and alias of the JAX package.
 * The acceptance statistics of v2 and multi on a pair whose draft is
   close to its target match JAX's within a few standard errors.
 * v1's always-accept quirk (the reference's ``p/(q+1e-5) > r - 1``): every
@@ -35,6 +38,7 @@ from llmspeculativesampling_tpu.engine import multi as jm
 from llmspeculativesampling_tpu.engine.types import pad_prompt
 from llmspeculativesampling_tpu.ops.sampling import SamplingConfig as JSCfg, norm_logits as j_norm
 from llmspeculativesampling_tpu_torch.core.config import LlamaConfig as TCfg
+from llmspeculativesampling_tpu_torch.engine import beam_spec as tbs
 from llmspeculativesampling_tpu_torch.engine import beam_tree as tbt
 from llmspeculativesampling_tpu_torch.engine import multi as tm
 from llmspeculativesampling_tpu_torch.engine.autoregressive import autoregressive_generate as t_ar
@@ -86,11 +90,31 @@ def test_multi_greedy_equals_jax_and_ar(models, greedy_ar):
 
 
 def test_multi_strategies_outside_iid_raise(models):
+    """'diverse' raises, as in the reference; 'beam' and 'acc_beam' run
+    the beam-draft engine with num_beams = max(4, width), as JAX's
+    dispatch does."""
     _, (tbd, tpd, tbt_, tpt) = models
-    for strategy in ("diverse", "beam", "acc_beam"):
-        with pytest.raises(NotImplementedError):
-            tm.multi_speculative_generate(tbd, tpd, tbt_, tpt, PROMPT, 4, strategy=strategy,
-                                          eos_token_id=EOS, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tm.multi_speculative_generate(tbd, tpd, tbt_, tpt, PROMPT, 4, strategy="diverse",
+                                      eos_token_id=EOS, device="cpu")
+    kw = dict(gamma=3, width=2, eos_token_id=EOS, top_k=8, top_p=0.9, device="cpu")
+    ref = tbs.multi_beam_generate(tbd, tpd, tbt_, tpt, PROMPT, 8, num_beams=4,
+                                  generator=torch.Generator().manual_seed(3), **kw)
+    for strategy in ("beam", "acc_beam"):
+        out = tm.multi_speculative_generate(tbd, tpd, tbt_, tpt, PROMPT, 8, strategy=strategy,
+                                            generator=torch.Generator().manual_seed(3), **kw)
+        np.testing.assert_array_equal(out, ref)
+
+
+def test_engine_names_match_jax():
+    """Every engine name and reference alias the JAX package exports, the
+    port exports too."""
+    import llmspeculativesampling_tpu as jpkg
+    import llmspeculativesampling_tpu_torch as tpkg
+
+    assert set(jpkg.__all__) <= set(tpkg.__all__)
+    for name in jpkg.__all__:
+        assert callable(getattr(tpkg, name)), name
 
 
 @pytest.mark.parametrize("same", [False, True], ids=["distinct", "draft_is_target"])
