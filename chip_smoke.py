@@ -24,13 +24,24 @@ Phases, each printing lines before the last:
      also bit-identical across a repeat and between the forward's
      transposed views and contiguous copies, one launch a call, the ticket
      counters back at 0; timing rows at the verify, AR-decode and draft
-     shapes of every path;
+     shapes of every path. At the OPT path's shapes: B1 at the target's
+     5120x5120, 5120x20480 and 20480x5120 (M 1, 9, 64, 144) and the draft's
+     640x640, 640x2560, 2560x640 (M 1, 2, 16, 64), fc2 at M=512 under the
+     batch-invariant plan; B2 at Hkv 40 x 9, 1 x 17 under an ancestor bias
+     and Hkv 5 x 1/2; B3 at B=16 x Hkv 40 x 9 and Hkv 5; the dense tied
+     head's bf16 product (fp32 sums) against the fp32 product;
   3. forward: logits of a 2-layer, full-width (5120) int8 Llama slice on the
      card with the kernels vs the same weights on the CPU with the plain
      versions, through a contiguous cache and through a paged int8 pool
      (per-row lengths, rollbacks, a sentinel row, a page crossing), and a
      tree forward (4 rows x 17 tokens, positions and ancestor mask) whose
      cache ``compact_tree_paths`` compacts alike on the card and the CPU;
+     the same for a 2-layer 5120-wide (ffn 20480) int8 OPT slice
+     (contiguous, paged int8 pool, a 4 x 17 tree block with shared
+     positions); the Llama slice with fp8 e4m3 weights (the plain fp8
+     product, never B1); and a loader round trip: a 2-layer 5120-wide bf16
+     OPT written under HF names as safetensors, loaded onto the card by
+     ``load_pretrained``, leaves and logits bit-equal to what was written;
   4. single-stream path: the 13B-shaped int8 target + 768-wide int8 draft,
      born on the card from a seed; autoregressive and speculative decoding
      with bench.py's settings (64-token prompt, 128 new tokens, gamma=24,
@@ -54,17 +65,27 @@ Phases, each printing lines before the last:
      target forward but v2's, and never run in v2 (each v2 forward
      recomputes the whole prefix); v2's acc_rate must reach 0.6, and MJSD
      must accept every draft at accept_thres 0 and none at 1.5.
+  8. the OPT path, after the Llama pair is freed: the OPT-13B int8 target
+     + 640-wide draft (``synthetic_opt_pair_int8_small_draft``, tied bf16
+     heads) with ``scripts/bench_opt13b.py``'s settings: AR and speculative
+     decoding at gamma 8 (128 new tokens), beam v2 (4 beams, gamma 4, 64
+     new tokens) and the uniform serving mix through ``PagedEngine``
+     behind ``BatchedInferenceServer``; B2 in every layer of every
+     short-block target forward, spec and serving acc_rate >= 0.6, v2 mean
+     acc_len > 1, the pool ending free.
      Each path's launch counters are set to 0 just before it and read just
      after; each kernel of a path must have run on it, B2 must not run on
      the paged path and B3 not on the others;
-  8. a ``{"kernels": [...]}`` line, the card line again, and as the last
-     line ``{"ok": true, "device": {...}}``.
+  9. a ``{"kernels": [...]}`` line (each kernel also with its numbers at the
+     OPT path's shapes, under "opt"), the card line again, and as the last
+     line ``{"ok": true, "device": {...}}``. Each phase prints its seconds.
 Any failed check raises: the script exits non-zero and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -106,6 +127,14 @@ TREE_PREFIX = 96  # a mid-run committed length of the tree path (64 prompt + up 
 # verify (width 8 x 5 tokens) and random beam's 4-row decode
 BILD_GAMMA = 10
 ALG_TARGET_M = (BILD_GAMMA + 1, 8 * (TREE_GAMMA + 1), TREE_BEAMS)
+# the OPT path (scripts/bench_opt13b.py's settings on the OPT-13B int8 target
+# with its 640-wide draft): 64-token prompt, gamma 8, 128 new tokens; serving
+# and beam v2 with the Llama paths' settings. Projections: q/k/v/o, fc1, fc2
+OPT_TARGET_SHAPES = [(5120, 5120, 4), (5120, 20480, 1), (20480, 5120, 1)]
+OPT_DRAFT_SHAPES = [(640, 640, 4), (640, 2560, 1), (2560, 640, 1)]
+OPT_GAMMA = 8
+OPT_TARGET_M = (1, OPT_GAMMA + 1, 64, ROWS * (SERVE_GAMMA + 1))  # decode, verify, prefill, serving
+OPT_DRAFT_M = (1, 2, ROWS, 64)  # decode, re-feed, serving step, prefill
 
 
 def log(*a):
@@ -771,11 +800,200 @@ def phase_paged_flash_decode(results):
         f"kernel_ms {r['ms']:.3f} bound_ms {r['bound_ms']:.4f}")
 
 
+# ---------------------------------------------------------------- phase 2, OPT shapes
+def phase_opt_int8_matmul(results):
+    """B1 at the OPT path's six projections: target q/k/v/o 5120x5120, fc1
+    5120x20480 and fc2 20480x5120 (K = 320 chunks of 64) at M = 1, 9, 64,
+    144; the draft's 640x640, 640x2560 and 2560x640 at M = 1, 2, 16, 64; and
+    fc2 at M = 512 under the admission prefill's batch-invariant plan
+    beside the plan chosen from M. Each case bit-identical across a repeat.
+    Then the dense tied head (not a B1 call): ``lm_head_logits``' bf16
+    product with fp32 sums against the fp32 product it replaced."""
+    from llmspeculativesampling_tpu_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref, plan
+    from llmspeculativesampling_tpu_torch.models.linear import lm_head_logits
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rtol, atol_rel = 2.0 ** -7, 1e-3
+    fwd = {}  # (model, M) -> summed times of one forward's 6 x layers calls
+    worst = 0.0
+    cases = [("target", m, k, n, c) for m in OPT_TARGET_M for k, n, c in OPT_TARGET_SHAPES]
+    cases += [("draft", m, k, n, c) for m in OPT_DRAFT_M for k, n, c in OPT_DRAFT_SHAPES]
+    cases += [("fc2 prefill", 512, 20480, 5120, 0)]
+    for model, m, k, n, per_layer in cases:
+        inv = model == "fc2 prefill"
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        ws = _rotated(lambda: torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8,
+                                            device="cuda"))
+        s = (0.8 + 0.4 * torch.rand((n,), generator=gen, device="cuda")) / (73.0 * math.sqrt(k))
+        got = int8_matmul(x[None], ws[0], s, batch_invariant=inv)[0]
+        again = int8_matmul(x[None], ws[0], s, batch_invariant=inv)[0]
+        ref = int8_matmul_ref(x, ws[0], s)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"int8_matmul opt {model} M={m} K={k} N={n}: not bit-identical")
+        max_abs, rel = check_close(f"int8_matmul opt {model} M={m} K={k} N={n}", got, ref, rtol,
+                                   atol_rel * float(ref.float().abs().max()))
+        worst = max(worst, max_abs)
+        w16 = [w.to(torch.bfloat16) for w in ws]
+        t_k = time_ms(lambda i: int8_matmul(x[None], ws[i % len(ws)], s, batch_invariant=inv), 20)
+        t_p = time_ms(lambda i: int8_matmul_ref(x, ws[i % len(ws)], s), 5)
+        t_l = time_ms(lambda i: torch.matmul(x, w16[i % len(w16)]), 20)
+        b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n)
+        extra = ""
+        if inv:
+            got_m = int8_matmul(x[None], ws[0], s)[0]
+            check_close("int8_matmul opt fc2 M=512 plan from M", got_m, ref, rtol,
+                        atol_rel * float(ref.float().abs().max()))
+            t_m = time_ms(lambda i: int8_matmul(x[None], ws[i % len(ws)], s), 20)
+            extra = (f"; batch-invariant plan {plan(m, k, n, True)} (above) vs plan from M "
+                     f"{plan(m, k, n)} kernel_ms {t_m:.4f}")
+            results["opt_fc2_prefill"] = dict(invariant_ms=t_k, from_m_ms=t_m, bound_ms=b_ms)
+        log(f"[opt int8_matmul] {model} M={m:3d} K={k:5d} N={n:5d} plan "
+            f"{plan(m, k, n, inv)}: max_abs_err {max_abs:.3e} (rel {rel:.1e}) kernel_ms {t_k:.4f} "
+            f"plain_ms {t_p:.4f} library_ms {t_l:.4f} bound_us {b_ms * 1e3:.1f} ({b_by}) "
+            f"bound share {b_ms / t_k:.3f}{extra}")
+        if not inv:
+            calls = (40 if model == "target" else 2) * per_layer
+            f = fwd.setdefault((model, m), dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                                bound_ms=0.0))
+            for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                           ("bound_ms", b_ms)):
+                f[key] += calls * t
+            f["bound_by"] = b_by
+        del ws, w16
+    for (model, m), f in fwd.items():
+        log(f"[opt int8_matmul] one {model} forward at M={m} ({240 if model == 'target' else 12} "
+            f"calls): kernel_ms {f['ms']:.3f} plain_ms {f['plain_ms']:.3f} library_ms "
+            f"{f['library_ms']:.3f} bound_ms {f['bound_ms']:.3f} ({f['bound_by']}) bound share "
+            f"{f['bound_ms'] / f['ms']:.3f}")
+    results["opt_int8_matmul"] = dict(max_abs_err=worst, forwards={
+        f"{model} M={m}": f for (model, m), f in fwd.items()})
+
+    # the dense tied head [V, H] bf16: lm_head_logits (bf16 operands, fp32
+    # sums and output) against the fp32 product of the widened operands
+    # (the same exact products summed in other orders: 1e-5 of max|plain|)
+    heads = {}
+    for model, hid, ms_ in (("target", 5120, (1, OPT_GAMMA + 1, ROWS * (SERVE_GAMMA + 1))),
+                            ("draft", 640, (1, ROWS))):
+        heads_sets = _rotated(lambda: torch.randn((50272, hid), generator=gen, device="cuda")
+                              .to(torch.bfloat16))
+        for m in ms_:
+            h = torch.randn((1, m, hid), generator=gen, device="cuda").to(torch.bfloat16)
+            got = lm_head_logits(h, heads_sets[0])
+            ref = h.float() @ heads_sets[0].float().t()
+            max_abs, _ = check_close(f"dense head {model} M={m}", got, ref, 0.0,
+                                     1e-5 * float(ref.abs().max()))
+            t_k = time_ms(lambda i: lm_head_logits(h, heads_sets[i % len(heads_sets)]), 20)
+            t_p = time_ms(lambda i: h.float() @ heads_sets[i % len(heads_sets)].float().t(), 5)
+            b_ms, b_by = bound(50272 * hid * 2 + m * hid * 2 + m * 50272 * 4, 2 * m * hid * 50272)
+            log(f"[opt head] dense tied {model} head 50272x{hid} bf16, M={m}: max_abs_err "
+                f"{max_abs:.3e} lm_head_logits_ms {t_k:.4f} (torch.mm, bf16 operands, fp32 out) "
+                f"fp32-copy product_ms {t_p:.4f} bound_us {b_ms * 1e3:.1f} ({b_by}) bound share "
+                f"{b_ms / t_k:.3f}")
+            heads[f"{model} M={m}"] = dict(ms=t_k, fp32_copy_ms=t_p, bound_ms=b_ms)
+        del heads_sets
+    results["opt_head"] = heads
+
+
+def phase_opt_attention(results):
+    """B2 and B3 at the OPT path's shapes (D=128): B2 at the target verify
+    (Hkv 40 x S_new 9), the beam-v2 tree verify (1 x 17 under an ancestor
+    bias) and the draft (Hkv 5 x S_new 1/2); B3 at the serving verify (B=16,
+    Hkv 40, S_new 9) and the draft's step and re-feed (Hkv 5), int8 pools
+    as served and bf16. Each case as the earlier phases hold them."""
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import (
+        flash_decode_attention, flash_decode_ref, plan)
+    from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
+        paged_flash_decode_attention, paged_flash_decode_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rtol = atol = 2.0 ** -7
+    cases = []  # (what, hkv, s_new, lens, tree)
+    for lens in ([64], [100], [128], [S_MAX - OPT_GAMMA - 1]):
+        cases.append(("target verify", 40, OPT_GAMMA + 1, lens, False))
+    for lens in ([64], [TREE_PREFIX], [200]):
+        cases.append(("tree verify", 40, TREE_TOKENS, lens, True))
+    for lens in ([0], [64], [127], [128], [S_MAX - 2]):
+        cases += [("draft", 5, 1, lens, False), ("draft re-feed", 5, 2, lens, False)]
+    worst = 0.0
+    for quant in (False, True):
+        for what, hkv, s_new, lens, tree in cases:
+            q, kn, vn, kc, vc, lengths, bias, ks, vs = _rows_inputs(gen, 1, hkv, s_new, quant, lens,
+                                                                   tree)
+            max_abs, _ = _check_case(
+                f"flash_decode opt {what} quant={quant} Hkv={hkv} S_new={s_new} len={lens}",
+                flash_decode_attention, flash_decode_ref, (q, kn, vn, kc, vc, lengths, bias),
+                dict(scale=1.0, k_scales=ks, v_scales=vs), rtol, atol)
+            worst = max(worst, max_abs)
+    paged_cases = []  # (lens, hkv, s_new, p_max, tree)
+    for hkv, s_new in ((40, OPT_GAMMA + 1), (5, 1), (5, 2)):
+        paged_cases += [(_uniform_lens(gen, ROWS), hkv, s_new, 1, False),
+                        (MIXED_LENS, hkv, s_new, 6, hkv == 40)]
+    for quant in (True, False):
+        for lens, hkv, s_new, p_max, tree in paged_cases:
+            q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = _paged_inputs(
+                gen, lens, hkv, hkv, s_new, 128, PAGE, p_max, quant, tree)
+            max_abs, _ = _check_case(
+                f"paged_flash_decode opt quant={quant} Hkv={hkv} S_new={s_new} P={p_max}",
+                paged_flash_decode_attention, paged_flash_decode_ref,
+                (q, kn, vn, kp, vp, tables, lengths, bias),
+                dict(scale=1.0, k_scales=ks, v_scales=vs), rtol, atol)
+            worst = max(worst, max_abs)
+    log(f"[opt attention] {2 * len(cases)} B2 and {2 * len(paged_cases)} B3 cases within "
+        f"tolerance (bf16 and int8 KV; B2 Hkv 40 x S_new {OPT_GAMMA + 1}, 1 x {TREE_TOKENS} tree, "
+        f"Hkv 5 x S_new 1/2; B3 B=16 Hkv 40 x S_new {OPT_GAMMA + 1} and Hkv 5 x 1/2, uniform and "
+        f"mixed lengths), worst max_abs_err {worst:.3e}")
+    rows = {}
+    for what, hkv, s_new, length, tree in (
+            ("B2 target verify", 40, OPT_GAMMA + 1, 128, False),
+            ("B2 tree verify", 40, TREE_TOKENS, TREE_PREFIX, True),
+            ("B2 draft decode", 5, 1, 128, False), ("B2 draft re-feed", 5, 2, 128, False)):
+        t_k, t_p, t_l, b_ms, b_by, n_sets = _time_flash(gen, hkv, s_new, [length], tree=tree)
+        p = plan(1, hkv, s_new, S_MAX)
+        log(f"[opt attention] {what}: dense B=1 Hkv={hkv} S_new={s_new} len={length} plan "
+            f"ps={p.ps} blocks={p.blocks(1, hkv)}: kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
+            f"library_ms {t_l:.4f} (F.scaled_dot_product_attention) bound_us {b_ms * 1e3:.2f} "
+            f"({b_by}) bound share {b_ms / t_k:.3f}; {n_sets} input sets rotated")
+        rows[what] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
+    for what, hkv, s_new in (("B3 serving verify", 40, SERVE_GAMMA + 1),
+                             ("B3 draft step", 5, 1), ("B3 draft re-feed", 5, 2)):
+        lens = _uniform_lens(gen, ROWS)
+        t_k, t_p, t_l, b_ms, b_by, n_sets = _time_paged(gen, lens, 1, hkv, s_new, True)
+        p = plan(ROWS, hkv, s_new, PAGE, 1)
+        log(f"[opt attention] {what}: int8 pool, uniform lengths (B=16, Hkv={hkv}, S_new={s_new}, "
+            f"{sum(lens)} live positions; plan ps={p.ps} blocks={p.blocks(ROWS, hkv)}): kernel_ms "
+            f"{t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} (SDPA over a pre-gathered view) "
+            f"bound_us {b_ms * 1e3:.2f} ({b_by}) bound share {b_ms / t_k:.3f}; {n_sets} input sets "
+            "rotated")
+        rows[what] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
+    results["opt_attention"] = dict(max_abs_err=worst, per_call=rows)
+
+
 # ---------------------------------------------------------------- phase 3
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     return tree.cpu()
+
+
+def _hold_logits(tag: str, g: torch.Tensor, r: torch.Tensor, rel_tol: float = 3e-2):
+    """Card logits ``g`` against the CPU's ``r`` (both float, on the CPU):
+    finite, the same shape, relative error within ``rel_tol`` and the same
+    argmax wherever the CPU's top-2 gap exceeds twice the largest
+    difference (bf16 activations round at the same places on both devices
+    but sum in other orders; random weights leave many near-ties)."""
+    if not torch.isfinite(g).all() or g.shape != r.shape:
+        raise AssertionError(f"{tag}: bad logits {tuple(g.shape)}")
+    max_abs = float((g - r).abs().max())
+    rel = max_abs / float(r.abs().max())
+    top2 = r.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * max_abs
+    agree = (g.argmax(-1) == r.argmax(-1)) | ~clear
+    log(f"{tag}: max|gpu-cpu|/max|cpu| {rel:.2e} (tol {rel_tol:.0e}); argmax agrees at "
+        f"{int(agree.sum())}/{agree.numel()} positions ({int(clear.sum())} with a clear top-2 gap, "
+        "which must agree)")
+    if rel > rel_tol or not bool(agree.all()):
+        raise AssertionError(f"{tag}: gpu and cpu logits disagree")
 
 
 def phase_forward():
@@ -795,24 +1013,8 @@ def phase_forward():
         l1, cache = bt.forward(params, cfg, ver.to(dev), cache)
         l2, cache = bt.forward(params, cfg, dec.to(dev), cache)
         outs[dev] = [t.float().cpu() for t in (l0, l1, l2)]
-    # bf16 activations: the two devices round at the same places but sum in
-    # other orders, and a flipped bf16 rounding propagates through 2 layers.
-    # The argmax must agree wherever the CPU's top-2 gap exceeds twice the
-    # largest difference (random weights leave many near-ties).
-    rel_tol = 3e-2
     for name, g, r in zip(("prefill 64", "verify 25", "decode 1"), outs["cuda"], outs["cpu"]):
-        if not torch.isfinite(g).all() or g.shape != (1, r.shape[1], cfg.vocab_size):
-            raise AssertionError(f"forward {name}: bad logits {tuple(g.shape)}")
-        max_abs = float((g - r).abs().max())
-        rel = max_abs / float(r.abs().max())
-        top2 = r.topk(2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1]) > 2 * max_abs
-        agree = (g.argmax(-1) == r.argmax(-1)) | ~clear
-        log(f"[forward] 2-layer 5120-wide int8 {name}: max|gpu-cpu|/max|cpu| {rel:.2e} "
-            f"(tol {rel_tol:.0e}); argmax agrees at {int(agree.sum())}/{agree.numel()} positions "
-            f"({int(clear.sum())} with a top-2 gap > 2*max|gpu-cpu|, which must agree)")
-        if rel > rel_tol or not bool(agree.all()):
-            raise AssertionError(f"forward {name}: gpu and cpu logits disagree")
+        _hold_logits(f"[forward] 2-layer 5120-wide int8 {name}", g, r)
     del pt, pc
 
 
@@ -855,20 +1057,8 @@ def phase_paged_forward():
             outs[dev].append(logits[:3].float().cpu())
     if paged_flash_decode_attention.launches - launches != 3 * cfg.num_layers:
         raise AssertionError("the paged forward did not take the paged kernel on its short blocks")
-    rel_tol = 3e-2
     for (name, _, _), g, r in zip(steps, outs["cuda"], outs["cpu"]):
-        if not torch.isfinite(g).all() or g.shape != r.shape:
-            raise AssertionError(f"paged forward {name}: bad logits {tuple(g.shape)}")
-        max_abs = float((g - r).abs().max())
-        rel = max_abs / float(r.abs().max())
-        top2 = r.topk(2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1]) > 2 * max_abs
-        agree = (g.argmax(-1) == r.argmax(-1)) | ~clear
-        log(f"[paged forward] 2-layer 5120-wide int8, int8 pool, {name}: max|gpu-cpu|/max|cpu| "
-            f"{rel:.2e} (tol {rel_tol:.0e}); argmax agrees at {int(agree.sum())}/{agree.numel()} "
-            f"positions ({int(clear.sum())} with a clear top-2 gap, which must agree)")
-        if rel > rel_tol or not bool(agree.all()):
-            raise AssertionError(f"paged forward {name}: gpu and cpu logits disagree")
+        _hold_logits(f"[paged forward] 2-layer 5120-wide int8, int8 pool, {name}", g, r)
     del pt, pc
 
 
@@ -911,21 +1101,11 @@ def phase_tree_forward():
         outs[dev], caches[dev] = logits.float().cpu(), cache
     if flash_decode_attention.launches - launches != cfg.num_layers:
         raise AssertionError("the tree forward did not take the flash-decode kernel")
-    g, r = outs["cuda"], outs["cpu"]
+    if outs["cuda"].shape != (rows, n + 1, cfg.vocab_size):
+        raise AssertionError(f"tree forward: bad logits {tuple(outs['cuda'].shape)}")
+    _hold_logits(f"[tree forward] 2-layer 5120-wide int8, {rows} rows x {n + 1} tree tokens at "
+                 f"prefix {cur_len - 1}", outs["cuda"], outs["cpu"])
     rel_tol = 3e-2
-    max_abs = float((g - r).abs().max())
-    rel = max_abs / float(r.abs().max())
-    top2 = r.topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > 2 * max_abs
-    agree = (g.argmax(-1) == r.argmax(-1)) | ~clear
-    log(f"[tree forward] 2-layer 5120-wide int8, {rows} rows x {n + 1} tree tokens at prefix "
-        f"{cur_len - 1}: max|gpu-cpu|/max|cpu| {rel:.2e} (tol {rel_tol:.0e}); argmax agrees at "
-        f"{int(agree.sum())}/{agree.numel()} positions ({int(clear.sum())} with a clear top-2 gap, "
-        f"which must agree)")
-    if not torch.isfinite(g).all() or g.shape != (rows, n + 1, cfg.vocab_size):
-        raise AssertionError(f"tree forward: bad logits {tuple(g.shape)}")
-    if rel > rel_tol or not bool(agree.all()):
-        raise AssertionError("tree forward: gpu and cpu logits disagree")
     kv_rel = max(float((a.float().cpu() - b.float()).abs().max()) / float(b.float().abs().max())
                  for a, b in zip(kv_buffers(caches["cuda"]), kv_buffers(caches["cpu"])))
     log(f"[tree forward] cache after the tree forward: max|gpu-cpu|/max|cpu| {kv_rel:.2e} "
@@ -958,6 +1138,262 @@ def phase_tree_forward():
     log("[tree forward] compact_tree_paths: card == CPU bit for bit (bf16 tree cache and an int8 "
         "cache; accepted depths 0, 2, 4)")
     del pt, pc
+
+
+def phase_opt_forward():
+    """A 2-layer, full-width (5120, ffn 20480, vocab 50272) int8 OPT slice
+    on the card against the same weights on the CPU: through a contiguous
+    cache (prefill 64, verify 9, decode 1), through a paged int8 pool (an
+    admission prefill, per-row rollbacks, verify 9, decode 1, the draft's
+    re-feed and a 40-token block over a page edge; row 3 on the sentinel
+    table) and a 4-row x 17-token tree block whose nodes at one depth
+    share a position, under the ancestor bias."""
+    import dataclasses
+
+    from llmspeculativesampling_tpu_torch.cache.kvcache import rollback
+    from llmspeculativesampling_tpu_torch.cache.paged import init_paged_cache, set_row_table
+    from llmspeculativesampling_tpu_torch.core.synthetic import synthetic_opt_pair_int8
+    from llmspeculativesampling_tpu_torch.engine.beam_tree import ancestor_matrix
+
+    _, _, bt, pt = synthetic_opt_pair_int8(num_layers=2, draft_layers=2, seed=5, device="cuda")
+    pc = _to_cpu(pt)
+    cfg = bt.cfg
+    counters = _counters()
+    rng = np.random.default_rng(11)
+
+    def ids(*shape):
+        return torch.as_tensor(rng.integers(100, 50000, shape), dtype=torch.long)
+
+    # contiguous
+    steps = [("prefill 64", ids(1, 64)), ("verify 9", ids(1, OPT_GAMMA + 1)), ("decode 1", ids(1, 1))]
+    outs = {}
+    b2 = counters["flash_decode"].launches
+    for dev, params in (("cuda", pt), ("cpu", pc)):
+        cache = bt.make_cache(1, S_MAX, device=dev)
+        outs[dev] = []
+        for _, toks in steps:
+            logits, cache = bt.forward(params, cfg, toks.to(dev), cache)
+            outs[dev].append(logits.float().cpu())
+    if counters["flash_decode"].launches - b2 != 2 * cfg.num_layers:
+        raise AssertionError("opt forward: the short blocks did not take B2")
+    for (name, _), g, r in zip(steps, outs["cuda"], outs["cpu"]):
+        _hold_logits(f"[opt forward] 2-layer 5120-wide int8 OPT, {name}", g, r)
+
+    # paged int8 pool
+    tables = [[5, 11, 2], [9, 0, 14], [3, 7, 12], []]
+    psteps = [("prefill 64", 64, None), ("verify 9", 9, [64, 50, 37, 0]), ("decode 1", 1, None),
+              ("re-feed 2", 2, [70, 58, 47, 0]), ("block 40 over a page edge", 40, [120, 100, 60, 0])]
+    ptoks = {n: ids(4, w) for n, w, _ in psteps}
+    outs = {}
+    b3 = counters["paged_flash_decode"].launches
+    for dev, params in (("cuda", pt), ("cpu", pc)):
+        cache = init_paged_cache(cfg.num_layers, 16, cfg.num_kv_heads, PAGE, cfg.head_dim, 4, 3,
+                                 quant=True, device=dev)
+        for row, blocks in enumerate(tables):
+            set_row_table(cache, row, blocks + [16] * (3 - len(blocks)), 0)
+        outs[dev] = []
+        for name, _, lens in psteps:
+            if lens is not None:
+                cache = dataclasses.replace(
+                    cache, lengths=torch.tensor(lens, dtype=torch.int32, device=dev))
+            logits, cache = bt.forward(params, cfg, ptoks[name].to(dev), cache,
+                                       paged_prefill=name.startswith("prefill"))
+            outs[dev].append(logits[:3].float().cpu())
+    if counters["paged_flash_decode"].launches - b3 != 3 * cfg.num_layers:
+        raise AssertionError("opt paged forward: the short blocks did not take B3")
+    for (name, _, _), g, r in zip(psteps, outs["cuda"], outs["cpu"]):
+        _hold_logits(f"[opt paged forward] int8 pool, {name}", g, r)
+
+    # a tree block: 4 rows x (anchor + 16 nodes), nodes at one depth share a position
+    rows, n, cur_len = TREE_BEAMS, TREE_GAMMA * TREE_BEAMS, 64
+    prompt = ids(rows, cur_len)
+    parents = torch.as_tensor(rng.integers(0, TREE_BEAMS, (TREE_GAMMA, TREE_BEAMS)))
+    block = torch.zeros((n + 1, n + 1), dtype=torch.bool)
+    block[:, 0] = True
+    block[1:, 1:] = ancestor_matrix(parents, TREE_GAMMA, TREE_BEAMS)
+    level = torch.arange(TREE_GAMMA).repeat_interleave(TREE_BEAMS)
+    positions = torch.cat([torch.tensor([cur_len - 1]), cur_len + level])[None].expand(rows, n + 1)
+    vin = torch.cat([prompt[:, -1:], ids(1, n).expand(rows, n)], dim=1)
+    outs = {}
+    b2 = counters["flash_decode"].launches
+    for dev, params in (("cuda", pt), ("cpu", pc)):
+        cache = bt.make_cache(rows, S_MAX, device=dev)
+        _, cache = bt.forward(params, cfg, prompt.to(dev), cache)
+        cache = rollback(cache, cur_len - 1)
+        logits, _ = bt.forward(params, cfg, vin.to(dev), cache, positions=positions.to(dev),
+                               tree_mask=block[None].expand(rows, n + 1, n + 1).to(dev))
+        outs[dev] = logits.float().cpu()
+    if counters["flash_decode"].launches - b2 != cfg.num_layers:
+        raise AssertionError("opt tree forward: the tree block did not take B2")
+    _hold_logits(f"[opt tree forward] {rows} rows x {n + 1} tokens, shared positions",
+                 outs["cuda"], outs["cpu"])
+    del pt, pc
+
+
+def phase_fp8_forward():
+    """fp8 e4m3 weights on the card: the 2-layer 5120-wide Llama slice with
+    its int8 codes cast to e4m3 (every projection and the lm_head) through
+    a contiguous cache, card against CPU. The fp8 product is the plain bf16
+    one of ``models/linear.py``, so B1 must not run; B1's wrapper still
+    refuses an fp8 weight."""
+    from llmspeculativesampling_tpu_torch.core.synthetic import synthetic_pair_int8
+    from llmspeculativesampling_tpu_torch.kernels.int8_matmul import int8_matmul
+
+    _, _, bt, pt = synthetic_pair_int8(num_layers=2, draft_layers=2, seed=5, device="cuda")
+
+    def fp8(tree):
+        if isinstance(tree, dict) and "q" in tree:
+            return {"q": tree["q"].to(torch.float8_e4m3fn), "s": tree["s"]}
+        if isinstance(tree, dict):
+            return {k: fp8(v) for k, v in tree.items()}
+        return tree
+
+    pt = fp8(pt)
+    pc = _to_cpu(pt)
+    cfg = bt.cfg
+    rng = np.random.default_rng(13)
+    steps = [(name, torch.as_tensor(rng.integers(100, 31000, (1, w)), dtype=torch.long))
+             for name, w in (("prefill 64", 64), ("verify 25", GAMMA + 1), ("decode 1", 1))]
+    outs = {}
+    b1 = int8_matmul.launches
+    for dev, params in (("cuda", pt), ("cpu", pc)):
+        cache = bt.make_cache(1, S_MAX, device=dev)
+        outs[dev] = []
+        for _, toks in steps:
+            logits, cache = bt.forward(params, cfg, toks.to(dev), cache)
+            outs[dev].append(logits.float().cpu())
+    if int8_matmul.launches != b1:
+        raise AssertionError("fp8 forward: an fp8 weight reached the int8 kernel")
+    for (name, _), g, r in zip(steps, outs["cuda"], outs["cpu"]):
+        _hold_logits(f"[fp8 forward] 2-layer 5120-wide fp8 e4m3 Llama, {name}", g, r)
+    w = pt["layers"]["wq"]
+    try:
+        int8_matmul(torch.zeros((1, w["q"].shape[1]), dtype=torch.bfloat16, device="cuda"),
+                    w["q"][0], w["s"][0])
+    except NotImplementedError:
+        log("[fp8 forward] B1's wrapper refuses an fp8 weight (NotImplementedError), as it should")
+    else:
+        raise AssertionError("B1's wrapper took an fp8 weight")
+    del pt, pc
+
+
+_ST_DTYPE_NAMES = {torch.bfloat16: "BF16", torch.float32: "F32"}
+
+
+def write_safetensors(path: str, tensors: dict):
+    """A safetensors file written without the ``safetensors`` package: an
+    8-byte little-endian header length, the JSON header (dtype, shape and
+    ``data_offsets`` of each tensor, space-padded to 8 bytes), then each
+    tensor's bytes in order."""
+    import struct
+
+    header, offset, order = {}, 0, []
+    for name, t in tensors.items():
+        t = t.detach().contiguous().cpu()
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPE_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+        order.append(t)
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in order:
+            f.write(t.view(torch.uint8).numpy().tobytes())
+
+
+def phase_loader():
+    """A checkpoint round trip: a 2-layer 5120-wide bf16 OPT with random
+    weights, biases and LayerNorms written under HF's names ([out, in]
+    Linear weights) as two safetensors shards and a config.json into a
+    temporary directory, loaded by ``load_pretrained`` onto the card. Every
+    leaf and the logits of a prefill and a verify must equal those of the
+    params written, bit for bit."""
+    import tempfile
+
+    from llmspeculativesampling_tpu_torch.core.config import OPTConfig
+    from llmspeculativesampling_tpu_torch.core.loader import load_pretrained
+    from llmspeculativesampling_tpu_torch.engine.types import ModelBundle
+    from llmspeculativesampling_tpu_torch.models import opt
+
+    cfg = OPTConfig(vocab_size=50272, hidden_size=5120, ffn_dim=20480, num_layers=2,
+                    num_heads=40, max_position=2048, dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    params = opt.init_params(cfg, gen, device="cuda")
+    for name, x in list(params["layers"].items()) + [("ln_final_w", params["ln_final_w"]),
+                                                     ("ln_final_b", params["ln_final_b"])]:
+        if x.dim() <= 2:  # biases and LayerNorms
+            base = 1.0 if name.startswith("ln") and name.endswith("_w") else 0.0
+            x.copy_(base + 0.05 * torch.randn(x.shape, generator=gen, device="cuda"))
+    pre = "model.decoder."
+    names = {"wq": "self_attn.q_proj.weight", "bq": "self_attn.q_proj.bias",
+             "wk": "self_attn.k_proj.weight", "bk": "self_attn.k_proj.bias",
+             "wv": "self_attn.v_proj.weight", "bv": "self_attn.v_proj.bias",
+             "wo": "self_attn.out_proj.weight", "bo": "self_attn.out_proj.bias",
+             "fc1_w": "fc1.weight", "fc1_b": "fc1.bias", "fc2_w": "fc2.weight", "fc2_b": "fc2.bias",
+             "ln_attn_w": "self_attn_layer_norm.weight", "ln_attn_b": "self_attn_layer_norm.bias",
+             "ln_mlp_w": "final_layer_norm.weight", "ln_mlp_b": "final_layer_norm.bias"}
+    layer_sd = {}
+    for key, name in names.items():
+        for i in range(cfg.num_layers):
+            x = params["layers"][key][i]
+            layer_sd[f"{pre}layers.{i}.{name}"] = x.t() if x.dim() == 2 else x
+    rest = {pre + "embed_tokens.weight": params["embed"],
+            pre + "embed_positions.weight": params["embed_pos"],
+            pre + "final_layer_norm.weight": params["ln_final_w"],
+            pre + "final_layer_norm.bias": params["ln_final_b"]}
+    hf_config = {"model_type": "opt", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+                 "ffn_dim": cfg.ffn_dim, "num_hidden_layers": cfg.num_layers,
+                 "num_attention_heads": cfg.num_heads, "max_position_embeddings": cfg.max_position,
+                 "do_layer_norm_before": True, "word_embed_proj_dim": cfg.hidden_size}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        write_safetensors(os.path.join(d, "model-00001-of-00002.safetensors"), layer_sd)
+        write_safetensors(os.path.join(d, "model-00002-of-00002.safetensors"), rest)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(hf_config, f)
+        size = sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d))
+        t1 = time.perf_counter()
+        fam, cfg2, loaded = load_pretrained(d, device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    del layer_sd, rest
+    if fam != "opt" or cfg2 != cfg:
+        raise AssertionError(f"loader: got {fam} {cfg2}")
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], f"{prefix}{k}.")
+        else:
+            yield prefix[:-1], tree
+
+    got, want = dict(leaves(loaded)), dict(leaves(params))
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"loader: leaves {sorted(got)} != {sorted(want)}")
+    for name, x in want.items():
+        if got[name].device.type != "cuda" or not torch.equal(got[name], x):
+            raise AssertionError(f"loader: leaf {name} differs from what was written")
+    rng = np.random.default_rng(19)
+    toks = [torch.as_tensor(rng.integers(100, 50000, (1, w)), dtype=torch.long, device="cuda")
+            for w in (64, OPT_GAMMA + 1)]
+    logits = []
+    bundle = ModelBundle("opt", cfg, opt.forward)
+    for p in (params, loaded):
+        cache = bundle.make_cache(1, S_MAX, device="cuda")
+        out = []
+        for t in toks:
+            lg, cache = opt.forward(p, cfg, t, cache)
+            out.append(lg)
+        logits.append(out)
+    if not all(torch.equal(a, b) for a, b in zip(*logits)):
+        raise AssertionError("loader: logits of the loaded params differ from the written ones")
+    log(f"[loader] 2-layer 5120-wide bf16 OPT: {size / 1e9:.2f} GB written as 2 safetensors shards "
+        f"in {t1 - t0:.1f} s, loaded onto the card by load_pretrained in {t2 - t1:.1f} s; every "
+        "leaf and the prefill/verify logits equal the written params' bit for bit")
+    del params, loaded
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1349,7 +1785,7 @@ def _serve_mix(kind: str, pair) -> dict:
         # the length lands in [max_new, max_new + gamma] unless EOS ends it
         ok_len = mn <= n_new <= mn + SERVE_GAMMA or (1 <= n_new and out[-1] == 2)
         if not (np.array_equal(out[:pl], prompt) and ok_len and out.min() >= 0
-                and out.max() < VOCAB):
+                and out.max() < bt.cfg.vocab_size):
             raise AssertionError(f"serving {kind}: bad output of length {len(out)} for ({pl}, {mn})")
         gen_tokens += n_new
     if engine.allocator.free_blocks != BLOCKS or engine.num_active or engine._pending:
@@ -1377,7 +1813,7 @@ def _serve_mix(kind: str, pair) -> dict:
                     "latency_p50_s", "latency_p95_s", "ttft_p50_s", "ttft_p95_s")})
 
 
-def phase_burst_trickle(results, pair, n_req: int = 8):
+def phase_burst_trickle(results, pair, n_req: int = 8, tag: str = "burst_trickle"):
     """The same requests through one ``PagedEngine`` (the uniform mix's
     settings) once as a burst (one admission prefill of all of them) and
     once one at a time (an admission each), under the same rids, so the
@@ -1419,9 +1855,9 @@ def phase_burst_trickle(results, pair, n_req: int = 8):
         log(f"[burst vs trickle] all {n_req} requests give identical output ids "
             f"({sum(len(o) - 64 for o in burst)} generated tokens; B1 ksplit at the prefill: "
             f"M=64 -> {ks[64]}, M={n_req * 64} -> {ks[n_req * 64]})")
-    results["burst_trickle"] = dict(requests=n_req, differ=diff)
+    results[tag] = dict(requests=n_req, differ=diff)
     if diff:
-        raise AssertionError("burst vs trickle: a request's output depends on its admission batch")
+        raise AssertionError(f"{tag}: a request's output depends on its admission batch")
     del engine
     torch.cuda.empty_cache()
 
@@ -1432,6 +1868,99 @@ def phase_serving(results, pair):
     results["launches"]["paged_serving"] = {
         name: sum(serving[k]["launches"][name] for k in serving)
         for name in serving["uniform"]["launches"]}
+
+
+def phase_opt_path(results, reps: int):
+    """The OPT path at full width: ``synthetic_opt_pair_int8_small_draft``
+    (OPT-13B int8 target, 640-wide 2-layer draft, tied bf16 heads) born on
+    the card, with scripts/bench_opt13b.py's settings (64-token prompt,
+    top_k 20, top_p 0.9, eos 2): AR and speculative decoding at gamma 8 with
+    128 new tokens, beam v2 (4 beams, gamma 4, 64 new tokens), one warm-up
+    and ``reps`` timed runs each, then the uniform serving mix through
+    ``PagedEngine`` behind ``BatchedInferenceServer``. Every target forward
+    of the contiguous paths must run B2 in each of its 40 layers, B3 never;
+    the paged path never runs B2."""
+    from llmspeculativesampling_tpu_torch import (
+        autoregressive_generate, beam_speculative_v2_generate, speculative_generate,
+        synthetic_opt_pair_int8_small_draft)
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    pair = synthetic_opt_pair_int8_small_draft(device="cuda")
+    torch.cuda.synchronize()
+    log(f"[opt] OPT-13B int8 target + 640x2 draft born on the card in "
+        f"{time.perf_counter() - t_phase:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated ({card})")
+    bd, pd, bt, pt = pair
+    vocab, n_layers = bt.cfg.vocab_size, bt.cfg.num_layers
+    prompt = list(np.random.default_rng(0).integers(100, 50000, 64))
+    kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, details=True, device="cuda")
+    engines = {  # name -> (run, fewest and most new tokens a run returns unless EOS ends it)
+        "ar": (lambda gen: autoregressive_generate(bt, pt, prompt, 128, generator=gen, **kw),
+               128, 128),
+        "spec": (lambda gen: speculative_generate(bd, pd, bt, pt, prompt, 128, gamma=OPT_GAMMA,
+                                                  generator=gen, **kw), 128, 128 + OPT_GAMMA),
+        # the tree loop checks its budget before a step, which adds up to gamma+1 tokens
+        "beam_v2": (lambda gen: beam_speculative_v2_generate(
+            bd, pd, bt, pt, prompt, TREE_NEW, gamma=TREE_GAMMA, num_beams=TREE_BEAMS,
+            extra_sample_cnt=1, expect_thres=0.7, generator=gen, **kw), 1, TREE_NEW + TREE_GAMMA),
+    }
+    out_res, total = {}, {}
+    for name, (run, least, cap) in engines.items():
+        run(torch.Generator(device="cuda").manual_seed(0))  # warm-up, phase-split calibration
+        torch.cuda.synchronize()
+        reset_launches()
+        ds, target_forwards = [], 0
+        for k in range(1, reps + 1):
+            out, d = run(torch.Generator(device="cuda").manual_seed(k))
+            ds.append(d)
+            gen_ids = out[64:]
+            if not (np.array_equal(out[:64], np.asarray(prompt)) and 1 <= len(gen_ids) <= cap
+                    and (len(gen_ids) >= least or gen_ids[-1] == 2)
+                    and gen_ids.min() >= 0 and gen_ids.max() < vocab):
+                raise AssertionError(f"opt {name}: bad output of length {len(out)}")
+            # short-block target forwards: AR's decode steps, a verify a step
+            target_forwards += len(gen_ids) - 1 if name == "ar" else d["target_call_times"]
+        launches = read_launches()
+        rates = [d["tokens_per_s"] for d in ds]
+        line = (f"[opt {name}] tok/s median {np.median(rates):.2f} min {min(rates):.2f} max "
+                f"{max(rates):.2f} over {reps} reps; {target_forwards} short-block target "
+                f"forwards; launches {launches}")
+        res = dict(tok_s=float(np.median(rates)), launches=launches)
+        if name != "ar":
+            acc = float(np.mean([d["acc_rate"] for d in ds]))
+            acc_len = float(np.mean([np.mean(d["acc_len"]) for d in ds]))
+            steps = [d["target_call_times"] for d in ds]
+            line += f"; acc_rate {acc:.4f}, mean acc_len {acc_len:.3f}, steps per rep {steps}"
+            res.update(acc_rate=acc, acc_len=acc_len, steps=steps)
+        log(f"{line} ({card})")
+        if launches["int8_matmul"] <= 0 or launches["paged_flash_decode"] != 0:
+            raise AssertionError(f"opt {name}: B1 did not run, or B3 ran")
+        if launches["flash_decode"] < n_layers * target_forwards:
+            raise AssertionError(f"opt {name}: {launches['flash_decode']} B2 launches for "
+                                 f"{target_forwards} target forwards of {n_layers} layers")
+        if name == "spec" and res["acc_rate"] < 0.6:
+            raise AssertionError(f"opt spec: acceptance {res['acc_rate']:.3f} < 0.6")
+        if name == "beam_v2" and res["acc_len"] <= 1.0:
+            raise AssertionError(f"opt beam_v2: mean acc_len {res['acc_len']:.3f} <= 1")
+        out_res[name] = res
+        for kname, n in launches.items():
+            total[kname] = total.get(kname, 0) + n
+    log(f"[opt] spec gamma={OPT_GAMMA} speedup over AR "
+        f"{out_res['spec']['tok_s'] / out_res['ar']['tok_s']:.3f}x ({card})")
+    serve = _serve_mix("uniform", pair)
+    for kname, n in serve["launches"].items():
+        total[kname] += n
+    out_res["serving_uniform"] = serve
+    # the admission prefill's B1 calls and dense head are planned batch-invariant
+    phase_burst_trickle(results, pair, tag="opt_burst_trickle")
+    del pair, bd, pd, bt, pt, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    elapsed = time.perf_counter() - t_phase
+    log(f"[opt] phase took {elapsed:.1f} s")
+    results["opt"] = dict(engines=out_res, seconds=elapsed)
+    results["launches"]["opt"] = total
 
 
 def main() -> int:
@@ -1445,22 +1974,29 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     results = {}
     t_all = time.perf_counter()
-    phase_device(_build)
-    phase_int8_matmul(results)
-    phase_flash_decode(results)
-    phase_flash_tree(results)
-    phase_flash_algorithms(results)
-    phase_paged_flash_decode(results)
-    phase_forward()
-    phase_paged_forward()
-    phase_tree_forward()
-    pair = build_pair()
-    phase_main_path(results, REPS, pair)
-    phase_tree_path(results, REPS, pair)
-    phase_algorithms(results, REPS, pair)
-    phase_serving(results, pair)
-    phase_burst_trickle(results, pair)
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[smoke] {fn.__name__} took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed(phase_device, _build)
+    for phase in (phase_int8_matmul, phase_flash_decode, phase_flash_tree, phase_flash_algorithms,
+                  phase_paged_flash_decode, phase_opt_int8_matmul, phase_opt_attention):
+        timed(phase, results)
+    for phase in (phase_forward, phase_paged_forward, phase_tree_forward, phase_opt_forward,
+                  phase_fp8_forward, phase_loader):
+        timed(phase)
+    pair = timed(build_pair)
+    for phase in (phase_main_path, phase_tree_path, phase_algorithms):
+        timed(phase, results, REPS, pair)
+    timed(phase_serving, results, pair)
+    timed(phase_burst_trickle, results, pair)
     del pair
+    gc.collect()
+    torch.cuda.empty_cache()  # the Llama pair's 13.3 GB go before the OPT pair's 13.1 GB
+    timed(phase_opt_path, results, REPS)
     by_path = results["launches"]
     kernels = [
         {"name": "int8_matmul", "route": "cuda",
@@ -1478,12 +2014,30 @@ def main() -> int:
          "at": "one serving target verify forward: 40 calls, B=16, Hkv=40, S_new=9, page 128, "
                "int8 pool, uniform lengths"},
     ]
+    # the same numbers at the OPT path's shapes, under "opt"
+    att = results["opt_attention"]["per_call"]
+    opt_rows = {
+        "int8_matmul": ("one OPT target verify forward: 240 calls at M=9",
+                        results["opt_int8_matmul"]["forwards"][f"target M={OPT_GAMMA + 1}"], 1),
+        "flash_decode": ("one OPT target verify forward: 40 calls, Hkv=40, S_new=9, len=128",
+                         att["B2 target verify"], 40),
+        "paged_flash_decode": ("one OPT serving verify forward: 40 calls, B=16, Hkv=40, S_new=9, "
+                               "int8 pool, uniform lengths", att["B3 serving verify"], 40),
+    }
+    opt_err = {"int8_matmul": results["opt_int8_matmul"]["max_abs_err"],
+               "flash_decode": results["opt_attention"]["max_abs_err"],
+               "paged_flash_decode": results["opt_attention"]["max_abs_err"]}
     for k in kernels:
         r = results[k["name"]]
         n = {path: counts[k["name"]] for path, counts in by_path.items()}
-        k.update(launches=sum(n.values()), launches_by_path=n, max_abs_err=r["max_abs_err"],
+        k.update(launches=sum(n.values()), launches_by_path=n,
+                 max_abs_err=max(r["max_abs_err"], opt_err[k["name"]]),
                  ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                  library_ms=r["library_ms"])
+        at, row, calls = opt_rows[k["name"]]
+        k["opt"] = dict(at=at, bound_by=row["bound_by"],
+                        **{key: calls * row[key] for key in ("ms", "plain_ms", "library_ms",
+                                                             "bound_ms")})
     log(f"[smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -9,8 +9,21 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``. On a CUDA tensor every kernel wrapper launches its
 hand-written kernel (``csrc/``) or raises; the plain PyTorch version beside
 each kernel serves CPU tensors (the tests) only.
+
+Two model families run on every engine: Llama (with Qwen2 and Mistral) and
+OPT. Real checkpoints load from local directories (``load_pretrained``);
+the synthetic pairs are born on the card from a seed.
 """
 
+from .core.config import LlamaConfig, OPTConfig
+from .core.loader import load_pretrained, load_params, save_params
+from .core.synthetic import (
+    synthetic_opt_pair_int8,
+    synthetic_opt_pair_int8_small_draft,
+    synthetic_pair,
+    synthetic_pair_int8,
+    synthetic_pair_int8_small_draft,
+)
 from .engine import (  # noqa: E402
     ModelBundle,
     autoregressive_generate,
@@ -37,6 +50,16 @@ BiLD_sampling = bild_generate
 random_width_beam_sampling = random_width_beam_generate
 
 __all__ = [
+    "LlamaConfig",
+    "OPTConfig",
+    "load_pretrained",
+    "load_params",
+    "save_params",
+    "synthetic_opt_pair_int8",
+    "synthetic_opt_pair_int8_small_draft",
+    "synthetic_pair",
+    "synthetic_pair_int8",
+    "synthetic_pair_int8_small_draft",
     "ModelBundle",
     "autoregressive_generate",
     "beam_speculative_generate",

@@ -1,7 +1,7 @@
 """Model configuration (counterpart of ``llmspeculativesampling_tpu/core/config.py``).
 
-Same fields as the JAX ``LlamaConfig``; ``torch_dtype`` replaces
-``jnp_dtype``. Also holds :func:`resolve_device`, the one place that turns
+Same fields as the JAX ``LlamaConfig`` and ``OPTConfig``; ``torch_dtype``
+replaces ``jnp_dtype``. Also holds :func:`resolve_device`, the one place that turns
 a ``device`` argument into a ``torch.device``: the default is the CUDA card,
 and a missing card is an error, never a silent CPU fallback.
 """
@@ -64,6 +64,41 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class OPTConfig:
+    """Decoder-only OPT family (opt-125m...opt-13b): learned positions with
+    the +2 offset, pre- or post-LayerNorm, ReLU MLP, biases on every
+    projection, optional word-embed projections (opt-350m), tied head."""
+
+    vocab_size: int = 50272
+    hidden_size: int = 768
+    ffn_dim: int = 3072
+    num_layers: int = 12
+    num_heads: int = 12
+    max_position: int = 2048
+    word_embed_proj_dim: Optional[int] = None  # != hidden_size only for 350m
+    do_layer_norm_before: bool = True
+    layer_norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    flash: str = "auto"  # see LlamaConfig.flash
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def num_kv_heads(self) -> int:
+        return self.num_heads
+
+    @property
+    def embed_dim(self) -> int:
+        return self.word_embed_proj_dim or self.hidden_size
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -170,6 +170,99 @@ def unstack_layers(params: dict) -> dict:
     return {**params, "layers": [{k: take(v, i) for k, v in layers.items()} for i in range(n)]}
 
 
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """One forward's attention dispatch over ``cache``, shared by every
+    layer (and by ``models/opt.py``): which path the new block of ``s``
+    tokens takes, the cache length (a host int for the contiguous cache,
+    per-row ``lengths`` on the device for both), each token's default
+    ``offset`` for its position, and the additive biases."""
+
+    paged: bool
+    use_flash: bool
+    paged_prefill: bool
+    length: Optional[int]
+    lengths: Optional[torch.Tensor]
+    offset: object
+    bias_blk: Optional[torch.Tensor]  # [B, S, S], the flash and block-only paths
+    bias: Optional[torch.Tensor]      # [B, 1, S, S_max], the einsum paths
+
+
+def attention_plan(cache, s: int, batch: int, device, flash: str,
+                   tree_mask: Optional[torch.Tensor], paged_prefill: bool) -> AttentionPlan:
+    """The attention dispatch of a block of ``s`` tokens (see the module
+    docstring)."""
+    paged = paged_cache.is_paged(cache)
+    if paged_prefill and not paged:
+        raise ValueError("paged_prefill needs a paged cache")
+    if paged:
+        length, lengths = None, cache.lengths
+        s_max = cache.max_pages * cache.page
+        offset = lengths.long()[:, None]
+        use_flash = not paged_prefill and flash_decode.should_use(s, flash)
+    else:
+        length, lengths = int(cache.length), None
+        s_max = cache.max_len
+        offset = length
+        use_flash = flash_decode.should_use(s, flash)
+    bias_blk = bias = None
+    if use_flash or paged_prefill:
+        bias_blk = block_bias(s, tree_mask, batch, device)
+        if not paged:
+            lengths = torch.full((batch,), length, dtype=torch.int32, device=device)
+    else:
+        mask = attention_mask(lengths if paged else length, s, s_max, tree_mask, batch, device)
+        bias = torch.where(mask, 0.0, _MASK_VALUE).float()[:, None]  # [B,1,S,S_max]
+    return AttentionPlan(paged, use_flash, paged_prefill, length, lengths, offset, bias_blk, bias)
+
+
+def layer_attention(plan: AttentionPlan, cache, li: int, q, k, v, scale: float,
+                    dtype) -> torch.Tensor:
+    """Layer ``li``'s attention: ``q`` [B, S, H, D] and ``k``/``v`` [B, S,
+    Hkv, D] fresh projections (positions applied) are written into the
+    cache in place and attended to with the prefix, by the path ``plan``
+    chose. Returns ctx [B, S, H * D] in ``dtype``."""
+    b, s, n_heads, head_dim = q.shape
+    n_kv = k.shape[2]
+    if plan.paged:
+        slices = paged_cache.layer_slices(cache, li)
+        if plan.use_flash:
+            return paged_flash_layer_attention(q, k, v, slices, cache.block_tables, plan.lengths,
+                                               plan.bias_blk, scale)
+    else:
+        slices = layer_slices(cache, li)
+        if plan.use_flash:
+            return flash_layer_attention(q, k, v, slices, plan.length, plan.lengths,
+                                         plan.bias_blk, scale)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+    if plan.paged_prefill:
+        # empty rows: the new block attends to itself only
+        paged_cache.paged_write_layer(slices, cache.block_tables, plan.lengths, kh, vh)
+        k_all, v_all, att_bias = kh, vh, plan.bias_blk[:, None]
+    elif plan.paged:
+        k_all, v_all = paged_cache.paged_update_and_read_layer(
+            slices, cache.block_tables, plan.lengths, kh, vh, dtype)
+        att_bias = plan.bias
+    else:
+        _, k_all, v_all = update_and_read_layer(slices, plan.length, kh, vh, dtype)
+        att_bias = plan.bias
+    qh = q.transpose(1, 2).reshape(b, n_kv, n_heads // n_kv, s, head_dim)
+    scores = torch.einsum("bhgsd,bhtd->bhgst", qh.float(), k_all.float())
+    scores = scores * scale + att_bias[:, :, None]
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    ctx = torch.einsum("bhgst,bhtd->bhgsd", probs.float(), v_all.float())
+    ctx = ctx.to(dtype).reshape(b, n_heads, s, head_dim)
+    return ctx.transpose(1, 2).reshape(b, s, n_heads * head_dim)
+
+
+def advance(plan: AttentionPlan, cache, s: int):
+    """The cache after a forward of ``s`` tokens: length (or every row's
+    device length) += s."""
+    if plan.paged:
+        return dataclasses.replace(cache, lengths=plan.lengths + s)
+    return dataclasses.replace(cache, length=plan.length + s)
+
+
 def forward(
     params: dict,
     cfg: LlamaConfig,
@@ -194,71 +287,23 @@ def forward(
     dev = tokens.device
     dtype = cfg.torch_dtype
     layers = unstack_layers(params)["layers"]
-    paged = paged_cache.is_paged(cache)
-    if paged_prefill and not paged:
-        raise ValueError("paged_prefill needs a paged cache")
-
-    if paged:
-        lengths = cache.lengths
-        s_max = cache.max_pages * cache.page
-        offset = lengths.long()[:, None]
-        use_flash = not paged_prefill and flash_decode.should_use(s, cfg.flash)
-    else:
-        length = int(cache.length)
-        s_max = cache.max_len
-        offset = length
-        use_flash = flash_decode.should_use(s, cfg.flash)
+    plan = attention_plan(cache, s, b, dev, cfg.flash, tree_mask, paged_prefill)
     if positions is None:
-        positions = (offset + torch.arange(s, device=dev)[None]).expand(b, s)
+        positions = (plan.offset + torch.arange(s, device=dev)[None]).expand(b, s)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, cfg.max_position)
 
-    if use_flash or paged_prefill:
-        bias_blk = block_bias(s, tree_mask, b, dev)
-        if not paged:
-            lengths = torch.full((b,), length, dtype=torch.int32, device=dev)
-    else:
-        mask = attention_mask(lengths if paged else length, s, s_max, tree_mask, b, dev)
-        bias = torch.where(mask, 0.0, _MASK_VALUE).float()[:, None]  # [B,1,S,S_max]
-
     h = params["embed"][tokens].to(dtype)
-    n_rep = cfg.num_heads // cfg.num_kv_heads
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
     lin = functools.partial(linear, batch_invariant=paged_prefill)
     for li, lp in enumerate(layers):
-        slices = paged_cache.layer_slices(cache, li) if paged else layer_slices(cache, li)
         r = rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
         q = lin(r, lp["wq"], lp.get("bq")).reshape(b, s, cfg.num_heads, cfg.head_dim)
         k = lin(r, lp["wk"], lp.get("bk")).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
         v = lin(r, lp["wv"], lp.get("bv")).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-
-        if use_flash and paged:
-            ctx = paged_flash_layer_attention(
-                q, k, v, slices, cache.block_tables, lengths, bias_blk, scale)
-        elif use_flash:
-            ctx = flash_layer_attention(q, k, v, slices, length, lengths, bias_blk, scale)
-        else:
-            kh, vh = k.transpose(1, 2), v.transpose(1, 2)
-            if paged_prefill:
-                # empty rows: the new block attends to itself only
-                paged_cache.paged_write_layer(slices, cache.block_tables, lengths, kh, vh)
-                k_all, v_all, att_bias = kh, vh, bias_blk[:, None]
-            elif paged:
-                k_all, v_all = paged_cache.paged_update_and_read_layer(
-                    slices, cache.block_tables, lengths, kh, vh, dtype)
-                att_bias = bias
-            else:
-                _, k_all, v_all = update_and_read_layer(slices, length, kh, vh, dtype)
-                att_bias = bias
-            qh = q.transpose(1, 2).reshape(b, cfg.num_kv_heads, n_rep, s, cfg.head_dim)
-            scores = torch.einsum("bhgsd,bhtd->bhgst", qh.float(), k_all.float())
-            scores = scores * scale + att_bias[:, :, None]
-            probs = torch.softmax(scores, dim=-1).to(dtype)
-            ctx = torch.einsum("bhgst,bhtd->bhgsd", probs.float(), v_all.float())
-            ctx = ctx.to(dtype).reshape(b, cfg.num_heads, s, cfg.head_dim)
-            ctx = ctx.transpose(1, 2).reshape(b, s, cfg.hidden_size)
+        ctx = layer_attention(plan, cache, li, q, k, v, scale, dtype)
         h = h + lin(ctx, lp["wo"])
 
         r = rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps)
@@ -269,9 +314,7 @@ def forward(
     h = rms_norm(h, params["ln_final"], cfg.rms_norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = lm_head_logits(h, head, batch_invariant=paged_prefill)
-    if paged:
-        return logits, dataclasses.replace(cache, lengths=lengths + s)
-    return logits, dataclasses.replace(cache, length=length + s)
+    return logits, advance(plan, cache, s)
 
 
 def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None, device=None) -> dict:

@@ -8,9 +8,11 @@ the last 1024 requests, and the card's memory from ``torch.cuda``).
 Two front ends, as in the JAX package: :class:`InferenceServer` runs one
 request at a time through ``speculative_generate`` under a lock;
 :class:`BatchedInferenceServer` puts an engine with the scheduler interface
-(the paged engine, ``--paged``) behind concurrent requests. Not ported yet:
-loading checkpoints (``from_pretrained`` on a directory, ROADMAP A10) and the
-slotted engine (``--num_slots`` without ``--paged``, ROADMAP A13).
+(the paged engine, ``--paged``) behind concurrent requests.
+``InferenceServer.from_pretrained`` loads two local checkpoint directories
+(Llama, Qwen2, Mistral or OPT; local files only) or the synthetic pair. Not
+ported yet: the slotted engine (``--num_slots`` without ``--paged``,
+ROADMAP A13).
 
     python -m llmspeculativesampling_tpu_torch.serve.server --paged --kv_quant
 """
@@ -96,6 +98,19 @@ def _prompt_ids(request: dict, tokenizer) -> np.ndarray:
     return np.asarray(tokenizer.encode(request["prompt"]), np.int32)
 
 
+def _local_tokenizer(path: str):
+    """The tokenizer saved in ``path``, from local files only, or None where
+    ``transformers`` is absent or the directory holds none."""
+    try:
+        from transformers import AutoTokenizer
+    except ImportError:
+        return None
+    try:
+        return AutoTokenizer.from_pretrained(path, local_files_only=True)
+    except (OSError, ValueError, TypeError):  # TypeError: a config naming absent vocab files
+        return None
+
+
 class InferenceServer:
     """One request at a time through ``speculative_generate``."""
 
@@ -114,14 +129,28 @@ class InferenceServer:
     @classmethod
     def from_pretrained(cls, approx_model_name: str, target_model_name: str,
                         config: Optional[ServerConfig] = None, device=None):
-        """``"synthetic"`` builds the random pair of ``core/synthetic.py``;
-        checkpoint directories wait for the loader (ROADMAP A10)."""
-        if "synthetic" not in (approx_model_name, target_model_name):
-            raise NotImplementedError("loading checkpoints is not ported yet (ROADMAP A10)")
-        from ..core.synthetic import synthetic_pair
+        """Two local checkpoint directories (``core/loader.py::load_pretrained``),
+        or ``"synthetic"`` for the random pair of ``core/synthetic.py``. The
+        tokenizer is the draft directory's where one loads from local files
+        (``transformers`` is optional): it sets the eos id and serves text
+        prompts; without one the server takes ``prompt_ids`` only."""
+        if "synthetic" in (approx_model_name, target_model_name):
+            from ..core.synthetic import synthetic_pair
 
-        bd, pd, bt, pt = synthetic_pair(device=device)
-        return cls(bd, pd, bt, pt, None, config, device=device)
+            bd, pd, bt, pt = synthetic_pair(device=device)
+            return cls(bd, pd, bt, pt, None, config, device=device)
+        from ..core.loader import load_pretrained
+        from ..models import llama, opt
+
+        fwd = {"llama": llama.forward, "opt": opt.forward}
+        fam_d, cfg_d, pd = load_pretrained(approx_model_name, device=device)
+        fam_t, cfg_t, pt = load_pretrained(target_model_name, device=device)
+        tokenizer = _local_tokenizer(approx_model_name)
+        config = config or ServerConfig()
+        if tokenizer is not None and tokenizer.eos_token_id is not None:
+            config.eos_token_id = tokenizer.eos_token_id
+        return cls(ModelBundle(fam_d, cfg_d, fwd[fam_d]), pd, ModelBundle(fam_t, cfg_t, fwd[fam_t]),
+                   pt, tokenizer, config, device=device)
 
     def process_request(self, request: dict):
         """Returns (text or None, output ids)."""

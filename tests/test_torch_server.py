@@ -167,5 +167,29 @@ def test_later_slices_raise():
         srv.BatchedInferenceServer(base)
     with pytest.raises(NotImplementedError, match="A13"):
         srv.main(["--num_slots", "4"])
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(FileNotFoundError):  # checkpoint loading exists: the directory must
         srv.InferenceServer.from_pretrained("/models/a", "/models/b")
+
+
+def test_from_pretrained_serves_local_opt_directories(tmp_path):
+    """Two tiny OPT checkpoints written by ``save_pretrained`` (no
+    tokenizer in them): the server loads both on the CPU, keeps its eos id
+    and answers a ``prompt_ids`` request."""
+    from transformers import OPTConfig, OPTForCausalLM
+
+    dirs = []
+    for name, layers in (("draft", 1), ("target", 2)):
+        torch.manual_seed(layers)
+        model = OPTForCausalLM(OPTConfig(
+            vocab_size=VOCAB, hidden_size=32, ffn_dim=64, num_hidden_layers=layers,
+            num_attention_heads=2, max_position_embeddings=64, word_embed_proj_dim=32))
+        model.save_pretrained(str(tmp_path / name))
+        dirs.append(str(tmp_path / name))
+    s = srv.InferenceServer.from_pretrained(
+        *dirs, srv.ServerConfig(num_tokens=6, eos_token_id=-1), device="cpu")
+    assert s.bundle_d.family == s.bundle_t.family == "opt" and s.tokenizer is None
+    assert s.bundle_t.cfg.num_layers == 2 and s.config.eos_token_id == -1
+    prompt = [5, 9, 2, 33, 7]
+    text, ids = s.process_request({"prompt_ids": prompt})
+    assert text is None
+    _check_output(ids, prompt, 6, gamma=4)
