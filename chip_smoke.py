@@ -29,7 +29,13 @@ Phases, each printing lines before the last:
      640x640, 640x2560, 2560x640 (M 1, 2, 16, 64), fc2 at M=512 under the
      batch-invariant plan; B2 at Hkv 40 x 9, 1 x 17 under an ancestor bias
      and Hkv 5 x 1/2; B3 at B=16 x Hkv 40 x 9 and Hkv 5; the dense tied
-     head's bf16 product (fp32 sums) against the fp32 product;
+     head's bf16 product (fp32 sums) against the fp32 product. At the
+     prefix cache's extend windows: B3 at KB=8 x Hkv 40 (and the draft's 6)
+     x S_new=32 over a 512-position prefix whose 4 pages all 8 tables
+     share, own pages after it, sentinel tails, and a row the extend has
+     exhausted (an all-sentinel table), under the batch-invariant plan (a
+     row alone gives the bits it gets among 8), with its time beside the
+     plan from B=1; B1 per target forward at M=32 and 256 under both plans;
   3. forward: logits of a 2-layer, full-width (5120) int8 Llama slice on the
      card with the kernels vs the same weights on the CPU with the plain
      versions, through a contiguous cache and through a paged int8 pool
@@ -42,6 +48,9 @@ Phases, each printing lines before the last:
      product, never B1); and a loader round trip: a 2-layer 5120-wide bf16
      OPT written under HF names as safetensors, loaded onto the card by
      ``load_pretrained``, leaves and logits bit-equal to what was written;
+     and prefix reuse: a 576-token prompt prefilled at once (the miss path)
+     against 512 prefilled tokens plus two 32-token extend windows (the hit
+     path), the last logits and the suffix's KV within 3e-2;
   4. single-stream path: the 13B-shaped int8 target + 768-wide int8 draft,
      born on the card from a seed; autoregressive and speculative decoding
      with bench.py's settings (64-token prompt, 128 new tokens, gamma=24,
@@ -50,9 +59,18 @@ Phases, each printing lines before the last:
      ``BatchedInferenceServer`` with the settings of ``scripts/bench_paged.py
      --config 13b --kv_int8 --steps_per_sync 8`` (16 rows, 32 int8 blocks of
      128, gamma=8), two traffic mixes (uniform, with one request over HTTP
-     on a loopback port, and mixed) from concurrent client threads; then 8
-     requests through the engine as a burst and one at a time, whose output
-     ids must be equal;
+     on a loopback port, and mixed) from concurrent client threads, on
+     demand (the default), and the mixed mix once reserving each request's
+     worst case; then 8 requests through the engine as a burst and one at a
+     time, whose output ids must be equal. Then, driving the engine
+     directly as scripts/bench_paged.py does: the shared_prefix mix (24 x
+     576-token prompts sharing a 512-token system prompt, 48 new tokens)
+     with the prefix cache and without it (only the first request may miss;
+     B3 must run in the extend windows), the longgen mix (24 x (64, 256))
+     at overcommit 1.0 (no preemption) and 2.0 (preemptions; how many
+     preempted requests come out bit-identical is reported), every pool
+     ending at available_blocks == num_blocks; and 8 prefix-cache hits
+     admitted together and one at a time, whose ids must be equal;
   6. tree/beam path: the same pair through multi iid (width 4), beam v1 and
      beam v2 (4 beams) with ``scripts/bench_beam.py --thirteen_b``'s
      settings (gamma 4, 64 new tokens); B2 must serve every tree verify,
@@ -77,7 +95,8 @@ Phases, each printing lines before the last:
      after; each kernel of a path must have run on it, B2 must not run on
      the paged path and B3 not on the others;
   9. a ``{"kernels": [...]}`` line (each kernel also with its numbers at the
-     OPT path's shapes, under "opt"), the card line again, and as the last
+     OPT path's shapes, under "opt", and B1 and B3 at the extend window's,
+     under "extend"), the card line again, and as the last
      line ``{"ok": true, "device": {...}}``. Each phase prints its seconds.
 Any failed check raises: the script exits non-zero and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -135,6 +154,10 @@ OPT_DRAFT_SHAPES = [(640, 640, 4), (640, 2560, 1), (2560, 640, 1)]
 OPT_GAMMA = 8
 OPT_TARGET_M = (1, OPT_GAMMA + 1, 64, ROWS * (SERVE_GAMMA + 1))  # decode, verify, prefill, serving
 OPT_DRAFT_M = (1, 2, ROWS, 64)  # decode, re-feed, serving step, prefill
+# the prefix cache (scripts/bench_paged.py's shared_prefix mix: a 512-token
+# system prompt + 64 unique tokens): hits extend 32-token windows over the 4
+# shared pages, up to 8 hits a window; tables of ceil((576 + 48 + 9) / 128)
+SHARED_PAGES, EXTEND_W, EXTEND_KB, EXTEND_PAGES = 4, 32, 8, 5
 
 
 def log(*a):
@@ -232,7 +255,8 @@ def phase_int8_matmul(results):
                 SERVE_TARGET_M[0]: "serving verify",
                 SERVE_TARGET_M[1]: "serving prefill", TREE_TARGET_M[0]: "v2 tree verify",
                 TREE_TARGET_M[1]: "multi / multi-beam / MJSD-4 verify",
-                TREE_TARGET_M[2]: "v1 tree verify", TREE_TARGET_M[3]: "4-row prefill",
+                TREE_TARGET_M[2]: "v1 tree verify",
+                TREE_TARGET_M[3]: "4-row prefill / 8-hit extend window",
                 ALG_TARGET_M[0]: "BiLD check", ALG_TARGET_M[1]: "MJSD-8 verify",
                 ALG_TARGET_M[2]: "random-beam decode"}
     fwd = {m: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for m in forwards}
@@ -316,6 +340,8 @@ def phase_int8_matmul(results):
             + (f"; batch-invariant plan (the admission prefill's) kernel_ms {inv[m]:.3f}"
                if m in inv else ""))
     results["int8_matmul"]["prefill_ms"] = {m: (fwd[m]["ms"], inv[m]) for m in sorted(inv)}
+    m = EXTEND_KB * EXTEND_W  # an extend window of 8 hits takes the invariant plan
+    results["int8_matmul"]["extend"] = dict(fwd[m], ms=inv[m], plan_from_m_ms=fwd[m]["ms"])
 
 
 def _flash_inputs(gen, b, hq, hkv, s_new, d, quant, tree, dtype=torch.bfloat16):
@@ -365,12 +391,15 @@ def _check_case(name, fn, ref, args, kw, rtol, atol):
     return check_close(name, got, ref(*args, **kw), rtol, atol)
 
 
-def _flash_bound(hkv, s_new, length, quant, rows=1, extra_bytes=0):
+def _flash_bound(hkv, s_new, length, quant, rows=1, extra_bytes=0, stored=None):
     """Least time of one call: live prefix K/V (and scales) read once, q,
     k_new, v_new, out, bias, lengths (and ``extra_bytes``: block tables)
-    once; QK^T and PV in bf16."""
+    once; QK^T and PV in bf16 over ``length``, the rows' summed live
+    prefix. ``stored``: the distinct prefix positions when rows share pages
+    (a shared page is read once), else ``length``."""
     kv_b = 1 if quant else 2
-    nbytes = (2 * length * hkv * 128 * kv_b + (2 * length * hkv * 4 if quant else 0)
+    stored = length if stored is None else stored
+    nbytes = (2 * stored * hkv * 128 * kv_b + (2 * stored * hkv * 4 if quant else 0)
               + 4 * rows * hkv * s_new * 128 * 2 + rows * s_new * s_new * 4 + rows * 4
               + extra_bytes)
     return bound(nbytes, 2 * 2 * hkv * s_new * (length + rows * s_new) * 128)
@@ -666,25 +695,22 @@ def _uniform_lens(gen, b):
 MIXED_LENS = [121, 640, 70, 512, 99, 600, 64, 77, 545, 88, 101, 119, 66, 630, 90, 74]
 
 
-def _time_paged(gen, lens, p_max, hkv, s_new, quant):
-    """Kernel, plain and SDPA times of B3 at B=16, Hq=Hkv, D=128, page 128.
-    Inputs rotate past L2; the library yardstick attends over a
-    pre-gathered contiguous (dequantized) view, the gather untimed."""
+def _time_paged_sets(make, s_new, quant, **kernel_kw):
+    """Kernel, plain and SDPA times of B3 over input sets from ``make``
+    (``_paged_inputs``' layout, Hq=Hkv, scale 1.0), rotated past L2; the
+    library yardstick attends over a pre-gathered contiguous (dequantized)
+    view, the gather untimed. Returns (kernel, plain, library ms, sets)."""
     import torch.nn.functional as F
 
     from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
         gather_pages, paged_flash_decode_attention, paged_flash_decode_ref)
 
-    def make():
-        t = _paged_inputs(gen, lens, hkv, hkv, s_new, 128, PAGE, p_max, quant)
-        return [x.contiguous() if x is not None else None for x in t]
-
-    sets = _rotated(make)
+    sets = _rotated(lambda: [x.contiguous() if x is not None else None for x in make()])
 
     def kern(i):
         q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = sets[i % len(sets)]
         return paged_flash_decode_attention(q, kn, vn, kp, vp, tables, lengths, bias,
-                                            scale=1.0, k_scales=ks, v_scales=vs)
+                                            scale=1.0, k_scales=ks, v_scales=vs, **kernel_kw)
 
     def plain(i):
         q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = sets[i % len(sets)]
@@ -699,7 +725,7 @@ def _time_paged(gen, lens, p_max, hkv, s_new, quant):
             vc = vc.float() * gather_pages(vs, tables)[..., None]
         width = kc.shape[2]
         pre = torch.arange(width, device="cuda")[None, None, :] < lengths[:, None, None]
-        mask = torch.cat([pre.expand(ROWS, s_new, width), bias == 0], dim=2)[:, None]
+        mask = torch.cat([pre.expand(q.shape[0], s_new, width), bias == 0], dim=2)[:, None]
         lib_sets.append((q, torch.cat([kc.to(q.dtype), kn], 2), torch.cat([vc.to(q.dtype), vn], 2),
                          mask))
 
@@ -708,10 +734,18 @@ def _time_paged(gen, lens, p_max, hkv, s_new, quant):
         return F.scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask, scale=1.0)
 
     t_k, t_p, t_l = time_ms(kern, 50), time_ms(plain, 20), time_ms(lib, 50)
-    b_ms, b_by = _flash_bound(hkv, s_new, sum(lens), quant, rows=ROWS,
-                              extra_bytes=ROWS * p_max * 4)
     n = len(sets)
     del sets, lib_sets
+    return t_k, t_p, t_l, n
+
+
+def _time_paged(gen, lens, p_max, hkv, s_new, quant):
+    """Kernel, plain and SDPA times and the bound of B3 at B=16, Hq=Hkv,
+    D=128, page 128, each row on pages of its own."""
+    t_k, t_p, t_l, n = _time_paged_sets(
+        lambda: _paged_inputs(gen, lens, hkv, hkv, s_new, 128, PAGE, p_max, quant), s_new, quant)
+    b_ms, b_by = _flash_bound(hkv, s_new, sum(lens), quant, rows=ROWS,
+                              extra_bytes=ROWS * p_max * 4)
     return t_k, t_p, t_l, b_ms, b_by, n
 
 
@@ -798,6 +832,147 @@ def phase_paged_flash_decode(results):
     r = results["paged_flash_decode"]
     log(f"[paged_flash_decode] one serving target verify forward (40 launches, int8 pool, uniform): "
         f"kernel_ms {r['ms']:.3f} bound_ms {r['bound_ms']:.4f}")
+
+
+def _extend_inputs(gen, lens, hkv, quant, p_max=EXTEND_PAGES):
+    """Inputs of one extend-window B3 call in ``_paged_inputs``' layout
+    (Hq=Hkv, D=128, page 128, S_new = EXTEND_W): every row of nonzero length
+    reads the same 4 shuffled pages (the 512-position shared prefix), then
+    a page of its own; the table's tail, and the whole table of a row of
+    length 0 (a row the extend has exhausted), hold the sentinel."""
+    from llmspeculativesampling_tpu_torch.cache.kvcache import _quantize_kv
+
+    b, s_new, d = len(lens), EXTEND_W, 128
+    n_blk = SHARED_PAGES + b
+    q = torch.randn((b, s_new, hkv, d), generator=gen, device="cuda")
+    q = (q / math.sqrt(d)).to(torch.bfloat16).transpose(1, 2)
+    kn = torch.randn((b, s_new, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+    vn = torch.randn((b, s_new, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+    kp = torch.randn((n_blk + 1, hkv, PAGE, d), generator=gen, device="cuda")
+    vp = torch.randn((n_blk + 1, hkv, PAGE, d), generator=gen, device="cuda")
+    perm = torch.randperm(n_blk, generator=gen, device="cuda").tolist()
+    tables = torch.full((b, p_max), n_blk, dtype=torch.int32)
+    for i, ln in enumerate(lens):
+        if ln:
+            tables[i, :SHARED_PAGES + 1] = torch.tensor(perm[:SHARED_PAGES] + [perm[SHARED_PAGES + i]],
+                                                        dtype=torch.int32)
+    vis = torch.ones((s_new, s_new), dtype=torch.bool, device="cuda").tril()
+    bias = torch.where(vis, 0.0, -1e30).float()[None].expand(b, s_new, s_new).contiguous()
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    args = [q, kn.transpose(1, 2), vn.transpose(1, 2)]
+    if quant:
+        (kq, ks), (vq, vs) = _quantize_kv(kp), _quantize_kv(vp)
+        return args + [kq, vq, tables.cuda(), lengths, bias, ks, vs]
+    return args + [kp.to(torch.bfloat16), vp.to(torch.bfloat16), tables.cuda(), lengths, bias,
+                   None, None]
+
+
+def _extend_lens(kb):
+    """The rows of the two extend windows over the shared prefix: at 512
+    (the first window) and 544 (the second), alternating."""
+    return [SHARED_PAGES * PAGE + EXTEND_W * (i % 2) for i in range(kb)]
+
+
+def phase_paged_extend(results):
+    """B3 at the prefix cache's extend shapes, the batch-invariant plan the
+    extend windows take, and B1 at an extend window's M."""
+    from functools import partial
+
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import INVARIANT_BSZ, plan
+    from llmspeculativesampling_tpu_torch.kernels.int8_matmul import int8_matmul, plan as b1_plan
+    from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
+        paged_flash_decode_attention, paged_flash_decode_ref)
+
+    card = card_line()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rtol = atol = 2.0 ** -7
+    kern = partial(paged_flash_decode_attention, batch_invariant=True)
+
+    def counted(*a, **kw):
+        before = paged_flash_decode_attention.launches
+        out = kern(*a, **kw)
+        counted.launches += paged_flash_decode_attention.launches - before
+        return out
+
+    counted.launches = 0
+    log(f"[extend] tolerance as [paged_flash_decode]: {atol:.2e} + {rtol:.2e}*|plain| (one bf16 "
+        "ulp), each case bit-identical across a repeat and contiguous inputs, one launch a call, "
+        "counters 0; calls made with batch_invariant=True, as the extend windows make them")
+    cases = [(_extend_lens(EXTEND_KB), hkv, quant) for hkv in (40, 6) for quant in (True, False)]
+    cases += [([SHARED_PAGES * PAGE + EXTEND_W, 0, SHARED_PAGES * PAGE], 40, True)]  # an exhausted row
+    worst = 0.0
+    for lens, hkv, quant in cases:
+        q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = _extend_inputs(gen, lens, hkv, quant)
+        max_abs, _ = _check_case(
+            f"paged_flash_decode extend quant={quant} KB={len(lens)} Hkv={hkv} lens={lens}",
+            counted, paged_flash_decode_ref, (q, kn, vn, kp, vp, tables, lengths, bias),
+            dict(scale=1.0, k_scales=ks, v_scales=vs), rtol, atol)
+        worst = max(worst, max_abs)
+        # batch invariance: row 0 alone gives the bits it gets among KB rows
+        one = kern(q[:1], kn[:1], vn[:1], kp, vp, tables[:1], lengths[:1], bias[:1], scale=1.0,
+                   k_scales=ks, v_scales=vs)
+        full = kern(q, kn, vn, kp, vp, tables, lengths, bias, scale=1.0, k_scales=ks, v_scales=vs)
+        if not torch.equal(one[0], full[0]):
+            raise AssertionError(f"extend B3 KB={len(lens)} Hkv={hkv}: row 0 depends on its batch")
+        own = paged_flash_decode_attention(q[:1], kn[:1], vn[:1], kp, vp, tables[:1], lengths[:1],
+                                           bias[:1], scale=1.0, k_scales=ks, v_scales=vs)
+        torch.cuda.synchronize()
+        log(f"[extend] KB={len(lens)} Hkv={hkv} int8={quant}: max_abs_err {max_abs:.3e}; row 0 "
+            f"alone = row 0 of the batch under the invariant plan; planned from its own batch "
+            f"(B=1, ps={plan(1, hkv, EXTEND_W, PAGE, EXTEND_PAGES).ps} against "
+            f"{plan(INVARIANT_BSZ, hkv, EXTEND_W, PAGE, EXTEND_PAGES).ps}) it is "
+            f"{'bit-identical' if torch.equal(own[0], full[0]) else 'not bit-identical'}")
+    log(f"[extend] {len(cases)} cases within tolerance, worst max_abs_err {worst:.3e}")
+
+    rows = {}
+    for what, hkv in (("target", 40), ("draft", 6)):
+        lens = _extend_lens(EXTEND_KB)
+        t_k, t_p, t_l, n_sets = _time_paged_sets(
+            lambda: _extend_inputs(gen, lens, hkv, True), EXTEND_W, True, batch_invariant=True)
+        b_ms, b_by = _flash_bound(hkv, EXTEND_W, sum(lens), True, rows=EXTEND_KB,
+                                  extra_bytes=EXTEND_KB * EXTEND_PAGES * 4,
+                                  stored=SHARED_PAGES * PAGE + EXTEND_W * (EXTEND_KB // 2))
+        p = plan(INVARIANT_BSZ, hkv, EXTEND_W, PAGE, EXTEND_PAGES)
+        rows[what] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
+        log(f"[extend] B3 {what} extend window: int8 pool, KB={EXTEND_KB}, Hkv={hkv}, S_new="
+            f"{EXTEND_W}, 4 shared pages + 1 own, P={EXTEND_PAGES}, lens {lens[:2]}... (plan ps="
+            f"{p.ps} blocks={p.blocks(EXTEND_KB, hkv)}): kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
+            f"library_ms {t_l:.4f} (F.scaled_dot_product_attention over a pre-gathered view, "
+            f"gather untimed) bound_us {b_ms * 1e3:.2f} ({b_by}) bound share {b_ms / t_k:.3f}; "
+            f"{n_sets} input sets rotated ({card})")
+    # what the invariant plan costs a hit admitted alone (KB=1)
+    lens1 = _extend_lens(1)
+    inv1 = _time_paged_sets(lambda: _extend_inputs(gen, lens1, 40, True), EXTEND_W, True,
+                            batch_invariant=True)[0]
+    own1 = _time_paged_sets(lambda: _extend_inputs(gen, lens1, 40, True), EXTEND_W, True)[0]
+    log(f"[extend] B3 target, one hit alone (KB=1): invariant plan (ps="
+        f"{plan(INVARIANT_BSZ, 40, EXTEND_W, PAGE, EXTEND_PAGES).ps}) kernel_ms {inv1:.4f}, plan "
+        f"from B=1 (ps={plan(1, 40, EXTEND_W, PAGE, EXTEND_PAGES).ps}) kernel_ms {own1:.4f} "
+        f"({card})")
+    # B1 at an extend window's M (32 a hit), the target's 40 x 7 projections + head
+    b1 = {}
+    for m in (EXTEND_W, EXTEND_KB * EXTEND_W):
+        tot = {False: 0.0, True: 0.0}
+        for k, n, per_layer in TARGET_SHAPES + [(5120, VOCAB, 1)]:
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            ws = _rotated(lambda: torch.randint(-127, 128, (k, n), generator=gen,
+                                                dtype=torch.int8, device="cuda"))
+            sc = torch.rand((n,), generator=gen, device="cuda") / (73.0 * math.sqrt(k))
+            for inv in (False, True):
+                t = time_ms(lambda i: int8_matmul(x, ws[i % len(ws)], sc, batch_invariant=inv), 20)
+                tot[inv] += (40 * per_layer if n != VOCAB else 1) * t
+            del ws
+        b1[m] = tot
+        log(f"[extend] B1 one target forward at M={m} ({m // EXTEND_W} hit(s) x {EXTEND_W}): "
+            f"batch-invariant plan (the extend's; 5120x5120 ksplit "
+            f"{b1_plan(m, 5120, 5120, True)[1]}) kernel_ms {tot[True]:.3f}, plan from M (ksplit "
+            f"{b1_plan(m, 5120, 5120)[1]}) kernel_ms {tot[False]:.3f} ({card})")
+    r = rows["target"]
+    results["extend"] = dict(
+        b3=rows, b3_max_abs_err=worst, b3_one_hit_ms=dict(invariant=inv1, own=own1),
+        b1_forward_ms={m: dict(invariant=v[True], from_m=v[False]) for m, v in b1.items()})
+    log(f"[extend] one target extend window (40 B3 launches): kernel_ms {40 * r['ms']:.3f} "
+        f"bound_ms {40 * r['bound_ms']:.4f}")
 
 
 # ---------------------------------------------------------------- phase 2, OPT shapes
@@ -1060,6 +1235,63 @@ def phase_paged_forward():
     for (name, _, _), g, r in zip(steps, outs["cuda"], outs["cpu"]):
         _hold_logits(f"[paged forward] 2-layer 5120-wide int8, int8 pool, {name}", g, r)
     del pt, pc
+
+
+def phase_prefix_forward():
+    """Prefix reuse in one forward of the 2-layer slice, int8 pool: a
+    576-token prompt prefilled monolithically (the miss path) against its
+    first 512 tokens prefilled (the registered prefix) and the last 64 in
+    two 32-token extend windows (the hit path: B3 over the 4 prefix pages,
+    planned batch-invariant). The last position's logits and the suffix's
+    KV must agree within _hold_logits's 3e-2."""
+    import dataclasses
+
+    from llmspeculativesampling_tpu_torch.cache.paged import init_paged_cache
+    from llmspeculativesampling_tpu_torch.core.synthetic import synthetic_pair_int8
+    from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
+        paged_flash_decode_attention)
+
+    _, _, bt, pt = synthetic_pair_int8(num_layers=2, draft_layers=2, seed=8, device="cuda")
+    cfg = bt.cfg
+    n_pre, p_len = SHARED_PAGES * PAGE, SHARED_PAGES * PAGE + 2 * EXTEND_W
+    prompt = torch.as_tensor(np.random.default_rng(9).integers(100, 31000, (1, p_len)),
+                             device="cuda")
+    table = torch.tensor([[3, 0, 6, 1, 4]], dtype=torch.int32, device="cuda")
+
+    def pool():
+        cache = init_paged_cache(cfg.num_layers, 8, cfg.num_kv_heads, PAGE, cfg.head_dim, 1,
+                                 EXTEND_PAGES, quant=True, device="cuda")
+        return dataclasses.replace(cache, block_tables=table)
+
+    def at(cache, length):
+        return dataclasses.replace(cache, lengths=torch.tensor([length], dtype=torch.int32,
+                                                                device="cuda"))
+
+    miss = pool()
+    logits_miss, _ = bt.forward(pt, cfg, prompt, at(miss, 0), paged_prefill=True)
+    hit = pool()
+    bt.forward(pt, cfg, prompt[:, :n_pre], at(hit, 0), paged_prefill=True)
+    launches = paged_flash_decode_attention.launches
+    for j in range(2):
+        lo = n_pre + j * EXTEND_W
+        logits_hit, _ = bt.forward(pt, cfg, prompt[:, lo:lo + EXTEND_W], at(hit, lo),
+                                   batch_invariant=True)
+    torch.cuda.synchronize()
+    if paged_flash_decode_attention.launches - launches != 2 * cfg.num_layers:
+        raise AssertionError("the extend windows did not take the paged kernel")
+    _hold_logits("[prefix forward] 2-layer 5120-wide int8, int8 pool, position 575: 512 cached + "
+                 "two 32-token extend windows vs a monolithic 576-token prefill",
+                 logits_hit[:, -1].float().cpu(), logits_miss[:, -1].float().cpu())
+    own = table[0, SHARED_PAGES]
+    for name in ("k", "v"):
+        deq = [(getattr(c, name + "_q")[:, own].float() * getattr(c, name + "_s")[:, own, ..., None])
+               [:, :, :2 * EXTEND_W].cpu() for c in (hit, miss)]
+        rel = float((deq[0] - deq[1]).abs().max() / deq[1].abs().max())
+        log(f"[prefix forward] suffix {name} (positions 512-575, both layers): max|hit-miss|/max|miss| "
+            f"{rel:.2e} (tol 3e-2)")
+        if not rel <= 3e-2:
+            raise AssertionError(f"prefix forward: the suffix {name} of the hit path disagrees")
+    del pt
 
 
 def phase_tree_forward():
@@ -1677,9 +1909,15 @@ def phase_algorithms(results, reps: int, pair):
 def _workload(kind: str, rng):
     """scripts/bench_paged.py's mixes: (prompt_len, max_new) per request.
     Uniform: 24 x (64, 48). Mixed: 24 short (64, 24-48) with a long
-    (512, 128) after every four, six in all."""
+    (512, 128) after every four, six in all. shared_prefix: 24 x (576, 48),
+    a 512-token system prompt and 64 unique tokens. longgen: 24 x (64,
+    256)."""
     if kind == "uniform":
         return [(64, 48) for _ in range(24)]
+    if kind == "shared_prefix":
+        return [(576, 48) for _ in range(24)]
+    if kind == "longgen":
+        return [(64, 256) for _ in range(24)]
     short = [(64, int(rng.integers(24, 49))) for _ in range(24)]
     out, si, li = [], 0, 0
     for i in range(30):
@@ -1692,25 +1930,49 @@ def _workload(kind: str, rng):
     return out
 
 
-def _serve_mix(kind: str, pair) -> dict:
+def _mix_prompts(kind: str):
+    """The mix's requests and prompts, as scripts/bench_paged.py makes them
+    (ids 100-31000 from ``default_rng(0)``; shared_prefix: one system prompt,
+    then each request's tail)."""
+    rng = np.random.default_rng(0)
+    reqs = _workload(kind, rng)
+    if kind == "shared_prefix":
+        system = rng.integers(100, 31000, 512).astype(np.int32)
+        return reqs, [np.concatenate([system, rng.integers(100, 31000, pl - 512).astype(np.int32)])
+                      for pl, _ in reqs]
+    return reqs, [rng.integers(100, 31000, pl).astype(np.int32) for pl, _ in reqs]
+
+
+def _check_outputs(tag: str, reqs, prompts, outs, vocab: int) -> int:
+    """Every output starts with its prompt, holds ids of the vocabulary and
+    has max_new to max_new + gamma new tokens unless EOS ends it. Returns
+    the generated tokens."""
+    gen_tokens = 0
+    for (pl, mn), prompt, out in zip(reqs, prompts, outs):
+        if out is None:
+            raise AssertionError(f"{tag}: a request got no output")
+        out = np.asarray(out)
+        n_new = len(out) - pl
+        ok_len = mn <= n_new <= mn + SERVE_GAMMA or (1 <= n_new and out[-1] == 2)
+        if not (np.array_equal(out[:pl], prompt) and ok_len and out.min() >= 0
+                and out.max() < vocab):
+            raise AssertionError(f"{tag}: bad output of length {len(out)} for ({pl}, {mn})")
+        gen_tokens += n_new
+    return gen_tokens
+
+
+def _serve_mix(kind: str, pair, **engine_kw) -> dict:
     import threading
     import urllib.request
 
-    from llmspeculativesampling_tpu_torch.serve.paged import PagedEngine
     from llmspeculativesampling_tpu_torch.serve.server import (
         BatchedInferenceServer, InferenceServer, ServerConfig, make_http_server)
 
     bd, pd, bt, pt = pair
     card = card_line()
-    rng = np.random.default_rng(0)
-    reqs = _workload(kind, rng)
-    prompts = [rng.integers(100, 31000, pl).astype(np.int32) for pl, _ in reqs]
-    worst = max(pl + mn for pl, mn in reqs) + SERVE_GAMMA + 1
-    engine = PagedEngine(
-        bd, pd, bt, pt, batch_rows=ROWS, num_blocks=BLOCKS, page=PAGE,
-        max_pages_per_req=-(-worst // PAGE), max_new_cap=max(mn for _, mn in reqs),
-        gamma=SERVE_GAMMA, eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9,
-        prompt_bucket=64, steps_per_sync=SYNC, kv_quant=True, device="cuda")
+    tag = kind + ("" if engine_kw.get("on_demand", True) else " reserved")
+    reqs, prompts = _mix_prompts(kind)
+    engine = _serving_engine(pair, reqs, **engine_kw)
     # warm-up (untimed): one admission and a few chunks of this mix's shapes
     for pl in sorted({pl for pl, _ in reqs}):
         engine.submit(np.random.default_rng(pl).integers(100, 31000, pl), 16)
@@ -1774,43 +2036,250 @@ def _serve_mix(kind: str, pair) -> dict:
     server.shutdown()
     http_thread.join(timeout=10)
     if any(t.is_alive() for t in threads) or http_thread.is_alive():
-        raise AssertionError(f"serving {kind}: a client thread did not finish")
+        raise AssertionError(f"serving {tag}: a client thread did not finish")
 
-    gen_tokens = 0
-    for (pl, mn), prompt, out in zip(reqs, prompts, outs):
-        if out is None:
-            raise AssertionError(f"serving {kind}: a request got no output")
-        out = np.asarray(out)
-        n_new = len(out) - pl
-        # the length lands in [max_new, max_new + gamma] unless EOS ends it
-        ok_len = mn <= n_new <= mn + SERVE_GAMMA or (1 <= n_new and out[-1] == 2)
-        if not (np.array_equal(out[:pl], prompt) and ok_len and out.min() >= 0
-                and out.max() < bt.cfg.vocab_size):
-            raise AssertionError(f"serving {kind}: bad output of length {len(out)} for ({pl}, {mn})")
-        gen_tokens += n_new
-    if engine.allocator.free_blocks != BLOCKS or engine.num_active or engine._pending:
-        raise AssertionError(f"serving {kind}: the pool did not end fully free")
+    gen_tokens = _check_outputs(f"serving {tag}", reqs, prompts, outs, bt.cfg.vocab_size)
+    if engine.allocator.available_blocks != BLOCKS or engine.num_active or engine._pending:
+        raise AssertionError(f"serving {tag}: the pool did not end fully free")
     acc = float(np.mean([d["acc_rate"] for d in details]))
     snap = base.stats.snapshot()
-    log(f"[serve {kind}] {len(reqs)} requests, {gen_tokens} generated tokens in {wall:.2f} s: "
+    log(f"[serve {tag}] {len(reqs)} requests, {gen_tokens} generated tokens in {wall:.2f} s: "
         f"{gen_tokens / wall:.2f} tok/s aggregate ({card})")
-    log(f"[serve {kind}] latency p50 {snap['latency_p50_s']} s p95 {snap['latency_p95_s']} s, "
+    log(f"[serve {tag}] latency p50 {snap['latency_p50_s']} s p95 {snap['latency_p95_s']} s, "
         f"TTFT p50 {snap['ttft_p50_s']} s p95 {snap['ttft_p95_s']} s (ServerStats) ({card})")
-    log(f"[serve {kind}] acc_rate {acc:.4f} (mean over requests), mean steps per request "
+    log(f"[serve {tag}] acc_rate {acc:.4f} (mean over requests), mean steps per request "
         f"{np.mean([d['target_call_times'] for d in details]):.2f}, launches {launches}")
-    log(f"[serve {kind}] {chunks[0]} chunks of up to {SYNC} steps; requests per admission "
+    log(f"[serve {tag}] {chunks[0]} chunks of up to {SYNC} steps; requests per admission "
         f"prefill, in order: {prefills}")
-    if acc < 0.6:
-        raise AssertionError(f"serving {kind}: acceptance {acc:.3f} < 0.6: a kernel is likely wrong")
-    if launches["int8_matmul"] <= 0 or launches["paged_flash_decode"] <= 0:
-        raise AssertionError(f"serving {kind}: B1 or B3 was not launched on the paged path")
-    if launches["flash_decode"] != 0:
-        raise AssertionError(f"serving {kind}: B2 ran on the paged path")
+    _check_serving(f"serving {tag}", acc, launches)
     del engine, server, base
     torch.cuda.empty_cache()
     return dict(tok_s=gen_tokens / wall, wall_s=wall, tokens=gen_tokens, requests=len(reqs),
                 acc_rate=acc, launches=launches, **{k: snap[k] for k in (
                     "latency_p50_s", "latency_p95_s", "ttft_p50_s", "ttft_p95_s")})
+
+
+def _serving_engine(pair, reqs, **engine_kw):
+    """A ``PagedEngine`` with scripts/bench_paged.py's settings for the 13B
+    config (16 rows, 32 int8 blocks of 128, gamma 8, steps_per_sync 8,
+    tables as wide as the mix's longest request) and ``engine_kw``."""
+    from llmspeculativesampling_tpu_torch.serve.paged import PagedEngine
+
+    bd, pd, bt, pt = pair
+    worst = max(pl + mn for pl, mn in reqs) + SERVE_GAMMA + 1
+    kw = dict(batch_rows=ROWS, num_blocks=BLOCKS, page=PAGE, max_pages_per_req=-(-worst // PAGE),
+              max_new_cap=max(mn for _, mn in reqs), gamma=SERVE_GAMMA, eos_token_id=2,
+              temperature=1.0, top_k=20, top_p=0.9, prompt_bucket=64, steps_per_sync=SYNC,
+              kv_quant=True, device="cuda")
+    return PagedEngine(bd, pd, bt, pt, **{**kw, **engine_kw})
+
+
+def _check_serving(tag: str, acc: float, launches: dict) -> None:
+    """The guards of every serving run: acceptance (target ~ draft, so a
+    wrong kernel collapses it), B1 and B3 on the paged path, B2 never."""
+    if acc < 0.6:
+        raise AssertionError(f"{tag}: acceptance {acc:.3f} < 0.6: a kernel is likely wrong")
+    if launches["int8_matmul"] <= 0 or launches["paged_flash_decode"] <= 0:
+        raise AssertionError(f"{tag}: B1 or B3 was not launched on the paged path")
+    if launches["flash_decode"] != 0:
+        raise AssertionError(f"{tag}: B2 ran on the paged path")
+
+
+def _engine_mix(kind: str, pair, **engine_kw) -> dict:
+    """scripts/bench_paged.py's ``_run``: the mix's requests submitted at
+    once (request i under rid i, so two runs draw the same streams) to a
+    fresh engine, drained by ``run_until_idle``, after a warm-up of two
+    requests at the mix's prompt length (a miss and, with the prefix cache,
+    a hit). Watches each admission dispatch, the B1/B3 launches inside the
+    extend windows, the active rows before each chunk and the preempted
+    rids; checks the outputs, acceptance, launches and the pool ending
+    free."""
+    reqs, prompts = _mix_prompts(kind)
+    engine = _serving_engine(pair, reqs, **engine_kw)
+    warm = np.random.default_rng(5).integers(100, 31000, reqs[0][0])
+    for rid in (10_000, 10_001):
+        engine.submit_with_rid(rid, warm, 8)
+        engine.run_until_idle()
+    engine.completions.clear()
+    hits0 = getattr(engine.allocator, "hits", 0)
+    seen = dict(prefills=[], extends=[], extend_launches={}, active=[], preempted=[])
+    prefill, extend = engine._dispatch_prefill, engine._dispatch_extend
+    chunk, preempt = engine._dispatch_chunk, engine._preempt_row
+
+    def dispatch_prefill(batch):
+        seen["prefills"].append(len(batch))
+        return prefill(batch)
+
+    def dispatch_extend(batch):
+        seen["extends"].append(len(batch))
+        before = {k: fn.launches for k, fn in _counters().items()}
+        out = extend(batch)
+        for k, fn in _counters().items():
+            seen["extend_launches"][k] = seen["extend_launches"].get(k, 0) + fn.launches - before[k]
+        return out
+
+    def dispatch_chunk():
+        seen["active"].append(engine.num_active)
+        return chunk()
+
+    def preempt_row(row):
+        seen["preempted"].append(engine._row_req[row].rid)
+        return preempt(row)
+
+    engine._dispatch_prefill, engine._dispatch_extend = dispatch_prefill, dispatch_extend
+    engine._dispatch_chunk, engine._preempt_row = dispatch_chunk, preempt_row
+    reset_launches()
+    t0 = time.perf_counter()
+    for i, (p, (_, mn)) in enumerate(zip(prompts, reqs)):
+        engine.submit_with_rid(i, p, mn)
+    engine.run_until_idle()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    comps = [engine.result(i) for i in range(len(reqs))]
+    tag = f"{kind} {engine_kw}"
+    if any(c is None for c in comps):
+        raise AssertionError(f"{tag}: a request did not complete")
+    tokens = _check_outputs(tag, reqs, prompts, [c.output_ids for c in comps],
+                            pair[2].cfg.vocab_size)
+    if engine.allocator.available_blocks != BLOCKS or engine.num_active or engine._pending:
+        raise AssertionError(f"{tag}: the pool did not end fully free")
+    acc = float(np.mean([c.details["acc_rate"] for c in comps]))
+    _check_serving(tag, acc, launches)
+    ttft = sorted(c.details["ttft_s"] for c in comps)
+    out = dict(tok_s=tokens / wall, wall_s=wall, tokens=tokens, acc_rate=acc, launches=launches,
+               ttft_p50_s=ttft[len(ttft) // 2], ttft_p95_s=ttft[int(len(ttft) * 0.95)],
+               hits=getattr(engine.allocator, "hits", 0) - hits0,
+               preemptions=len(seen["preempted"]), peak_active=max(seen["active"]),
+               outs=[c.output_ids for c in comps],
+               cached=[c.details["prefix_cached_tokens"] for c in comps], **seen)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mix_line(r: dict) -> str:
+    return (f"{r['tokens']} generated tokens in {r['wall_s']:.2f} s: {r['tok_s']:.2f} tok/s "
+            f"aggregate, TTFT p50 {r['ttft_p50_s']:.4f} s p95 {r['ttft_p95_s']:.4f} s, acc_rate "
+            f"{r['acc_rate']:.4f}, peak active rows {r['peak_active']}, launches {r['launches']}")
+
+
+def phase_shared_prefix(results, pair):
+    """scripts/bench_paged.py's shared_prefix mix with the prefix cache and
+    without it, on the same prompts: with it, only the first request misses
+    (the registration), every later one hits the 4 system pages and extends
+    its 64-token tail in 32-token windows through B3."""
+    card = card_line()
+    runs = {pc: _engine_mix("shared_prefix", pair, prefix_cache=pc) for pc in (True, False)}
+    on = runs[True]
+    misses = sum(c == 0 for c in on["cached"])
+    for pc, r in runs.items():
+        log(f"[shared_prefix] prefix_cache={pc}: {_mix_line(r)}; allocator hits {r['hits']} "
+            f"pages; admission prefills {r['prefills']}, extend dispatches {r['extends']} "
+            f"({card})")
+    log(f"[shared_prefix] extend windows' launches: {on['extend_launches']}")
+    if not (on["hits"] > 0 and misses == 1 and on["prefills"] == [1]
+            and all(c in (0, SHARED_PAGES * PAGE) for c in on["cached"])
+            and on["hits"] == SHARED_PAGES * (len(on["cached"]) - 1)):
+        raise AssertionError(f"shared_prefix: a request after the first registration missed "
+                             f"(cached {on['cached']}, hits {on['hits']})")
+    if on["extend_launches"].get("paged_flash_decode", 0) <= 0:
+        raise AssertionError("shared_prefix: B3 did not run in the extend windows")
+    if runs[False]["hits"] or any(runs[False]["cached"]):
+        raise AssertionError("shared_prefix: a hit without the prefix cache")
+    results["shared_prefix"] = {pc: {k: v for k, v in r.items() if k != "outs"}
+                                for pc, r in runs.items()}
+    results["launches"]["shared_prefix"] = {
+        k: sum(r["launches"][k] for r in runs.values()) for k in on["launches"]}
+
+
+def phase_longgen(results, pair):
+    """scripts/bench_paged.py's longgen mix on demand at overcommit 1.0
+    (admission within the pool's worst case: no preemption) and 2.0 (twice
+    that: the pool runs out and the youngest rows are preempted and
+    resumed). Reports how many preempted requests came out bit-identical
+    to the 1.0 run (equal in distribution is the contract on the card)."""
+    card = card_line()
+    runs = {oc: _engine_mix("longgen", pair, overcommit=oc) for oc in (1.0, 2.0)}
+    for oc, r in runs.items():
+        log(f"[longgen] overcommit {oc}: {_mix_line(r)}; preemptions {r['preemptions']} ({card})")
+    if runs[1.0]["preemptions"] != 0 or runs[2.0]["preemptions"] <= 0:
+        raise AssertionError(f"longgen: preemptions {runs[1.0]['preemptions']} at 1.0 and "
+                             f"{runs[2.0]['preemptions']} at 2.0")
+    preempted = sorted(set(runs[2.0]["preempted"]))
+    same = [rid for rid in preempted
+            if np.array_equal(runs[2.0]["outs"][rid], runs[1.0]["outs"][rid])]
+    others = [rid for rid in range(len(runs[1.0]["outs"])) if rid not in preempted]
+    same_others = sum(np.array_equal(runs[2.0]["outs"][r], runs[1.0]["outs"][r]) for r in others)
+    log(f"[longgen] {len(same)}/{len(preempted)} preempted requests bit-identical to the 1.0 run "
+        f"(rids {preempted}); {same_others}/{len(others)} of the others")
+    results["longgen"] = {oc: {k: v for k, v in r.items() if k != "outs"}
+                          for oc, r in runs.items()}
+    results["longgen"]["preempted_identical"] = (len(same), len(preempted))
+    results["launches"]["longgen"] = {
+        k: sum(r["launches"][k] for r in runs.values()) for k in runs[1.0]["launches"]}
+
+
+def phase_hit_burst_trickle(results, pair, n_req: int = EXTEND_KB):
+    """Hit-path batch invariance: after one request has registered a
+    512-token system prompt, ``n_req`` requests sharing it (576-token
+    prompts, 48 new tokens) are admitted as one batch of hits (8 rows in
+    each extend window: B1 at M=256) and then one at a time (M=32), under
+    the same rids: the output ids must be equal. The extend windows plan B1
+    and B3 batch-invariant."""
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import INVARIANT_BSZ, plan
+    from llmspeculativesampling_tpu_torch.kernels.int8_matmul import plan as b1_plan
+
+    rng = np.random.default_rng(3)
+    system = rng.integers(100, 31000, SHARED_PAGES * PAGE).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(100, 31000, 2 * EXTEND_W).astype(np.int32)])
+               for _ in range(n_req + 1)]
+    reqs = [(len(p), 48) for p in prompts]
+    engine = _serving_engine(pair, reqs, prefix_cache=True,
+                             prefill_token_budget=n_req * len(prompts[0]))
+    engine.submit_with_rid(1000, prompts[0], 48)
+    engine.run_until_idle()
+    engine.result(1000)
+    kbs = []
+    extend = engine._dispatch_extend
+
+    def dispatch_extend(batch):
+        kbs.append(len(batch))
+        return extend(batch)
+
+    engine._dispatch_extend = dispatch_extend
+    for rid in range(n_req):
+        engine.submit_with_rid(rid, prompts[1 + rid], 48)
+    engine.run_until_idle()
+    burst = [engine.result(rid) for rid in range(n_req)]
+    trickle = []
+    for rid in range(n_req):
+        engine.submit_with_rid(rid, prompts[1 + rid], 48)
+        engine.run_until_idle()
+        trickle.append(engine.result(rid))
+    if kbs != [n_req] + [1] * n_req or any(
+            c.details["prefix_cached_tokens"] != SHARED_PAGES * PAGE for c in burst + trickle):
+        raise AssertionError(f"hit burst vs trickle: extend batches {kbs}, not all hits")
+    diff = []
+    for rid, (a, b) in enumerate(zip(burst, trickle)):
+        a, b = a.output_ids, b.output_ids
+        if not np.array_equal(a, b):
+            n = min(len(a), len(b))
+            neq = np.nonzero(a[:n] != b[:n])[0]
+            diff.append((rid, int(neq[0]) if neq.size else n))
+    plans = (f"B3 target plan ps: batch of {n_req} {plan(n_req, 40, EXTEND_W, PAGE, EXTEND_PAGES).ps}"
+             f", alone {plan(1, 40, EXTEND_W, PAGE, EXTEND_PAGES).ps}, invariant "
+             f"{plan(INVARIANT_BSZ, 40, EXTEND_W, PAGE, EXTEND_PAGES).ps}; B1 5120x5120 ksplit: "
+             f"M={n_req * EXTEND_W} {b1_plan(n_req * EXTEND_W, 5120, 5120)[1]}, M={EXTEND_W} "
+             f"{b1_plan(EXTEND_W, 5120, 5120)[1]}, invariant {b1_plan(EXTEND_W, 5120, 5120, True)[1]}")
+    if diff:
+        log(f"[hit burst vs trickle] {len(diff)}/{n_req} requests differ: (rid, first differing "
+            f"position) {diff}; {plans}")
+        raise AssertionError("hit burst vs trickle: a hit's output depends on its admission batch")
+    log(f"[hit burst vs trickle] all {n_req} prefix-cache hits give identical output ids admitted "
+        f"together (extend batches {kbs[:1]}) and one at a time ({plans})")
+    results["hit_burst_trickle"] = dict(requests=n_req, differ=diff)
+    del engine
+    torch.cuda.empty_cache()
 
 
 def phase_burst_trickle(results, pair, n_req: int = 8, tag: str = "burst_trickle"):
@@ -1863,7 +2332,11 @@ def phase_burst_trickle(results, pair, n_req: int = 8, tag: str = "burst_trickle
 
 
 def phase_serving(results, pair):
+    """The uniform and mixed mixes on demand (the engine's default), and the
+    mixed mix once more reserving each request's worst case at admission
+    (``on_demand=False``)."""
     serving = {kind: _serve_mix(kind, pair) for kind in ("uniform", "mixed")}
+    serving["mixed reserved"] = _serve_mix("mixed", pair, on_demand=False)
     results["serving"] = serving
     results["launches"]["paged_serving"] = {
         name: sum(serving[k]["launches"][name] for k in serving)
@@ -1983,16 +2456,19 @@ def main() -> int:
 
     timed(phase_device, _build)
     for phase in (phase_int8_matmul, phase_flash_decode, phase_flash_tree, phase_flash_algorithms,
-                  phase_paged_flash_decode, phase_opt_int8_matmul, phase_opt_attention):
+                  phase_paged_flash_decode, phase_paged_extend, phase_opt_int8_matmul,
+                  phase_opt_attention):
         timed(phase, results)
-    for phase in (phase_forward, phase_paged_forward, phase_tree_forward, phase_opt_forward,
-                  phase_fp8_forward, phase_loader):
+    for phase in (phase_forward, phase_paged_forward, phase_prefix_forward, phase_tree_forward,
+                  phase_opt_forward, phase_fp8_forward, phase_loader):
         timed(phase)
     pair = timed(build_pair)
     for phase in (phase_main_path, phase_tree_path, phase_algorithms):
         timed(phase, results, REPS, pair)
     timed(phase_serving, results, pair)
     timed(phase_burst_trickle, results, pair)
+    for phase in (phase_shared_prefix, phase_longgen, phase_hit_burst_trickle):
+        timed(phase, results, pair)
     del pair
     gc.collect()
     torch.cuda.empty_cache()  # the Llama pair's 13.3 GB go before the OPT pair's 13.1 GB
@@ -2038,6 +2514,25 @@ def main() -> int:
         k["opt"] = dict(at=at, bound_by=row["bound_by"],
                         **{key: calls * row[key] for key in ("ms", "plain_ms", "library_ms",
                                                              "bound_ms")})
+    # the same numbers at the prefix cache's extend window, under "extend";
+    # "launches" there: the launches inside the shared_prefix run's windows
+    ext, ext_launches = results["extend"], results["shared_prefix"][True]["extend_launches"]
+    b1 = results["int8_matmul"]["extend"]
+    extend_rows = {
+        "int8_matmul": ("one target forward of an 8-hit extend window: 281 calls at M=256, "
+                        "batch-invariant plan", b1, 1, results["int8_matmul"]["max_abs_err"]),
+        "paged_flash_decode": ("one target extend window: 40 calls, KB=8, Hkv=40, S_new=32 over "
+                               "a 512-position prefix all 8 tables share, int8 pool, "
+                               "batch-invariant plan", ext["b3"]["target"], 40,
+                               ext["b3_max_abs_err"]),
+    }
+    for k in kernels:
+        if k["name"] in extend_rows:
+            at, row, calls, err = extend_rows[k["name"]]
+            k["extend"] = dict(at=at, bound_by=row["bound_by"], max_abs_err=err,
+                               launches=ext_launches.get(k["name"], 0),
+                               **{key: calls * row[key] for key in ("ms", "plain_ms", "library_ms",
+                                                                    "bound_ms")})
     log(f"[smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

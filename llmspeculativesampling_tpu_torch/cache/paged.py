@@ -26,14 +26,16 @@ before that layer's attention: the paged kernel reads the new block from
 deferred all-layers write (``paged_write_layers``), which exists for XLA's
 buffer aliasing, has no counterpart here.
 
-The block allocator (:class:`PageAllocator`) is host-side, as in JAX.
-``SharedPageAllocator`` and ``prompt_page_hashes`` (the prefix cache) are
-not ported yet (ROADMAP A12).
+The block allocators are host-side, as in JAX: :class:`PageAllocator`, a
+free list, and :class:`SharedPageAllocator`, which adds the prefix cache
+(refcounted pages shared under :func:`prompt_page_hashes`' chained hashes,
+freed registered pages parked in an LRU until allocation needs them).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -199,6 +201,13 @@ class PageAllocator:
     def free_blocks(self) -> int:
         return len(self._free)
 
+    @property
+    def available_blocks(self) -> int:
+        """Blocks an allocation can take (here the free list; the shared
+        allocator adds its parked pages): ``num_blocks`` once every request
+        has finished."""
+        return len(self._free)
+
     def pages_needed(self, total_len: int) -> int:
         return -(-total_len // self.page)
 
@@ -210,6 +219,11 @@ class PageAllocator:
             return None
         return [self._free.pop() for _ in range(n)]
 
+    def alloc_one(self) -> Optional[int]:
+        """One more block for a growing request (on-demand paging); None
+        when the pool is empty."""
+        return self._free.pop() if self._free else None
+
     def free(self, blocks: List[int]) -> None:
         self._free.extend(reversed(blocks))
 
@@ -217,3 +231,128 @@ class PageAllocator:
         row = np.full((self.max_pages,), self.num_blocks, np.int32)
         row[: len(blocks)] = blocks
         return row
+
+
+def prompt_page_hashes(prompt_ids, page: int, reserve_tail: int = 2) -> List[bytes]:
+    """Chained sha256 hashes of a prompt's shareable full pages: page ``i``'s
+    hash covers every token before ``(i+1)*page`` (as int32 bytes), so a
+    page is shared only under an identical prefix, at the same positions.
+    The last ``reserve_tail`` prompt positions are never shareable: the
+    paged engine's draft re-feeds from ``cur_len - 2``
+    (``serve/paged.py::_draft_phase_batched``), rewriting them in pages the
+    request must own."""
+    ids = np.asarray(prompt_ids, np.int32).reshape(-1)
+    n_shareable = max(ids.shape[0] - reserve_tail, 0) // page
+    out: List[bytes] = []
+    h = hashlib.sha256()
+    for i in range(n_shareable):
+        h.update(ids[i * page:(i + 1) * page].tobytes())
+        out.append(h.digest())
+    return out
+
+
+class SharedPageAllocator(PageAllocator):
+    """Refcounted allocator with a registry of prompt-prefix pages (automatic
+    prefix caching). ``lookup`` finds the longest registered chain of a
+    prompt's page hashes; ``alloc_shared`` references those blocks instead of
+    recomputing their KV. A registered block whose last reference is freed
+    parks in an LRU *evictable* pool and is reclaimed only when an
+    allocation finds the free list empty, so a hot system prompt's KV
+    outlives its requests."""
+
+    def __init__(self, num_blocks: int, page: int, max_pages: int):
+        super().__init__(num_blocks, page, max_pages)
+        self._ref = {}          # block -> live references
+        self._by_hash = {}      # page-chain hash -> block
+        self._block_hash = {}   # block -> its registry hash
+        self._evictable = {}    # block -> None; insertion order = LRU order
+        self.hits = 0           # pages served from the registry
+        self.misses = 0         # shareable pages that had to be computed
+
+    @property
+    def available_blocks(self) -> int:
+        return len(self._free) + len(self._evictable)
+
+    def _take_block(self) -> Optional[int]:
+        if self._free:
+            return self._free.pop()
+        if self._evictable:
+            blk = next(iter(self._evictable))  # least recently parked
+            del self._evictable[blk]
+            h = self._block_hash.pop(blk, None)
+            if h is not None:
+                self._by_hash.pop(h, None)
+            return blk
+        return None
+
+    def lookup(self, hashes: List[bytes]) -> List[int]:
+        """Blocks of the longest prefix of ``hashes`` in the registry."""
+        chain: List[int] = []
+        for h in hashes:
+            blk = self._by_hash.get(h)
+            if blk is None:
+                break
+            chain.append(blk)
+        return chain
+
+    def alloc_shared(self, total_len: int,
+                     hashes: List[bytes]) -> Optional[Tuple[List[int], int]]:
+        """Pages for ``total_len`` positions, the longest registered chain of
+        ``hashes`` shared: ``(blocks, cached_len)``, whose first
+        ``cached_len // page`` blocks already hold the prefix's KV. None
+        when the table width or the pool cannot hold the rest."""
+        n = self.pages_needed(total_len)
+        if n > self.max_pages:
+            return None
+        shared = self.lookup(hashes)[:n]
+        n_own = n - len(shared)
+        if n_own > self.available_blocks:
+            return None
+        blocks = []
+        for blk in shared:
+            self._evictable.pop(blk, None)  # revived if parked
+            self._ref[blk] = self._ref.get(blk, 0) + 1
+            blocks.append(blk)
+        for _ in range(n_own):
+            blk = self._take_block()
+            self._ref[blk] = 1
+            blocks.append(blk)
+        self.hits += len(shared)
+        self.misses += max(min(len(hashes), n) - len(shared), 0)
+        return blocks, len(shared) * self.page
+
+    def alloc(self, total_len: int) -> Optional[List[int]]:
+        got = self.alloc_shared(total_len, [])
+        return got[0] if got is not None else None
+
+    def alloc_one(self) -> Optional[int]:
+        """One more block for a growing request; may evict a parked page."""
+        blk = self._take_block()
+        if blk is not None:
+            self._ref[blk] = 1
+        return blk
+
+    def register(self, hashes: List[bytes], blocks: List[int]) -> None:
+        """Publish a request's computed prefix pages (``blocks[i]`` holds the
+        page of chain hash ``hashes[i]``). The first writer wins: a
+        concurrent identical prompt keeps its copy unpublished."""
+        for h, blk in zip(hashes, blocks):
+            if h in self._by_hash or blk in self._block_hash:
+                continue
+            self._by_hash[h] = blk
+            self._block_hash[blk] = h
+
+    def free(self, blocks: List[int]) -> None:
+        """Drop one reference a block; a registered block whose last
+        reference goes parks as the most recently used evictable page."""
+        for blk in blocks:
+            r = self._ref.get(blk, 1) - 1
+            if r > 0:
+                self._ref[blk] = r
+                continue
+            self._ref.pop(blk, None)
+            if blk in self._block_hash:
+                self._evictable.pop(blk, None)
+                self._evictable[blk] = None
+            else:
+                self._free.append(blk)

@@ -35,6 +35,9 @@ SMS = 132  # H100 SXM
 SPLITS = (64, 128, 256, 512)  # prefix positions a split, smallest first
 MAX_BLOCKS_PER_SM = 8
 MAX_WARPS = 4  # 16-row warps in a row tile
+# rows of the largest admission batch: a batch-invariant call plans its grid
+# as a call of this many rows does
+INVARIANT_BSZ = 8
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -70,7 +73,12 @@ def plan(bsz: int, hkv: int, rows: int, page: int, pages: int = 1) -> Plan:
     latency (lengths, q, the first copies, its ticket) and the merge reads
     each live split, so on the H100 fewer, longer splits won down to 64
     positions (``scripts/torch_flash_split_sweep.py``). Lengths stay on the
-    device, so the grid covers every position a row can hold."""
+    device, so the grid covers every position a row can hold.
+
+    A row's output depends on its split size, so a call that must give the
+    same bits whatever rows share it (the paged engine's extend windows,
+    ``batch_invariant=True`` in :func:`launch_common`) is planned with
+    ``bsz = INVARIANT_BSZ``."""
     warps = min(MAX_WARPS, _cdiv(rows, 16))
     tiles = _cdiv(rows, 16 * warps)
     for ps in SPLITS:
@@ -200,11 +208,13 @@ def _rows(t: torch.Tensor, name: str):
 
 
 def launch_common(q, k_new, v_new, k_pre, v_pre, lengths, block_bias, scale, k_scales, v_scales,
-                  page: int, pages: int, tables=None) -> torch.Tensor:
+                  page: int, pages: int, tables=None, batch_invariant: bool = False) -> torch.Tensor:
     """Checks shared by B2 and B3, then one launch. ``k_pre``/``v_pre``: the
     contiguous cache (``page`` = S_max, ``pages`` = 1, B2) or the pool
-    (``tables`` [B, P], B3). Returns ctx [B, Hq, S_new, D] as a view of
-    [B, S_new, Hq, D] memory, the layout the forward consumes."""
+    (``tables`` [B, P], B3). ``batch_invariant`` plans the grid from the
+    shapes without the batch (:func:`plan`). Returns ctx [B, Hq, S_new, D]
+    as a view of [B, S_new, Hq, D] memory, the layout the forward
+    consumes."""
     bsz, hq, s_new, d = q.shape
     hkv = k_pre.shape[1]
     quant = k_scales is not None
@@ -231,7 +241,7 @@ def launch_common(q, k_new, v_new, k_pre, v_pre, lengths, block_bias, scale, k_s
         raise ValueError("tensors must lie on q's device")
     if k_pre.data_ptr() % 16 or v_pre.data_ptr() % 16:
         raise ValueError("cache must be 16-byte aligned")
-    pl = plan(bsz, hkv, s_new * (hq // hkv), page, pages)
+    pl = plan(INVARIANT_BSZ if batch_invariant else bsz, hkv, s_new * (hq // hkv), page, pages)
     out = torch.empty((bsz, s_new, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)
     ws = torch.empty(pl.workspace(bsz, hkv, d), dtype=torch.float32, device=dev)
     n_tiles = bsz * hkv * pl.tiles

@@ -52,7 +52,7 @@ def paged_flash_decode_ref(
 
 
 def _launch(q, k_new, v_new, k_pool, v_pool, block_tables, lengths, block_bias, scale,
-            k_scales, v_scales):
+            k_scales, v_scales, batch_invariant=False):
     bsz = q.shape[0]
     if block_tables.dim() != 2 or block_tables.shape[0] != bsz:
         raise ValueError(f"block tables must be [B={bsz}, P], got {tuple(block_tables.shape)}")
@@ -60,7 +60,8 @@ def _launch(q, k_new, v_new, k_pool, v_pool, block_tables, lengths, block_bias, 
     tables = block_tables.to(device=dev, dtype=torch.int32).contiguous()
     lens = lengths.to(device=dev, dtype=torch.int32).reshape(-1).expand(bsz).contiguous()
     out = launch_common(q, k_new, v_new, k_pool, v_pool, lens, block_bias, scale, k_scales,
-                        v_scales, page=k_pool.shape[2], pages=tables.shape[1], tables=tables)
+                        v_scales, page=k_pool.shape[2], pages=tables.shape[1], tables=tables,
+                        batch_invariant=batch_invariant)
     paged_flash_decode_attention.launches += 1
     return out
 
@@ -78,10 +79,13 @@ def paged_flash_decode_attention(
     scale: float,
     k_scales: Optional[torch.Tensor] = None,  # [N, Hkv, page] f32 (int8 pool)
     v_scales: Optional[torch.Tensor] = None,
+    batch_invariant: bool = False,
 ) -> torch.Tensor:
     """Context [B, Hq, S_new, D] in q's dtype. Only positions < lengths[b]
     of row b are read; table ids are clamped into the pool. CPU tensors
-    take the plain version; CUDA tensors the kernel."""
+    take the plain version; CUDA tensors the kernel, whose grid
+    ``batch_invariant`` plans without the batch, so a row's bits do not
+    depend on the rows beside it (``flash_decode.plan``)."""
     if q.device.type == "cpu":
         return paged_flash_decode_ref(
             q, k_new, v_new, k_pool, v_pool, block_tables, lengths, block_bias,
@@ -90,7 +94,7 @@ def paged_flash_decode_attention(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return _launch(q, k_new, v_new, k_pool, v_pool, block_tables, lengths, block_bias, scale,
-                   k_scales, v_scales)
+                   k_scales, v_scales, batch_invariant)
 
 
 paged_flash_decode_attention.launches = 0

@@ -77,13 +77,15 @@ def flash_layer_attention(q, k, v, cache_slices, length, lengths, bias_blk, scal
     return ctx.transpose(1, 2).reshape(b, s, -1)
 
 
-def paged_flash_layer_attention(q, k, v, slices, block_tables, lengths, bias_blk, scale):
+def paged_flash_layer_attention(q, k, v, slices, block_tables, lengths, bias_blk, scale,
+                                batch_invariant: bool):
     """One layer's attention through the paged flash-decode kernel.
     ``q``/``k``/``v``: [B, S, H, D] fresh projections, passed as [B, H, S, D]
     views. Writes the new block into the layer's pools at each row's
     ``lengths`` (in place), then attends over the live prefix, read page by
     page through ``block_tables``, plus the new block read from ``k``/``v``.
-    Returns ctx [B, S, hidden] (a view on the card, as above)."""
+    ``batch_invariant`` plans the kernel's grid without the batch. Returns
+    ctx [B, S, hidden] (a view on the card, as above)."""
     b, s = q.shape[0], q.shape[1]
     kn, vn, qh = k.transpose(1, 2), v.transpose(1, 2), q.transpose(1, 2)
     paged_cache.paged_write_layer(slices, block_tables, lengths, kn, vn)
@@ -91,10 +93,11 @@ def paged_flash_layer_attention(q, k, v, slices, block_tables, lengths, bias_blk
         k_q, k_s, v_q, v_s = slices
         ctx = paged_flash_decode_attention(
             qh, kn, vn, k_q, v_q, block_tables, lengths, bias_blk,
-            scale=scale, k_scales=k_s, v_scales=v_s)
+            scale=scale, k_scales=k_s, v_scales=v_s, batch_invariant=batch_invariant)
     else:
         ctx = paged_flash_decode_attention(
-            qh, kn, vn, slices[0], slices[1], block_tables, lengths, bias_blk, scale=scale)
+            qh, kn, vn, slices[0], slices[1], block_tables, lengths, bias_blk, scale=scale,
+            batch_invariant=batch_invariant)
     return ctx.transpose(1, 2).reshape(b, s, -1)
 
 
@@ -181,6 +184,7 @@ class AttentionPlan:
     paged: bool
     use_flash: bool
     paged_prefill: bool
+    batch_invariant: bool  # B1, the dense head and B3 planned without the batch
     length: Optional[int]
     lengths: Optional[torch.Tensor]
     offset: object
@@ -189,9 +193,10 @@ class AttentionPlan:
 
 
 def attention_plan(cache, s: int, batch: int, device, flash: str,
-                   tree_mask: Optional[torch.Tensor], paged_prefill: bool) -> AttentionPlan:
+                   tree_mask: Optional[torch.Tensor], paged_prefill: bool,
+                   batch_invariant: bool = False) -> AttentionPlan:
     """The attention dispatch of a block of ``s`` tokens (see the module
-    docstring)."""
+    docstring); ``paged_prefill`` implies ``batch_invariant``."""
     paged = paged_cache.is_paged(cache)
     if paged_prefill and not paged:
         raise ValueError("paged_prefill needs a paged cache")
@@ -213,7 +218,8 @@ def attention_plan(cache, s: int, batch: int, device, flash: str,
     else:
         mask = attention_mask(lengths if paged else length, s, s_max, tree_mask, batch, device)
         bias = torch.where(mask, 0.0, _MASK_VALUE).float()[:, None]  # [B,1,S,S_max]
-    return AttentionPlan(paged, use_flash, paged_prefill, length, lengths, offset, bias_blk, bias)
+    return AttentionPlan(paged, use_flash, paged_prefill, paged_prefill or batch_invariant, length,
+                         lengths, offset, bias_blk, bias)
 
 
 def layer_attention(plan: AttentionPlan, cache, li: int, q, k, v, scale: float,
@@ -228,7 +234,7 @@ def layer_attention(plan: AttentionPlan, cache, li: int, q, k, v, scale: float,
         slices = paged_cache.layer_slices(cache, li)
         if plan.use_flash:
             return paged_flash_layer_attention(q, k, v, slices, cache.block_tables, plan.lengths,
-                                               plan.bias_blk, scale)
+                                               plan.bias_blk, scale, plan.batch_invariant)
     else:
         slices = layer_slices(cache, li)
         if plan.use_flash:
@@ -271,6 +277,7 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     tree_mask: Optional[torch.Tensor] = None,
     paged_prefill: bool = False,
+    batch_invariant: bool = False,
 ) -> Tuple[torch.Tensor, object]:
     """Run the decoder over ``tokens`` [B, S] given ``cache``.
 
@@ -282,12 +289,14 @@ def forward(
     (lengths 0): attention runs block-only over the new tokens, as the JAX
     package's admission prefill does, and reads nothing from the pools. Its
     W8A16 calls are planned batch-invariant, so a request's prefill gives
-    the same bits whatever requests are admitted with it."""
+    the same bits whatever requests are admitted with it.
+    ``batch_invariant=True`` plans B1, the dense head and the paged kernel
+    batch-invariant on any block (the prefix cache's extend windows)."""
     b, s = tokens.shape
     dev = tokens.device
     dtype = cfg.torch_dtype
     layers = unstack_layers(params)["layers"]
-    plan = attention_plan(cache, s, b, dev, cfg.flash, tree_mask, paged_prefill)
+    plan = attention_plan(cache, s, b, dev, cfg.flash, tree_mask, paged_prefill, batch_invariant)
     if positions is None:
         positions = (plan.offset + torch.arange(s, device=dev)[None]).expand(b, s)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, cfg.max_position)
@@ -295,7 +304,7 @@ def forward(
     h = params["embed"][tokens].to(dtype)
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
-    lin = functools.partial(linear, batch_invariant=paged_prefill)
+    lin = functools.partial(linear, batch_invariant=plan.batch_invariant)
     for li, lp in enumerate(layers):
         r = rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
         q = lin(r, lp["wq"], lp.get("bq")).reshape(b, s, cfg.num_heads, cfg.head_dim)
@@ -313,7 +322,7 @@ def forward(
 
     h = rms_norm(h, params["ln_final"], cfg.rms_norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = lm_head_logits(h, head, batch_invariant=paged_prefill)
+    logits = lm_head_logits(h, head, batch_invariant=plan.batch_invariant)
     return logits, advance(plan, cache, s)
 
 

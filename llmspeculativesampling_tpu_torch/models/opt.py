@@ -47,9 +47,11 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     tree_mask: Optional[torch.Tensor] = None,
     paged_prefill: bool = False,
+    batch_invariant: bool = False,
 ) -> Tuple[torch.Tensor, object]:
     """Decode ``tokens`` [B, S] -> (logits [B, S, V] float32, cache + S),
-    over a contiguous or a paged cache, as ``models/llama.py::forward``.
+    over a contiguous or a paged cache, as ``models/llama.py::forward``
+    (``paged_prefill`` and ``batch_invariant`` alike).
 
     Positions index ``embed_pos`` at ``positions + 2``; the table has
     ``max_position + 2`` rows. A position outside it raises and is never
@@ -60,14 +62,14 @@ def forward(
     dev = tokens.device
     dtype = cfg.torch_dtype
     layers = unstack_layers(params)["layers"]
-    plan = attention_plan(cache, s, b, dev, cfg.flash, tree_mask, paged_prefill)
+    plan = attention_plan(cache, s, b, dev, cfg.flash, tree_mask, paged_prefill, batch_invariant)
     if not plan.paged and plan.length + s > cfg.max_position:
         raise ValueError(f"positions up to {plan.length + s - 1} exceed the learned table of "
                          f"{cfg.max_position} positions")
     if positions is None:
         positions = (plan.offset + torch.arange(s, device=dev)[None]).expand(b, s)
 
-    lin = functools.partial(linear, batch_invariant=paged_prefill)
+    lin = functools.partial(linear, batch_invariant=plan.batch_invariant)
     h = params["embed"][tokens].to(dtype)
     if "project_in" in params:
         h = lin(h, params["project_in"])
@@ -97,7 +99,7 @@ def forward(
     if "project_out" in params:
         h = lin(h, params["project_out"])
     head = params.get("lm_head", params["embed"])
-    logits = lm_head_logits(h, head, batch_invariant=paged_prefill)
+    logits = lm_head_logits(h, head, batch_invariant=plan.batch_invariant)
     return logits, advance(plan, cache, s)
 
 

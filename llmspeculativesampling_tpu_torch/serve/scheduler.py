@@ -1,10 +1,7 @@
 """Request and completion records of the serving engines (counterpart of
 ``Request`` and ``Completion`` in ``llmspeculativesampling_tpu/serve/scheduler.py``).
 
-The slotted ``ContinuousBatchingEngine`` is not ported yet (ROADMAP A13);
-neither are the preemption-resume fields of ``Request`` (``resume_key``,
-``carry``, ``orig_prompt_len``) and ``cached_len``, which serve on-demand
-paging and the prefix cache.
+The slotted ``ContinuousBatchingEngine`` is not ported yet (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -22,6 +19,14 @@ class Request:
     max_new_tokens: int
     submit_time: float
     prefill_time: Optional[float] = None
+    cached_len: int = 0      # prompt positions served from the prefix cache
+    # preemption resume (the paged engine's on-demand paging): a preempted
+    # request requeues with its committed tokens as the prompt, the row's
+    # evolved stream key (so the continuation replays the preempted run)
+    # and its detail counters so far
+    resume_key: Optional[np.ndarray] = None   # [2] stream key
+    carry: Optional[dict] = None              # accumulated details
+    orig_prompt_len: Optional[int] = None     # the user's prompt length
 
 
 @dataclasses.dataclass

@@ -401,8 +401,11 @@ def main(argv=None):
     p.add_argument("--num_slots", type=int, default=0,
                    help="with --paged: the engine's batch rows (default 8)")
     p.add_argument("--paged", action="store_true", help="serve through the paged-KV engine")
+    p.add_argument("--prefix_cache", action="store_true",
+                   help="with --paged: automatic prefix caching; a repeated page-aligned prompt "
+                        "prefix skips its prefill")
     p.add_argument("--kv_quant", action="store_true", help="with --paged: int8 KV pools")
-    p.add_argument("--num_blocks", type=int, default=64)
+    p.add_argument("--num_blocks", type=int, default=64, help="with --paged: pool blocks")
     p.add_argument("--page", type=int, default=128)
     args = p.parse_args(argv)
     if args.num_slots > 0 and not args.paged:
@@ -419,7 +422,8 @@ def main(argv=None):
             srv.bundle_d, srv.params_d, srv.bundle_t, srv.params_t,
             batch_rows=args.num_slots or 8, num_blocks=args.num_blocks, page=args.page,
             gamma=c.gamma, eos_token_id=c.eos_token_id, temperature=c.temperature,
-            top_k=c.top_k, top_p=c.top_p, kv_quant=args.kv_quant, device=srv.device)
+            top_k=c.top_k, top_p=c.top_p, kv_quant=args.kv_quant,
+            prefix_cache=args.prefix_cache, device=srv.device)
         srv = BatchedInferenceServer(srv, engine=engine)
     httpd = make_http_server(srv, args.host, args.port)
     print(f"serving on {args.host}:{args.port}")

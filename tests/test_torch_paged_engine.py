@@ -1,5 +1,6 @@
 """The port's paged continuous-batching engine (``serve/paged.py``) against
-the JAX ``PagedEngine(on_demand=False)``, the ports of
+the JAX ``PagedEngine(on_demand=False)`` (the port on demand, its default:
+the ids are the same when no row is preempted), the ports of
 tests/test_paged_engine.py's engine tests, and the pieces under it: the
 batched accept (``engine/speculative.py::accept_phase_rows``) and the
 per-row random streams (``ops/sampling.py``).
@@ -201,12 +202,26 @@ def test_partial_result_and_submit_checks(pair):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("on_demand", True), ("prefix_cache", True), ("chunked_prefill", True),
-    ("prefill_extra", 2), ("adaptive_gamma", (4, 8)), ("mesh", object()),
+    ("chunked_prefill", True), ("prefill_extra", 2), ("adaptive_gamma", (4, 8)),
+    ("mesh", object()),
 ])
 def test_later_options_raise(pair, option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _engine(pair, **{option: value})
+
+
+def test_reservation_without_on_demand_takes_the_worst_case(pair):
+    """on_demand=False reserves prompt + max_new + gamma + 1 at admission
+    and grows nothing; the default (on demand) reserves the prompt plus a
+    two-chunk runway."""
+    kw = dict(num_blocks=16, page=16, max_pages_per_req=8, steps_per_sync=1)
+    worst = 20 + 60 + 3 + 1
+    for on_demand, pages in ((False, -(-worst // 16)), (True, -(-(20 + 2 * (4 + 4)) // 16))):
+        eng = _engine(pair, on_demand=on_demand, **kw)
+        eng.submit(list(range(5, 25)), max_new_tokens=60)
+        eng._admit()
+        assert len(eng._row_blocks[0]) == pages
+        assert eng.allocator.free_blocks == 16 - pages
 
 
 def test_engine_defaults_to_the_card(pair, monkeypatch):

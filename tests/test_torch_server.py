@@ -171,6 +171,35 @@ def test_later_slices_raise():
         srv.InferenceServer.from_pretrained("/models/a", "/models/b")
 
 
+def test_main_builds_the_paged_engine_from_its_flags(monkeypatch):
+    """``--paged --prefix_cache --num_blocks`` reach the engine: a
+    prefix-caching pool of that many blocks behind the batched front end."""
+    bd, pd, bt, pt = _pair()
+    monkeypatch.setattr(srv.InferenceServer, "from_pretrained", classmethod(
+        lambda cls, a, b, config: cls(bd, pd, bt, pt, config=config, device="cpu")))
+    made = []
+
+    class Httpd:
+        def serve_forever(self):
+            pass
+
+    def make(server, host, port):
+        made.append(server)
+        return Httpd()
+
+    monkeypatch.setattr(srv, "make_http_server", make)
+    srv.main(["--paged", "--prefix_cache", "--num_blocks", "12", "--kv_quant", "--port", "0"])
+    batched = made[0]
+    try:
+        eng = batched.engine
+        assert eng.prefix_cache and eng.on_demand and eng.allocator.num_blocks == 12
+        assert eng.allocator.available_blocks == 12 and eng.allocator.hits == 0
+        _, ids = batched.process_request({"prompt_ids": list(range(3, 40)), "max_tokens": 5})
+        _check_output(ids, list(range(3, 40)), 5, gamma=4)
+    finally:
+        batched.shutdown()
+
+
 def test_from_pretrained_serves_local_opt_directories(tmp_path):
     """Two tiny OPT checkpoints written by ``save_pretrained`` (no
     tokenizer in them): the server loads both on the CPU, keeps its eos id
