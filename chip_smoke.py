@@ -35,7 +35,12 @@ Phases, each printing lines before the last:
      share, own pages after it, sentinel tails, and a row the extend has
      exhausted (an all-sentinel table), under the batch-invariant plan (a
      row alone gives the bits it gets among 8), with its time beside the
-     plan from B=1; B1 per target forward at M=32 and 256 under both plans;
+     plan from B=1; B1 per target forward at M=32 and 256 under both plans.
+     At the SARATHI and adaptive-gamma shapes: B1 per target forward at
+     M = 80, 108, 204, 272 (16 x 5, 12 x 9, 12 x 17, 16 x 17); B3 at the
+     adaptive arms' verifies (B=16 x Hkv 40 x S_new 5 / 17), the cold mix's
+     (B=12 x 9 / 17 with a staged row at length 0 and one mid-prompt) and
+     the draft-only windows (KB 1 / 8 x Hkv 6 x 32, batch-invariant);
   3. forward: logits of a 2-layer, full-width (5120) int8 Llama slice on the
      card with the kernels vs the same weights on the CPU with the plain
      versions, through a contiguous cache and through a paged int8 pool
@@ -70,7 +75,16 @@ Phases, each printing lines before the last:
      at overcommit 1.0 (no preemption) and 2.0 (preemptions; how many
      preempted requests come out bit-identical is reported), every pool
      ending at available_blocks == num_blocks; and 8 prefix-cache hits
-     admitted together and one at a time, whose ids must be equal;
+     admitted together and one at a time, whose ids must be equal. Then
+     SARATHI's A/B (scripts/bench_chunked_prefill.py's 13B settings: 12
+     rows, gamma 8, steps_per_sync 4, a closed loop of 36 requests, every
+     5th a 960-token cold prompt; extend windows of 32) monolithic, chunked
+     and chunked at prefill_extra 8, each after ``warmup()``: tok/s, the
+     gaps between chunk reads (steady and across an admission), the cold
+     requests' TTFT, ``interleaved_chunks`` (0 monolithic, fewer at
+     prefill_extra 8), B3 in the draft-only windows; and fixed gamma 8
+     against ``adaptive_gamma=(4, 8, 16)`` on 96 uniform requests (16 rows
+     of two pages): the ramp must run every arm; ``adaptive_stats()``;
   6. tree/beam path: the same pair through multi iid (width 4), beam v1 and
      beam v2 (4 beams) with ``scripts/bench_beam.py --thirteen_b``'s
      settings (gamma 4, 64 new tokens); B2 must serve every tree verify,
@@ -96,7 +110,8 @@ Phases, each printing lines before the last:
      the paged path and B3 not on the others;
   9. a ``{"kernels": [...]}`` line (each kernel also with its numbers at the
      OPT path's shapes, under "opt", and B1 and B3 at the extend window's,
-     under "extend"), the card line again, and as the last
+     under "extend", and at the cold mix's 12 x 17 verify, under
+     "sarathi"), the card line again, and as the last
      line ``{"ok": true, "device": {...}}``. Each phase prints its seconds.
 Any failed check raises: the script exits non-zero and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -158,6 +173,18 @@ OPT_DRAFT_M = (1, 2, ROWS, 64)  # decode, re-feed, serving step, prefill
 # system prompt + 64 unique tokens): hits extend 32-token windows over the 4
 # shared pages, up to 8 hits a window; tables of ceil((576 + 48 + 9) / 128)
 SHARED_PAGES, EXTEND_W, EXTEND_KB, EXTEND_PAGES = 4, 32, 8, 5
+# SARATHI chunked prefill (scripts/bench_chunked_prefill.py's A/B, --kv_int8
+# --gamma 8 --steps_per_sync 4 --long_prompt 960 --n_requests 36
+# --batch_rows 12 over 32 blocks of 128): a closed loop, every 5th request a
+# 960-token cold prompt with 32 new tokens, the rest 64 + 48; extend windows
+# of 32 (B3's S_new limit) where the command gives 128; prefill_extra 8 in
+# the third run. Adaptive gamma (scripts/bench_paged.py --adaptive_gamma
+# 4,8,16 --repeat_workload 4): 96 x (64, 48) at the serving settings, whose
+# deepest arm's worst case (129 positions) takes 2 pages a row
+COLD_ROWS, COLD_SYNC, COLD_LEN, COLD_NEW, COLD_N, COLD_EXTRA = 12, 4, 960, 32, 36, 8
+ADAPT_ARMS, ADAPT_N, ADAPT_PAGES = (4, 8, 16), 96, 2
+SARATHI_TARGET_M = (ROWS * (ADAPT_ARMS[0] + 1), COLD_ROWS * (SERVE_GAMMA + 1),
+                    COLD_ROWS * (SERVE_GAMMA + 1 + COLD_EXTRA), ROWS * (ADAPT_ARMS[2] + 1))
 
 
 def log(*a):
@@ -258,14 +285,19 @@ def phase_int8_matmul(results):
                 TREE_TARGET_M[2]: "v1 tree verify",
                 TREE_TARGET_M[3]: "4-row prefill / 8-hit extend window",
                 ALG_TARGET_M[0]: "BiLD check", ALG_TARGET_M[1]: "MJSD-8 verify",
-                ALG_TARGET_M[2]: "random-beam decode"}
+                ALG_TARGET_M[2]: "random-beam decode",
+                SARATHI_TARGET_M[0]: "adaptive gamma-4 verify (16 x 5)",
+                SARATHI_TARGET_M[1]: "cold_mix verify (12 x 9)",
+                SARATHI_TARGET_M[2]: "cold_mix prefill_extra-8 verify (12 x 17)",
+                SARATHI_TARGET_M[3]: "adaptive gamma-16 verify (16 x 17)"}
     fwd = {m: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for m in forwards}
     # the admission prefill's M (64 x requests) plans B1 batch-invariant: time
     # that plan beside the one chosen from M at each prefill M
     prefill_m = {TARGET_M[0], TREE_TARGET_M[3], SERVE_TARGET_M[1]}
     inv = {m: 0.0 for m in prefill_m}
     worst_abs = 0.0
-    tm = sorted(set(TARGET_M + SERVE_TARGET_M + TREE_TARGET_M + ALG_TARGET_M), reverse=True)
+    tm = sorted(set(TARGET_M + SERVE_TARGET_M + TREE_TARGET_M + ALG_TARGET_M + SARATHI_TARGET_M),
+                reverse=True)
     dm = sorted(set(DRAFT_M + SERVE_DRAFT_M + TREE_DRAFT_M), reverse=True)
     cases = [("target", m, k, n, c) for m in tm for (k, n, c) in TARGET_SHAPES + [(5120, VOCAB, 1)]]
     cases += [("draft", m, k, n, c) for m in dm for (k, n, c) in DRAFT_SHAPES + [(768, VOCAB, 1)]]
@@ -331,7 +363,8 @@ def phase_int8_matmul(results):
                                   single_stream_verify_ms=fwd[GAMMA + 1]["ms"],
                                   tree_forwards_ms={forwards[m]: fwd[m]["ms"] for m in TREE_TARGET_M},
                                   algorithm_forwards_ms={forwards[m]: fwd[m]["ms"]
-                                                         for m in ALG_TARGET_M})
+                                                         for m in ALG_TARGET_M},
+                                  sarathi={m: fwd[m] for m in SARATHI_TARGET_M})
     for m, what in forwards.items():
         f = fwd[m]
         log(f"[int8_matmul] one {what} target forward (281 launches at M={m}): "
@@ -739,13 +772,14 @@ def _time_paged_sets(make, s_new, quant, **kernel_kw):
     return t_k, t_p, t_l, n
 
 
-def _time_paged(gen, lens, p_max, hkv, s_new, quant):
-    """Kernel, plain and SDPA times and the bound of B3 at B=16, Hq=Hkv,
-    D=128, page 128, each row on pages of its own."""
+def _time_paged(gen, lens, p_max, hkv, s_new, quant, **kernel_kw):
+    """Kernel, plain and SDPA times and the bound of B3 at B=len(lens),
+    Hq=Hkv, D=128, page 128, each row on pages of its own."""
     t_k, t_p, t_l, n = _time_paged_sets(
-        lambda: _paged_inputs(gen, lens, hkv, hkv, s_new, 128, PAGE, p_max, quant), s_new, quant)
-    b_ms, b_by = _flash_bound(hkv, s_new, sum(lens), quant, rows=ROWS,
-                              extra_bytes=ROWS * p_max * 4)
+        lambda: _paged_inputs(gen, lens, hkv, hkv, s_new, 128, PAGE, p_max, quant), s_new, quant,
+        **kernel_kw)
+    b_ms, b_by = _flash_bound(hkv, s_new, sum(lens), quant, rows=len(lens),
+                              extra_bytes=len(lens) * p_max * 4)
     return t_k, t_p, t_l, b_ms, b_by, n
 
 
@@ -867,6 +901,22 @@ def _extend_inputs(gen, lens, hkv, quant, p_max=EXTEND_PAGES):
                    None, None]
 
 
+def _b3_counted(**kernel_kw):
+    """B3's wrapper with ``kernel_kw`` bound, carrying its own count of the
+    launches it made (``_check_case`` reads ``fn.launches``)."""
+    from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
+        paged_flash_decode_attention)
+
+    def counted(*a, **kw):
+        before = paged_flash_decode_attention.launches
+        out = paged_flash_decode_attention(*a, **kw, **kernel_kw)
+        counted.launches += paged_flash_decode_attention.launches - before
+        return out
+
+    counted.launches = 0
+    return counted
+
+
 def _extend_lens(kb):
     """The rows of the two extend windows over the shared prefix: at 512
     (the first window) and 544 (the second), alternating."""
@@ -887,14 +937,7 @@ def phase_paged_extend(results):
     gen = torch.Generator(device="cuda").manual_seed(9)
     rtol = atol = 2.0 ** -7
     kern = partial(paged_flash_decode_attention, batch_invariant=True)
-
-    def counted(*a, **kw):
-        before = paged_flash_decode_attention.launches
-        out = kern(*a, **kw)
-        counted.launches += paged_flash_decode_attention.launches - before
-        return out
-
-    counted.launches = 0
+    counted = _b3_counted(batch_invariant=True)
     log(f"[extend] tolerance as [paged_flash_decode]: {atol:.2e} + {rtol:.2e}*|plain| (one bf16 "
         "ulp), each case bit-identical across a repeat and contiguous inputs, one launch a call, "
         "counters 0; calls made with batch_invariant=True, as the extend windows make them")
@@ -942,13 +985,15 @@ def phase_paged_extend(results):
             f"{n_sets} input sets rotated ({card})")
     # what the invariant plan costs a hit admitted alone (KB=1)
     lens1 = _extend_lens(1)
-    inv1 = _time_paged_sets(lambda: _extend_inputs(gen, lens1, 40, True), EXTEND_W, True,
-                            batch_invariant=True)[0]
+    inv1, plain1, lib1, _ = _time_paged_sets(lambda: _extend_inputs(gen, lens1, 40, True), EXTEND_W,
+                                             True, batch_invariant=True)
     own1 = _time_paged_sets(lambda: _extend_inputs(gen, lens1, 40, True), EXTEND_W, True)[0]
+    b1_ms, b1_by = _flash_bound(40, EXTEND_W, sum(lens1), True, extra_bytes=EXTEND_PAGES * 4)
     log(f"[extend] B3 target, one hit alone (KB=1): invariant plan (ps="
         f"{plan(INVARIANT_BSZ, 40, EXTEND_W, PAGE, EXTEND_PAGES).ps}) kernel_ms {inv1:.4f}, plan "
-        f"from B=1 (ps={plan(1, 40, EXTEND_W, PAGE, EXTEND_PAGES).ps}) kernel_ms {own1:.4f} "
-        f"({card})")
+        f"from B=1 (ps={plan(1, 40, EXTEND_W, PAGE, EXTEND_PAGES).ps}) kernel_ms {own1:.4f}; "
+        f"plain_ms {plain1:.4f} library_ms {lib1:.4f} (SDPA over a pre-gathered view) bound_us "
+        f"{b1_ms * 1e3:.2f} ({b1_by}) ({card})")
     # B1 at an extend window's M (32 a hit), the target's 40 x 7 projections + head
     b1 = {}
     for m in (EXTEND_W, EXTEND_KB * EXTEND_W):
@@ -969,10 +1014,80 @@ def phase_paged_extend(results):
             f"{b1_plan(m, 5120, 5120)[1]}) kernel_ms {tot[False]:.3f} ({card})")
     r = rows["target"]
     results["extend"] = dict(
-        b3=rows, b3_max_abs_err=worst, b3_one_hit_ms=dict(invariant=inv1, own=own1),
+        b3=rows, b3_max_abs_err=worst,
+        b3_one_hit_ms=dict(invariant=inv1, own=own1, plain_ms=plain1, library_ms=lib1,
+                           bound_ms=b1_ms, bound_by=b1_by),
         b1_forward_ms={m: dict(invariant=v[True], from_m=v[False]) for m, v in b1.items()})
     log(f"[extend] one target extend window (40 B3 launches): kernel_ms {40 * r['ms']:.3f} "
         f"bound_ms {40 * r['bound_ms']:.4f}")
+
+
+def _cold_verify_lens(gen):
+    """The cold mix's verify rows: 10 decode rows of the short requests
+    (lengths 64-121), a staged row at its first piggyback step (length 0:
+    the verify rolls back to cur_len - 1 = 0) and one mid-prompt (481)."""
+    return _uniform_lens(gen, COLD_ROWS - 2) + [0, 481]
+
+
+def _draft_window_lens(kb):
+    """Draft-only windows of staged 960-token prompts: KB rows at window
+    offsets (multiples of 32) from the first to the last."""
+    return [EXTEND_W * ((7 * i) % (COLD_LEN // EXTEND_W)) for i in range(kb)]
+
+
+def phase_paged_sarathi(results):
+    """B3 at the SARATHI and adaptive-gamma shapes: the adaptive arms'
+    verifies (B=16 x Hkv 40 x S_new 5 / 17, two pages a row), the cold
+    mix's (B=12 x 9 / 17 with a staged row at length 0 and one mid-prompt,
+    8 pages a row) and the draft-only windows (KB 1 / 8 x Hkv 6 x 32 over
+    a staged prompt's own pages, batch-invariant plan, as the windows run)."""
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import INVARIANT_BSZ, plan
+    from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import paged_flash_decode_ref
+
+    card = card_line()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rtol = atol = 2.0 ** -7
+    cold_p = -(-(COLD_LEN + COLD_NEW + SERVE_GAMMA + 1) // PAGE)
+    shapes = [  # (what, lens, Hkv, S_new, P, batch-invariant)
+        ("adaptive gamma-4 verify", _uniform_lens(gen, ROWS), 40, ADAPT_ARMS[0] + 1,
+         ADAPT_PAGES, False),
+        ("adaptive gamma-16 verify", _uniform_lens(gen, ROWS), 40, ADAPT_ARMS[2] + 1,
+         ADAPT_PAGES, False),
+        ("cold_mix verify", _cold_verify_lens(gen), 40, SERVE_GAMMA + 1, cold_p, False),
+        ("cold_mix prefill_extra-8 verify", _cold_verify_lens(gen), 40,
+         SERVE_GAMMA + 1 + COLD_EXTRA, cold_p, False),
+        ("draft window KB=1", [COLD_LEN // 2], 6, EXTEND_W, cold_p, True),
+        ("draft window KB=8", _draft_window_lens(EXTEND_KB), 6, EXTEND_W, cold_p, True),
+    ]
+    log(f"[sarathi B3] tolerance as [paged_flash_decode]: {atol:.2e} + {rtol:.2e}*|plain| (one "
+        "bf16 ulp), each case bit-identical across a repeat and contiguous inputs, one launch a "
+        "call, counters 0; the draft windows with batch_invariant=True, as they run")
+    worst, rows = 0.0, {}
+    for what, lens, hkv, s_new, p_max, inv in shapes:
+        for quant in (True, False):
+            q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = _paged_inputs(
+                gen, lens, hkv, hkv, s_new, 128, PAGE, p_max, quant)
+            max_abs, _ = _check_case(
+                f"paged_flash_decode {what} quant={quant} lens={lens}",
+                _b3_counted(batch_invariant=inv),
+                paged_flash_decode_ref, (q, kn, vn, kp, vp, tables, lengths, bias),
+                dict(scale=1.0, k_scales=ks, v_scales=vs), rtol, atol)
+            worst = max(worst, max_abs)
+        t_k, t_p, t_l, b_ms, b_by, n_sets = _time_paged(gen, lens, p_max, hkv, s_new, True,
+                                                        batch_invariant=inv)
+        p = plan(INVARIANT_BSZ if inv else len(lens), hkv, s_new, PAGE, p_max)
+        rows[what] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                          rows=len(lens), hkv=hkv, s_new=s_new, live=sum(lens),
+                          blocks=p.blocks(len(lens), hkv))
+        log(f"[sarathi B3] {what}: int8 pool, B={len(lens)}, Hkv={hkv}, S_new={s_new}, P={p_max}, "
+            f"{sum(lens)} live positions (plan ps={p.ps} blocks={p.blocks(len(lens), hkv)}"
+            f"{', batch-invariant' if inv else ''}): max_abs_err within tolerance; kernel_ms "
+            f"{t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} (F.scaled_dot_product_attention "
+            f"over a pre-gathered view, gather untimed) bound_us {b_ms * 1e3:.2f} ({b_by}) bound "
+            f"share {b_ms / t_k:.3f}; {n_sets} input sets rotated ({card})")
+    log(f"[sarathi B3] {2 * len(shapes)} cases (int8 and bf16 pools) within tolerance, worst "
+        f"max_abs_err {worst:.3e}")
+    results["sarathi"] = dict(b3=rows, b3_max_abs_err=worst)
 
 
 # ---------------------------------------------------------------- phase 2, OPT shapes
@@ -1943,7 +2058,7 @@ def _mix_prompts(kind: str):
     return reqs, [rng.integers(100, 31000, pl).astype(np.int32) for pl, _ in reqs]
 
 
-def _check_outputs(tag: str, reqs, prompts, outs, vocab: int) -> int:
+def _check_outputs(tag: str, reqs, prompts, outs, vocab: int, gamma: int = SERVE_GAMMA) -> int:
     """Every output starts with its prompt, holds ids of the vocabulary and
     has max_new to max_new + gamma new tokens unless EOS ends it. Returns
     the generated tokens."""
@@ -1953,7 +2068,7 @@ def _check_outputs(tag: str, reqs, prompts, outs, vocab: int) -> int:
             raise AssertionError(f"{tag}: a request got no output")
         out = np.asarray(out)
         n_new = len(out) - pl
-        ok_len = mn <= n_new <= mn + SERVE_GAMMA or (1 <= n_new and out[-1] == 2)
+        ok_len = mn <= n_new <= mn + gamma or (1 <= n_new and out[-1] == 2)
         if not (np.array_equal(out[:pl], prompt) and ok_len and out.min() >= 0
                 and out.max() < vocab):
             raise AssertionError(f"{tag}: bad output of length {len(out)} for ({pl}, {mn})")
@@ -2282,6 +2397,251 @@ def phase_hit_burst_trickle(results, pair, n_req: int = EXTEND_KB):
     torch.cuda.empty_cache()
 
 
+def _pct(xs, q):
+    """The q-th percentile (nearest rank below) of ``xs``, or nan."""
+    if not xs:
+        return float("nan")
+    xs = sorted(xs)
+    return xs[min(int(len(xs) * q / 100), len(xs) - 1)]
+
+
+def _cold_mix_run(pair, chunked: bool, extra: int) -> dict:
+    """scripts/bench_chunked_prefill.py's ``run_config`` on the port: a
+    closed loop keeping COLD_ROWS + 2 requests in flight, driven by
+    ``step()``, after ``warmup()``. Records every gap between two chunk
+    reads, tagged with whether an admission (a prefill or an extend
+    window) ran in it, the B3 launches of the draft-only windows, the
+    prompts staged (every prompt longer than ``extend_chunk`` admitted
+    while a row decodes: at 32 the 64-token ones too) and the rows a chunk
+    carried."""
+    from llmspeculativesampling_tpu_torch.serve.paged import PagedEngine
+
+    bd, pd, bt, pt = pair
+    rng = np.random.default_rng(0)
+    sched = [(COLD_LEN, COLD_NEW) if i % 5 == 4 else (64, 48) for i in range(COLD_N)]
+    prompts = [rng.integers(100, 31000, pl).astype(np.int32) for pl, _ in sched]
+    worst = max(pl + mn for pl, mn in sched) + SERVE_GAMMA + 1
+    eng = PagedEngine(bd, pd, bt, pt, batch_rows=COLD_ROWS, num_blocks=BLOCKS, page=PAGE,
+                      max_pages_per_req=-(-worst // PAGE), max_new_cap=64, gamma=SERVE_GAMMA,
+                      eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, prompt_bucket=64,
+                      steps_per_sync=COLD_SYNC, kv_quant=True, extend_chunk=EXTEND_W,
+                      chunked_prefill=chunked, prefill_extra=extra, device="cuda")
+    t_w = time.perf_counter()
+    eng.warmup(prompt_lens=sorted({pl for pl, _ in sched}))
+    warm_s = time.perf_counter() - t_w
+    b3 = _counters()["paged_flash_decode"]
+    gaps, mark, t_last, draft_b3, prefilling, staged, rows = [], [False], [None], [0], [], [0], []
+    prefill, window, meta = eng._dispatch_prefill, eng._extend_window, eng._meta_np
+    stage = eng._stage_admission
+
+    def stage_admission(batch):
+        staged[0] += len(batch)
+        return stage(batch)
+
+    def dispatch_prefill(batch):
+        mark[0] = True
+        return prefill(batch)
+
+    def extend_window(arrays, j, draft_only=False):
+        mark[0] = True
+        before = b3.launches
+        out = window(arrays, j, draft_only)
+        if draft_only:
+            draft_b3[0] += b3.launches - before
+        return out
+
+    def meta_np(pack):
+        prefilling.append(eng._n_prefilling())
+        rows.append(eng.num_active)
+        hv = meta(pack)  # reads the chunk's metadata: the chunk has finished
+        now = time.perf_counter()
+        if t_last[0] is not None:
+            gaps.append((now - t_last[0], mark[0]))
+        t_last[0], mark[0] = now, False
+        return hv
+
+    eng._dispatch_prefill, eng._extend_window, eng._meta_np = dispatch_prefill, extend_window, meta_np
+    eng._stage_admission = stage_admission
+    interleaved0 = eng.interleaved_chunks
+    queue = list(zip(prompts, sched))[::-1]
+    rids = []
+
+    def top_up():
+        while queue and len(rids) - len(eng.completions) < COLD_ROWS + 2:
+            p, (_, mn) = queue.pop()
+            rids.append(eng.submit(p, mn))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    top_up()
+    guard = 0
+    while (eng.num_active or eng._pending or queue) and guard < 100_000:
+        guard += 1
+        eng.step()
+        top_up()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    comps = [eng.result(r) for r in rids]
+    tag = f"cold_mix chunked={chunked} prefill_extra={extra}"
+    if any(c is None for c in comps):
+        raise AssertionError(f"{tag}: a request did not complete")
+    tokens = _check_outputs(tag, sched, prompts, [c.output_ids for c in comps],
+                            bt.cfg.vocab_size)
+    if eng.allocator.available_blocks != BLOCKS or eng.num_active or eng._pending:
+        raise AssertionError(f"{tag}: the pool did not end fully free")
+    acc = float(np.mean([c.details["acc_rate"] for c in comps]))
+    _check_serving(tag, acc, launches)
+    steady = [g for g, adm in gaps if not adm]
+    admission = [g for g, adm in gaps if adm]
+    cold = [c.details["ttft_s"] for c, (pl, _) in zip(comps, sched) if pl == COLD_LEN]
+    out = dict(tok_s=tokens / wall, wall_s=wall, tokens=tokens, acc_rate=acc, launches=launches,
+               warmup_s=warm_s, steady_gap_p50_ms=_pct(steady, 50) * 1e3,
+               steady_gap_p95_ms=_pct(steady, 95) * 1e3,
+               admission_gap_p95_ms=_pct(admission, 95) * 1e3,
+               admission_gap_max_ms=max(admission, default=float("nan")) * 1e3,
+               cold_ttft_p50_s=_pct(cold, 50), interleaved_chunks=eng.interleaved_chunks - interleaved0,
+               draft_window_b3=draft_b3[0], preemptions=eng.preemptions, chunks=len(prefilling),
+               prefilling_rows=sum(prefilling), staged=staged[0],
+               mean_rows=float(np.mean(rows)) if rows else 0.0,
+               outs=[c.output_ids for c in comps], cold=[pl == COLD_LEN for pl, _ in sched])
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cold_mix(results, pair):
+    """SARATHI's A/B on the port: the cold mix monolithic, chunked, and
+    chunked with prefill_extra 8 (verify windows of 17). Every request must
+    complete with valid ids and the pool end free; chunked runs must carry
+    a prefilling row in some chunks (fewer with prefill_extra), the
+    monolithic none; B3 must run in the draft-only windows. How many
+    requests (cold ones apart) come out identical to the monolithic run's
+    is reported: on the card B1 plans the verify from M and B3 attends
+    otherwise than the admission prefill, so bits may differ."""
+    card = card_line()
+    runs = {(c, e): _cold_mix_run(pair, c, e) for c, e in ((False, 0), (True, 0),
+                                                           (True, COLD_EXTRA))}
+    mono = runs[False, 0]
+    for (chunked, extra), r in runs.items():
+        same = [np.array_equal(a, b) for a, b in zip(r["outs"], mono["outs"])]
+        n_cold = sum(r["cold"])
+        same_cold = sum(s for s, c in zip(same, r["cold"]) if c)
+        log(f"[cold_mix chunked={chunked} prefill_extra={extra}] {r['tokens']} generated tokens in "
+            f"{r['wall_s']:.2f} s: {r['tok_s']:.2f} tok/s aggregate; chunk gaps: steady p50 "
+            f"{r['steady_gap_p50_ms']:.1f} ms p95 {r['steady_gap_p95_ms']:.1f} ms, admission p95 "
+            f"{r['admission_gap_p95_ms']:.1f} ms max {r['admission_gap_max_ms']:.1f} ms; cold TTFT "
+            f"p50 {r['cold_ttft_p50_s']:.3f} s; interleaved_chunks {r['interleaved_chunks']} of "
+            f"{r['chunks']} chunks ({r['prefilling_rows']} prefilling row-chunks, {r['staged']} "
+            f"prompts staged, {r['mean_rows']:.2f} rows a chunk on average); B3 "
+            f"launches in the draft windows {r['draft_window_b3']}; acc_rate {r['acc_rate']:.4f}; "
+            f"preemptions {r['preemptions']}; identical to the monolithic run: {same_cold}/{n_cold} "
+            f"cold, {sum(same) - same_cold}/{len(same) - n_cold} others; warm-up "
+            f"{r['warmup_s']:.1f} s; launches {r['launches']} ({card})")
+    chunked, wide = runs[True, 0], runs[True, COLD_EXTRA]
+    if mono["interleaved_chunks"] != 0 or chunked["interleaved_chunks"] <= 0:
+        raise AssertionError(f"cold_mix: interleaved_chunks {mono['interleaved_chunks']} "
+                             f"monolithic, {chunked['interleaved_chunks']} chunked")
+    if not 0 < wide["interleaved_chunks"] < chunked["interleaved_chunks"]:
+        raise AssertionError(f"cold_mix: prefill_extra {COLD_EXTRA} interleaved "
+                             f"{wide['interleaved_chunks']} chunks, not fewer than "
+                             f"{chunked['interleaved_chunks']}")
+    if chunked["draft_window_b3"] <= 0 or wide["draft_window_b3"] <= 0:
+        raise AssertionError("cold_mix: B3 did not run in the draft-only windows")
+    results["cold_mix"] = {f"chunked={c} prefill_extra={e}": {
+        k: v for k, v in r.items() if k not in ("outs", "cold")} for (c, e), r in runs.items()}
+    results["launches"]["cold_mix"] = {
+        k: sum(r["launches"][k] for r in runs.values()) for k in mono["launches"]}
+
+
+def _adaptive_run(pair, arms) -> dict:
+    """ADAPT_N uniform requests (64 + 48) submitted at once under rids 0..,
+    drained by ``run_until_idle`` after ``warmup()``, at the serving
+    settings with two-page tables; fixed gamma when ``arms`` is None.
+    Records each chunk's gamma, whether the ramp epoch ran it, and the
+    active rows."""
+    from llmspeculativesampling_tpu_torch.serve.paged import PagedEngine
+
+    bd, pd, bt, pt = pair
+    rng = np.random.default_rng(0)
+    reqs = [(64, 48)] * ADAPT_N
+    prompts = [rng.integers(100, 31000, 64).astype(np.int32) for _ in reqs]
+    eng = PagedEngine(bd, pd, bt, pt, batch_rows=ROWS, num_blocks=BLOCKS, page=PAGE,
+                      max_pages_per_req=ADAPT_PAGES, max_new_cap=48, gamma=SERVE_GAMMA,
+                      eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, prompt_bucket=64,
+                      steps_per_sync=SYNC, kv_quant=True, adaptive_gamma=arms, device="cuda")
+    eng.warmup(prompt_lens=(64,))
+    gammas, ramp, active = [], [], []
+    chunk = eng._dispatch_chunk
+
+    def dispatch_chunk():
+        active.append(eng.num_active)
+        in_ramp = eng._ep_phase == "ramp"
+        pack = chunk()
+        gammas.append(eng._chunk_arm[0])
+        if arms and in_ramp:
+            ramp.append(eng._chunk_arm[0])
+        return pack
+
+    eng._dispatch_chunk = dispatch_chunk
+    reset_launches()
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.submit_with_rid(i, p, 48)
+    eng.run_until_idle()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    comps = [eng.result(i) for i in range(ADAPT_N)]
+    tag = f"adaptive {arms or SERVE_GAMMA}"
+    if any(c is None for c in comps):
+        raise AssertionError(f"{tag}: a request did not complete")
+    tokens = _check_outputs(tag, reqs, prompts, [c.output_ids for c in comps], bt.cfg.vocab_size,
+                            gamma=max(arms or (SERVE_GAMMA,)))
+    if eng.allocator.available_blocks != BLOCKS or eng.num_active or eng._pending:
+        raise AssertionError(f"{tag}: the pool did not end fully free")
+    acc = float(np.mean([c.details["acc_rate"] for c in comps]))
+    _check_serving(tag, acc, launches)
+    out = dict(tok_s=tokens / wall, wall_s=wall, tokens=tokens, acc_rate=acc, launches=launches,
+               peak_active=max(active), chunks=len(gammas),
+               chunks_by_gamma={g: gammas.count(g) for g in sorted(set(gammas))},
+               ramp=ramp, stats=eng.adaptive_stats())
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_adaptive(results, pair):
+    """Fixed gamma 8 against adaptive_gamma (4, 8, 16) in epoch mode on a
+    saturated uniform mix: the ramp epoch must rotate the arms in order
+    chunk by chunk (it closes with the first wave's 16 completions, which
+    may come before all three arms had a chunk), every arm must run, the
+    outputs be valid, acc_rate (over the drafts each request made) reach
+    0.6 and the pool end free. 16 rows of two pages commit the 32-page
+    pool exactly at overcommit 1.0."""
+    card = card_line()
+    runs = {"fixed": _adaptive_run(pair, None), "adaptive": _adaptive_run(pair, ADAPT_ARMS)}
+    for name, r in runs.items():
+        st = r["stats"]
+        log(f"[adaptive {name}] {r['tokens']} generated tokens in {r['wall_s']:.2f} s: "
+            f"{r['tok_s']:.2f} tok/s aggregate; acc_rate {r['acc_rate']:.4f}; peak active rows "
+            f"{r['peak_active']}; {r['chunks']} chunks by gamma {r['chunks_by_gamma']}; launches "
+            f"{r['launches']} ({card})")
+        if name == "adaptive":
+            log(f"[adaptive {name}] ramp chunks' gammas {r['ramp']}; epochs {st['epochs']}, phase "
+                f"{st['epoch_phase']}, incumbent {st['incumbent']}, gamma {st['gamma']}, acc_ema "
+                f"{st['acc_ema']:.4f}; epoch rates {st['epoch_rates']}; chunk rates "
+                f"{ {g: round(v, 1) for g, v in st['chunk_rates'].items()} }")
+            log(f"[adaptive {name}] epoch history {st['epoch_history']}")
+    ad = runs["adaptive"]
+    rotation = [ADAPT_ARMS[k % len(ADAPT_ARMS)] for k in range(len(ad["ramp"]))]
+    if not ad["ramp"] or ad["ramp"][:2 * len(ADAPT_ARMS)] != rotation[:2 * len(ADAPT_ARMS)]:
+        raise AssertionError(f"adaptive: the ramp ran {ad['ramp']}, not the arms in turn")
+    if set(ad["chunks_by_gamma"]) != set(ADAPT_ARMS):
+        raise AssertionError(f"adaptive: the arms run were {ad['chunks_by_gamma']}, not every arm")
+    results["adaptive"] = runs
+    results["launches"]["adaptive"] = {
+        k: sum(r["launches"][k] for r in runs.values()) for k in runs["fixed"]["launches"]}
+
+
 def phase_burst_trickle(results, pair, n_req: int = 8, tag: str = "burst_trickle"):
     """The same requests through one ``PagedEngine`` (the uniform mix's
     settings) once as a burst (one admission prefill of all of them) and
@@ -2456,8 +2816,8 @@ def main() -> int:
 
     timed(phase_device, _build)
     for phase in (phase_int8_matmul, phase_flash_decode, phase_flash_tree, phase_flash_algorithms,
-                  phase_paged_flash_decode, phase_paged_extend, phase_opt_int8_matmul,
-                  phase_opt_attention):
+                  phase_paged_flash_decode, phase_paged_extend, phase_paged_sarathi,
+                  phase_opt_int8_matmul, phase_opt_attention):
         timed(phase, results)
     for phase in (phase_forward, phase_paged_forward, phase_prefix_forward, phase_tree_forward,
                   phase_opt_forward, phase_fp8_forward, phase_loader):
@@ -2467,7 +2827,8 @@ def main() -> int:
         timed(phase, results, REPS, pair)
     timed(phase_serving, results, pair)
     timed(phase_burst_trickle, results, pair)
-    for phase in (phase_shared_prefix, phase_longgen, phase_hit_burst_trickle):
+    for phase in (phase_shared_prefix, phase_longgen, phase_hit_burst_trickle, phase_cold_mix,
+                  phase_adaptive):
         timed(phase, results, pair)
     del pair
     gc.collect()
@@ -2533,6 +2894,26 @@ def main() -> int:
                                launches=ext_launches.get(k["name"], 0),
                                **{key: calls * row[key] for key in ("ms", "plain_ms", "library_ms",
                                                                     "bound_ms")})
+    # the same numbers at the SARATHI path's widest verify (the cold mix at
+    # prefill_extra 8: 12 rows x 17), under "sarathi"; "launches" there: the
+    # cold mix's and the adaptive runs'
+    sar = results["sarathi"]["b3"]["cold_mix prefill_extra-8 verify"]
+    sarathi_rows = {
+        "int8_matmul": ("one cold_mix prefill_extra-8 verify forward: 281 calls at M=204",
+                        results["int8_matmul"]["sarathi"][SARATHI_TARGET_M[2]], 1,
+                        results["int8_matmul"]["max_abs_err"]),
+        "paged_flash_decode": ("one cold_mix prefill_extra-8 verify forward: 40 calls, B=12, "
+                               "Hkv=40, S_new=17, a staged row at length 0 and one mid-prompt, "
+                               "int8 pool", sar, 40, results["sarathi"]["b3_max_abs_err"]),
+    }
+    for k in kernels:
+        if k["name"] in sarathi_rows:
+            at, row, calls, err = sarathi_rows[k["name"]]
+            k["sarathi"] = dict(at=at, bound_by=row["bound_by"], max_abs_err=err,
+                                launches=by_path["cold_mix"][k["name"]]
+                                + by_path["adaptive"][k["name"]],
+                                **{key: calls * row[key] for key in ("ms", "plain_ms", "library_ms",
+                                                                     "bound_ms")})
     log(f"[smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

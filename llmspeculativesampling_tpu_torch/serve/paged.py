@@ -27,10 +27,24 @@ one packed metadata read per chunk, and harvested (pages freed) when done.
   registered page-aligned prefix (``cache/paged.py::SharedPageAllocator``)
   references those pages and computes only its suffix, in
   ``extend_chunk``-token windows through the paged decode path.
+* **SARATHI chunked prefill** (``chunked_prefill=True``): while some row is
+  decoding, a cold prompt whose uncached suffix exceeds ``extend_chunk``
+  is staged: only the draft is prefilled up front, in draft-only extend
+  windows, and the row enters the step loop at ``cur_len = cached + 1``
+  with ``prefill_to = p_len``. The decode rows' own verify passes then
+  compute its target KV, ``gamma + prefill_extra`` prompt tokens a step,
+  with its stream key frozen, so its decode stream is the monolithic
+  engine's. ``prefill_extra`` widens every verify window by that many
+  tokens. B3 takes windows of at most 32 new tokens
+  (``kernels/flash_decode.py``): ``gamma + 1 + prefill_extra`` or
+  ``extend_chunk`` above 32 sends those forwards to the plain path.
+* **Adaptive gamma** (``adaptive_gamma=(g1, g2, ...)``): the draft depth is
+  picked from measured throughput, per epoch of completed requests
+  (``adaptive_gamma_mode="epoch"``, the default) or per chunk
+  (``"chunk"``). Pages are sized for the deepest arm.
 
-Not ported yet, each raising ``NotImplementedError`` in the constructor:
-SARATHI chunked prefill (``chunked_prefill``, ``prefill_extra``), adaptive
-gamma (``adaptive_gamma``) and the data-parallel mesh (``mesh``).
+The data-parallel ``mesh`` is not ported yet and raises
+``NotImplementedError``.
 
 Differences from the JAX engine that do not change what it computes:
   * the host loop runs eagerly: a chunk ends early when no row is live by
@@ -44,7 +58,14 @@ Differences from the JAX engine that do not change what it computes:
     it has exhausted write into the pools' trash block (``cache/paged.py``)
     where JAX drops the write;
   * TTFT is stamped once the admission prefill (or the extend) has
-    finished on the device.
+    finished on the device; a staged row's when the host sees its prefill
+    complete, as in JAX;
+  * the adaptive-gamma controller's chunk wall is the gap between two
+    harvests while chunks run back to back (JAX: between two fetches of
+    its one-deep pipeline);
+  * a completion's ``acc_rate`` divides by the drafts the row made (each
+    chunk's steps times that chunk's gamma), where JAX takes the current
+    gamma for all of them: the same under a fixed gamma.
 """
 
 from __future__ import annotations
@@ -91,6 +112,11 @@ class PagedBatchState:
     active: torch.Tensor        # [B] bool
     done: torch.Tensor          # [B] bool
     target_len: torch.Tensor    # [B] int64
+    # rows with cur_len < prefill_to are still prefilling (SARATHI): each
+    # step their verify window carries the next prompt tokens through the
+    # batched target forward, they sample nothing and their stream key
+    # stays frozen. prefill_to == p_len for rows prefilled at admission.
+    prefill_to: torch.Tensor    # [B] int64
     accepted: torch.Tensor      # [B] int64
     resamples: torch.Tensor
     bonus: torch.Tensor
@@ -136,12 +162,16 @@ def _draft_phase_batched(bundle, params, scfg, gamma, tokens, cur_len, cache, ke
     return tokens, cache, q_stack, drafts, keys
 
 
-def _verify_phase_batched(bundle, params, scfg, gamma, tokens, cur_len, cache):
-    """One batched target forward over per-row windows of gamma+1 tokens ->
-    (p_stack [B, gamma+1, ...], cache')."""
+def _verify_phase_batched(bundle, params, scfg, gamma, tokens, cur_len, cache, extra: int = 0):
+    """One batched target forward over per-row windows of gamma+1+extra
+    tokens -> (p_stack [B, gamma+1+extra, ...], cache'). ``extra``
+    (prefill_extra) lets prefilling rows push gamma+extra prompt tokens a
+    step; a decode row's trailing ``extra`` positions carry junk whose KV
+    lands past its accepted length (rewritten before its length reaches
+    it) and whose distributions the caller drops."""
     cache = rollback_rows(cache, cur_len - 1)
-    logits, cache = bundle.forward(params, bundle.cfg, _rows_window(tokens, cur_len - 1, gamma + 1),
-                                   cache)
+    window = _rows_window(tokens, cur_len - 1, gamma + 1 + extra)
+    logits, cache = bundle.forward(params, bundle.cfg, window, cache)
     return dist_norm(logits, scfg), cache
 
 
@@ -154,19 +184,31 @@ def _gate(cache, ok: torch.Tensor):
 
 
 def _paged_spec_step(bundle_d, bundle_t, params_d, params_t, scfg, gamma, eos_token_id,
-                     state: PagedBatchState) -> PagedBatchState:
+                     state: PagedBatchState, prefill_extra: int = 0) -> PagedBatchState:
     """One speculative step of every row. Dead rows (inactive or done) run
     through the batched forwards too; their tables are gated to the
     sentinel for the step, so they cannot write into pages a live row owns
     (a harvested row's table still names freed blocks), and every field of
-    theirs keeps its value."""
+    theirs keeps its value.
+
+    Rows still prefilling (``cur_len < prefill_to``) have their draft table
+    gated too (the draft must not write its samples over their prefilled
+    draft KV) and their prompt restored into the verify window, which is
+    their prefill: they advance gamma+prefill_extra prompt tokens, record
+    no statistics and no ``done``, and keep their stream key, so their
+    decode draws are those of a row prefilled at admission."""
     tokens, cur_len = state.tokens, state.cur_len
     live = state.active & ~state.done
+    prefilling = cur_len < state.prefill_to
     tokens2, draft_cache, q_stack, drafts, keys = _draft_phase_batched(
-        bundle_d, params_d, scfg, gamma, tokens, cur_len, _gate(state.draft_cache, live),
-        state.key)
+        bundle_d, params_d, scfg, gamma, tokens, cur_len,
+        _gate(state.draft_cache, live & ~prefilling), state.key)
+    tokens2 = torch.where(prefilling[:, None], tokens, tokens2)
     p_stack, target_cache = _verify_phase_batched(
-        bundle_t, params_t, scfg, gamma, tokens2, cur_len, _gate(state.target_cache, live))
+        bundle_t, params_t, scfg, gamma, tokens2, cur_len, _gate(state.target_cache, live),
+        extra=prefill_extra)
+    if prefill_extra:
+        p_stack = dist_map(lambda a: a[:, :gamma + 1], p_stack)
     # the gates are per-step views: the carried caches keep the real tables
     draft_cache = dataclasses.replace(draft_cache, block_tables=state.draft_cache.block_tables)
     target_cache = dataclasses.replace(target_cache, block_tables=state.target_cache.block_tables)
@@ -175,13 +217,18 @@ def _paged_spec_step(bundle_d, bundle_t, params_d, params_t, scfg, gamma, eos_to
     u_t, keys = row_uniform(keys, dist_width(p_stack))
     tokens3, new_len, _, n, all_acc, acc_step = accept_phase_rows(
         gamma, tokens2, cur_len, q_stack, drafts, p_stack, r, u_t)
+    new_len = torch.where(prefilling, torch.minimum(cur_len + gamma + prefill_extra,
+                                                    state.prefill_to), new_len)
+    tokens3 = torch.where(prefilling[:, None], tokens, tokens3)
+    keys = torch.where(prefilling[:, None], state.key, keys)
 
     pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     new_mask = (pos >= cur_len[:, None]) & (pos < new_len[:, None])
-    done_now = (new_mask & (tokens3 == eos_token_id)).any(dim=1)
+    done_now = (new_mask & (tokens3 == eos_token_id)).any(dim=1) & ~prefilling
+    stats = live & ~prefilling
 
-    def sel(new, old):
-        return torch.where(live, new, old)
+    def sel(new, old, keep=live):
+        return torch.where(keep, new, old)
 
     col = state.steps.clamp(max=state.acc_len_hist.shape[1] - 1)
     hist = state.acc_len_hist.scatter(1, col[:, None], n[:, None])
@@ -194,35 +241,40 @@ def _paged_spec_step(bundle_d, bundle_t, params_d, params_t, scfg, gamma, eos_to
         active=state.active,
         done=sel(done_now | (new_len >= state.target_len), state.done),
         target_len=state.target_len,
-        accepted=sel(state.accepted + n, state.accepted),
-        resamples=sel(state.resamples + (~all_acc).long(), state.resamples),
-        bonus=sel(state.bonus + all_acc.long(), state.bonus),
-        steps=sel(state.steps + 1, state.steps),
-        acc_rate_sum=sel(state.acc_rate_sum + acc_step, state.acc_rate_sum),
-        acc_len_hist=torch.where(live[:, None], hist, state.acc_len_hist),
+        prefill_to=state.prefill_to,
+        accepted=sel(state.accepted + n, state.accepted, stats),
+        resamples=sel(state.resamples + (~all_acc).long(), state.resamples, stats),
+        bonus=sel(state.bonus + all_acc.long(), state.bonus, stats),
+        steps=sel(state.steps + 1, state.steps, stats),
+        acc_rate_sum=sel(state.acc_rate_sum + acc_step, state.acc_rate_sum, stats),
+        acc_len_hist=torch.where(stats[:, None], hist, state.acc_len_hist),
     )
 
 
 def _paged_chunk_body(params_d, params_t, state: PagedBatchState, *, bundle_d, bundle_t,
-                      gamma: int, scfg: SamplingConfig, eos_token_id: int, n_steps: int):
+                      gamma: int, scfg: SamplingConfig, eos_token_id: int, n_steps: int,
+                      prefill_extra: int = 0):
     """Up to ``n_steps`` steps; the chunk ends early once no row is live,
     read with one small device read (``live.any()``) before each step.
-    Returns (state, packed metadata)."""
+    Returns (state, packed metadata), the metadata with the chunk's
+    accepted-token and step deltas, which feed the adaptive-gamma
+    controller."""
+    a0, s0 = state.accepted.sum(), state.steps.sum()
     for _ in range(n_steps):
         if not bool((state.active & ~state.done).any()):
             break
         state = _paged_spec_step(bundle_d, bundle_t, params_d, params_t, scfg, gamma,
-                                 eos_token_id, state)
-    return state, _pack_chunk_meta(state)
+                                 eos_token_id, state, prefill_extra)
+    return state, _pack_chunk_meta(state, state.accepted.sum() - a0, state.steps.sum() - s0)
 
 
-def _pack_chunk_meta(state: PagedBatchState) -> torch.Tensor:
+def _pack_chunk_meta(state: PagedBatchState, acc_delta, step_delta) -> torch.Tensor:
     """Everything the host reads after a chunk, as one flat int32 vector
     (one device-to-host copy): [cur_len b | done b | steps b | accepted b |
-    resamples b | bonus b | acc_rate_sum (f32 bits) b | key b*2 |
-    acc_len_hist b*h | tokens b*t]. ``key`` is each row's evolved stream key
-    (both words below 2**32), which a preempted request resumes from. The
-    JAX layout also carries the adaptive-gamma deltas, not ported yet."""
+    resamples b | bonus b | acc_rate_sum (f32 bits) b | acc_delta 1 |
+    step_delta 1 | key b*2 | acc_len_hist b*h | tokens b*t], JAX's layout.
+    ``key`` is each row's evolved stream key (both words below 2**32),
+    which a preempted request resumes from."""
     def f(x):
         return x.to(torch.int32).reshape(-1)
 
@@ -230,6 +282,7 @@ def _pack_chunk_meta(state: PagedBatchState) -> torch.Tensor:
         f(state.cur_len), f(state.done), f(state.steps), f(state.accepted),
         f(state.resamples), f(state.bonus),
         state.acc_rate_sum.float().contiguous().view(torch.int32),
+        f(acc_delta), f(step_delta),
         f(state.key), f(state.acc_len_hist), f(state.tokens),
     ])
 
@@ -248,6 +301,7 @@ def _unpack_chunk_meta(pack: np.ndarray, b: int, h: int, t: int) -> dict:
         "cur_len": take(b), "done": take(b).astype(bool), "steps": take(b),
         "accepted": take(b), "resamples": take(b), "bonus": take(b),
         "acc_rate_sum": take(b).view(np.float32),
+        "acc_delta": int(take(1)[0]), "step_delta": int(take(1)[0]),
         "key": take(b * 2, (b, 2)).view(np.uint32).astype(np.int64),
         "acc_len_hist": take(b * h, (b, h)), "tokens": take(b * t, (b, t)),
     }
@@ -260,20 +314,25 @@ def _admit_tables(state: PagedBatchState, rows, tables) -> None:
         cache.lengths[rows] = 0
 
 
-def _install_state(state: PagedBatchState, rows, prompts, p_lens, max_news, keys) -> None:
+def _install_state(state: PagedBatchState, rows, prompts, p_lens, max_news, keys,
+                   cur0=None) -> None:
     """Install admitted rows' scheduler metadata (tokens, lengths, stream
-    keys, flags, zeroed counters) in place; ``cur_len`` starts at p_len."""
+    keys, flags, zeroed counters) in place. ``cur_len`` starts at ``cur0``
+    (default p_len); a staged row passes cached_len + 1 and enters the step
+    loop mid-prompt, ``prefill_to = p_len`` marking where its prefill ends."""
+    cur0 = p_lens if cur0 is None else cur0
     for cache in (state.draft_cache, state.target_cache):
-        cache.lengths[rows] = p_lens.to(torch.int32)
+        cache.lengths[rows] = cur0.to(torch.int32)
     tok_rows = torch.zeros((rows.shape[0], state.tokens.shape[1]), dtype=state.tokens.dtype,
                            device=state.tokens.device)
     tok_rows[:, :prompts.shape[1]] = prompts
     state.tokens[rows] = tok_rows
-    state.cur_len[rows] = p_lens
+    state.cur_len[rows] = cur0
     state.key[rows] = keys
     state.active[rows] = True
     state.done[rows] = False
     state.target_len[rows] = p_lens + max_news
+    state.prefill_to[rows] = p_lens
     for name in ("accepted", "resamples", "bonus", "steps", "acc_rate_sum", "acc_len_hist"):
         getattr(state, name)[rows] = 0
 
@@ -313,12 +372,26 @@ def _paged_extend_body(params_d, params_t, state: PagedBatchState, tables, lens_
     return state
 
 
+def _paged_draft_extend_body(params_d, state: PagedBatchState, tables, lens_now, window, *,
+                             bundle_d: ModelBundle) -> PagedBatchState:
+    """A draft-only extend window of a staged admission (SARATHI): the
+    target KV of a staged prompt is computed later, inside the decode
+    chunks' verify passes; the draft is prefilled up front through these
+    windows (``_paged_extend_body``'s, draft only, also planned
+    batch-invariant) so the row's first decode step has its whole prefix."""
+    view = dataclasses.replace(state.draft_cache, block_tables=tables, lengths=lens_now)
+    bundle_d.forward(params_d, bundle_d.cfg, window, view, batch_invariant=True)
+    return state
+
+
 def _paged_finalize_body(state: PagedBatchState, rows, tables, prompts, p_lens, max_news,
-                         keys) -> PagedBatchState:
+                         keys, cur0=None) -> PagedBatchState:
     """Install rows whose KV is already in the pools (prefix-cache hits after
-    their extend windows): the prefill's bookkeeping without its forwards."""
+    their extend windows) or whose target KV the decode chunks will compute
+    (staged rows, ``cur0`` < p_lens): the prefill's bookkeeping without its
+    forwards."""
     _admit_tables(state, rows, tables)
-    _install_state(state, rows, prompts, p_lens, max_news, keys)
+    _install_state(state, rows, prompts, p_lens, max_news, keys, cur0)
     return state
 
 
@@ -332,15 +405,6 @@ def _paged_maintain_body(state: PagedBatchState, tables, deact) -> PagedBatchSta
     state.active &= ~deact
     state.done |= deact
     return state
-
-
-# options of the JAX engine that later slices port (ROADMAP "Still to port")
-_NOT_YET = {
-    "chunked_prefill": "A14 step 5 (SARATHI chunked prefill)",
-    "prefill_extra": "A14 step 5 (SARATHI chunked prefill)",
-    "adaptive_gamma": "A14 step 6 (adaptive gamma)",
-    "mesh": "A16 (data-parallel mesh)",
-}
 
 
 class Admission(NamedTuple):
@@ -391,21 +455,20 @@ class PagedEngine:
         chunked_prefill: bool = False,
         prefill_extra: int = 0,
         adaptive_gamma=None,
+        adaptive_gamma_mode: str = "epoch",
         mesh=None,
         device=None,
     ):
-        later = dict(chunked_prefill=chunked_prefill, prefill_extra=prefill_extra,
-                     adaptive_gamma=adaptive_gamma, mesh=mesh)
-        for name, value in later.items():
-            if value:
-                raise NotImplementedError(
-                    f"PagedEngine({name}={value!r}) is not ported yet: ROADMAP {_NOT_YET[name]}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "PagedEngine(mesh=...) is not ported yet: ROADMAP A16 (data-parallel mesh)")
+        if adaptive_gamma_mode not in ("epoch", "chunk"):
+            raise ValueError(f"adaptive_gamma_mode={adaptive_gamma_mode!r}")
         self.device = resolve_device(device)
         self.bundle_d, self.params_d = bundle_d, unstack_layers(params_d)
         self.bundle_t, self.params_t = bundle_t, unstack_layers(params_t)
         self.batch_rows = batch_rows
         self.page = page
-        self.gamma = gamma
         self.eos_token_id = eos_token_id
         self.scfg = SamplingConfig(temperature, top_k, top_p)
         self.seed = seed
@@ -417,15 +480,50 @@ class PagedEngine:
         self.extend_chunk = int(extend_chunk)
         self.on_demand = bool(on_demand)
         self.overcommit = float(overcommit)
+        self.chunked_prefill = bool(chunked_prefill)
+        self.prefill_extra = int(prefill_extra)
+        self.interleaved_chunks = 0  # chunks that carried a row still prefilling
         max_pages = max_pages_per_req or num_blocks
         if max_pages > num_blocks:
             raise ValueError(f"max_pages_per_req={max_pages} exceeds the {num_blocks}-block pool")
         alloc_cls = SharedPageAllocator if self.prefix_cache else PageAllocator
         self.allocator = alloc_cls(num_blocks, page, max_pages)
         self.t_max = max_pages * page
+
+        # adaptive gamma (JAX serve/paged.py:774-874): the candidate depths,
+        # the per-chunk rates (the exploration prior and, in chunk mode, the
+        # choice) and the epoch controller's state. Epoch mode ramps on the
+        # shallowest arm, chunk mode starts on the middle one.
+        self._gamma_choices = tuple(sorted(adaptive_gamma)) if adaptive_gamma else None
+        self._ag_mode = adaptive_gamma_mode
+        self._acc_ema = None        # per-token acceptance estimate (reporting)
+        self._arm_rate: dict = {}   # gamma -> EMA committed tokens/s of its chunks
+        self._arm_visits: dict = {}
+        self._chunk_count = 0
+        self._chunk_arm = (gamma, 1)  # the running chunk's (gamma, live rows)
+        self._last_fetch_t: Optional[float] = None
+        self._ep_rate: dict = {}    # gamma -> EMA completed tok/s of its epochs
+        self._ep_size = max(batch_rows, 4)
+        self._ep_tokens = 0
+        self._ep_completions = 0
+        self._ep_start: Optional[float] = None
+        self._ep_phase = "ramp"     # ramp | explore | exploit | probe
+        self._ep_count = 0
+        self._ep_reprobe_every = 16
+        self._ep_wall_cap = 1.6
+        self._ep_hysteresis = 1.12
+        self._ep_incumbent = None
+        self._ramp_chunks = 0
+        self._ramp_rotations = 2
+        self._best_wall_pc = None
+        self._ep_history: list = []
+        self._resync = False        # hold admissions until a full wave is free
+        self.gamma = self._first_arm() if self._gamma_choices else gamma
+        # every worst-case size takes the deepest arm
+        self._gam_max = max(self._gamma_choices) if self._gamma_choices else gamma
         # a chunk's worst-case advance plus its verify overrun: the most a
         # row's length can pass its last known value by the chunk's end
-        self._chunk_runway = self.steps_per_sync * (gamma + 1) + gamma + 1
+        self._chunk_runway = self.steps_per_sync * (self._gam_max + 1) + self._gam_max + 1
 
         dev, b = self.device, batch_rows
 
@@ -446,6 +544,7 @@ class PagedEngine:
             active=zeros(b, dtype=torch.bool),
             done=torch.ones((b,), dtype=torch.bool, device=dev),
             target_len=torch.full((b,), self.t_max, dtype=torch.long, device=dev),
+            prefill_to=zeros(b),
             accepted=zeros(b), resamples=zeros(b), bonus=zeros(b), steps=zeros(b),
             acc_rate_sum=zeros(b, dtype=torch.float32),
             acc_len_hist=zeros(b, max_new_cap),
@@ -467,8 +566,78 @@ class PagedEngine:
         self._tables_dirty = False
         self._last_harvest: Optional[dict] = None
         self.preemptions = 0
+        # each row's steps at the last harvest and the drafts it made since
+        # admission (steps times each chunk's gamma): acc_rate's denominator
+        self._row_steps: list[int] = [0] * b
+        self._row_drafted: list[int] = [0] * b
+        # staged rows' prompt pages, registered in the prefix cache once
+        # their prefill completes: row -> (request, hashes, blocks)
+        self._pending_reg: dict = {}
+
+    def _first_arm(self) -> int:
+        arms = self._gamma_choices
+        return arms[0] if self._ag_mode == "epoch" else arms[len(arms) // 2]
 
     # --------------------------------------------------------------- interface
+    def warmup(self, prompt_lens=(8,)) -> None:
+        """Run JAX's warm-up traffic (``serve/paged.py::warmup``) before live
+        traffic: for each prompt length, admission waves of 1, 2, 4 and 8
+        requests and their chunks, each adaptive arm, a prefix-cache hit
+        and, with chunked prefill, a staged admission. Nothing is compiled
+        per shape here, but the first launches happen now: the kernels
+        build, B1 encodes its tensor maps, the allocator grows. Leaves the
+        gamma controller pristine and the rid sequence where it was."""
+        rng = np.random.default_rng(0)
+        rid0 = self._next_rid
+        rids = []
+        for g in self._gamma_choices or ():
+            self.gamma = g
+            rids.append(self.submit(rng.integers(2, 100, size=8), 2))
+            self.run_until_idle()
+        kbs = [kb for kb in (1, 2, 4, 8) if kb <= self.batch_rows] or [1]
+        for p_len in prompt_lens:
+            for kb in kbs:
+                rids += [self.submit(rng.integers(2, 100, size=max(int(p_len), 2)), 2)
+                         for _ in range(kb)]
+                self.run_until_idle()
+            if self.prefix_cache and int(p_len) >= self.page + 2:
+                same = rng.integers(2, 100, size=int(p_len))
+                for _ in range(2):
+                    rids.append(self.submit(same, 2))
+                    self.run_until_idle()
+        if self.chunked_prefill:
+            # staging engages only while some row decodes: park one that
+            # outlives a chunk (its budget above one chunk's worst-case
+            # advance, within max_new_cap, which submit would clamp it to),
+            # then submit a prompt longer than two extend windows
+            park_new = max(min(self.steps_per_sync * (self._gam_max + 1) + 8, self.max_new_cap,
+                               self.t_max - 8 - self._gam_max - 1), 2)
+            rids.append(self.submit(rng.integers(2, 100, size=8), park_new))
+            self.step()
+            rids.append(self.submit(rng.integers(2, 100, size=2 * self.extend_chunk + 2), 2))
+            self.run_until_idle()
+        for r in rids:
+            self.completions.pop(r, None)
+        if self._gamma_choices:
+            # reset after all warm-up traffic: its completions closed epochs
+            self._arm_rate.clear()
+            self._arm_visits.clear()
+            self._chunk_count = 0
+            self._acc_ema = None
+            self._ep_rate.clear()
+            self._ep_phase = "ramp"
+            self._ep_count = 0
+            self._best_wall_pc = None
+            self._ep_history = []
+            self._resync = False
+            self._ep_incumbent = None
+            self._ramp_chunks = 0
+            self._epoch_reset()
+            self._last_fetch_t = None
+            self.gamma = self._first_arm()
+        # the rid keys a request's stream: live traffic keeps its numbering
+        self._next_rid = rid0
+
     def submit(self, prompt_ids, max_new_tokens: int = 40) -> int:
         rid = self._next_rid
         self._next_rid += 1
@@ -482,9 +651,27 @@ class PagedEngine:
         if ids.shape[0] < 2:
             raise ValueError("prompt must have at least 2 tokens")
         max_new = min(int(max_new_tokens), self.max_new_cap)
-        if ids.shape[0] + max_new + self.gamma + 1 > self.t_max:
+        if ids.shape[0] + max_new + self._gam_max + 1 > self.t_max:
             raise ValueError("request exceeds max pages per request")
         self._pending.append(Request(rid, ids, max_new, time.perf_counter()))
+
+    def submit_request(self, req: Request) -> None:
+        """Enqueue a request as it stands, a resumable one from
+        :meth:`drain_requests` included: its committed tokens, evolved
+        stream key and counters carry on."""
+        self._pending.append(req)
+
+    def drain_requests(self) -> List[Request]:
+        """Empty the engine into resumable requests: preempt every running
+        row (each resumes from the last chunk's snapshot, or restarts when
+        it has run no step, as a row still prefilling has), then hand back
+        and clear the queue. Staged rows' pages are never registered."""
+        for row in range(self.batch_rows):
+            if self._row_req[row] is not None:
+                self._preempt_row(row)
+        out = list(self._pending)
+        self._pending.clear()
+        return out
 
     @property
     def num_active(self) -> int:
@@ -499,7 +686,7 @@ class PagedEngine:
         worst-case pages, this one's included, must stay within
         ``overcommit`` times the pool. Shared pages are charged to their
         first holder only."""
-        worst = p_len + req.max_new_tokens + self.gamma + 1
+        worst = p_len + req.max_new_tokens + self._gam_max + 1
         total = min(worst, p_len + 2 * self._chunk_runway) if self.on_demand else worst
         hashes = prompt_page_hashes(req.prompt, self.page) if self.prefix_cache else []
         if self.prefix_cache:
@@ -522,10 +709,20 @@ class PagedEngine:
     def _admit(self) -> None:
         """Admit queued requests in FIFO order while a row and their pages
         are free: batches of up to 8 of one prompt bucket within the prefill
-        token budget. A batch's misses take one prefill, its prefix-cache
-        hits their extend windows; the prompt pages of both are then
-        registered."""
+        token budget. With chunked prefill, while some row decodes, a
+        request whose uncached suffix exceeds ``extend_chunk`` is staged;
+        the rest take one prefill (misses) or their extend windows (hits),
+        and their prompt pages are registered at once. After an arm switch
+        of the epoch controller, admission holds until a full wave of rows
+        is free (``_resync``) and the epoch restarts there."""
         free_rows = [i for i, r in enumerate(self._row_req) if r is None]
+        if self._resync:
+            if len(free_rows) < min(self.batch_rows, len(self._pending)):
+                return
+            self._resync = False
+            self._ep_tokens = 0
+            self._ep_completions = 0
+            self._ep_start = None
         while free_rows and self._pending:
             batch: List[Admission] = []
             bucket = None
@@ -550,23 +747,68 @@ class PagedEngine:
                                        hashes))
             if not batch:
                 break
-            misses = [e for e in batch if e.cached_len == 0]
-            hits = [e for e in batch if e.cached_len > 0]
+            # staging protects decoding rows from a prompt forward's stall;
+            # with none decoding, the monolithic prefill is faster
+            decoding = any(r is not None and self._row_len[row] >= len(r.prompt)
+                           for row, r in enumerate(self._row_req))
+            inline, staged = [], []
+            for e in batch:
+                stage = (self.chunked_prefill and decoding
+                         and e.p_len - e.cached_len > self.extend_chunk)
+                (staged if stage else inline).append(e)
+            misses = [e for e in inline if e.cached_len == 0]
+            hits = [e for e in inline if e.cached_len > 0]
             if misses:
                 self._dispatch_prefill(misses)
             if hits:
                 self._dispatch_extend(hits)
+            if staged:
+                self._stage_admission(staged)
             now = time.perf_counter()
-            for e in batch:
+            for e in inline:
                 if e.req.prefill_time is None:  # a resumed request keeps its TTFT
                     e.req.prefill_time = now
-                e.req.cached_len = e.cached_len
-                self._row_req[e.row] = e.req
-                self._row_blocks[e.row] = e.blocks
-                self._row_len[e.row] = e.p_len
-                self._unharvested.add(e.row)
+                self._install_row(e, e.p_len)
                 if e.hashes:
                     self.allocator.register(e.hashes, e.blocks[:len(e.hashes)])
+
+    def _install_row(self, e: Admission, row_len: int) -> None:
+        """The host's bookkeeping of an admitted row. The admission installed
+        its state, so a deactivation still pending for the row's previous
+        request (one drained by ``drain_requests``) must not reach it."""
+        self._deact_rows.discard(e.row)
+        e.req.cached_len = e.cached_len
+        self._row_req[e.row] = e.req
+        self._row_blocks[e.row] = e.blocks
+        self._row_len[e.row] = row_len
+        self._row_steps[e.row] = 0
+        self._row_drafted[e.row] = 0
+        self._unharvested.add(e.row)
+
+    # ------------------------------------------------- SARATHI chunked prefill
+    def _stage_admission(self, batch: List[Admission]) -> None:
+        """Admit cold prompts that ride the decode chunks (JAX
+        ``_stage_admission``): the draft is prefilled now, in draft-only
+        extend windows; the rows are installed at ``cur_len = cached + 1``
+        (the +1 keeps the verify's rollback writes, at cur_len - 1, out of
+        shared pages) with ``prefill_to = p_len``, and the chunks' verify
+        passes compute their target KV. TTFT is stamped, and the prompt
+        pages registered, once ``_harvest`` sees the prefill complete."""
+        arrays, keys = self._admission_arrays(batch)
+        for j in range(self._extend_n_chunks(arrays)):
+            self._extend_window(arrays, j, draft_only=True)
+        _, _, _, p_lens, _, cached = arrays
+        cur0 = np.minimum(cached + 1, p_lens)
+        self._finalize_admission(arrays, keys, cur0)
+        for e, c0 in zip(batch, cur0):
+            self._install_row(e, int(c0))
+            if e.hashes:
+                self._pending_reg[e.row] = (e.req, e.hashes, list(e.blocks[:len(e.hashes)]))
+
+    def _n_prefilling(self) -> int:
+        """Rows still prefilling, as the host sees them."""
+        return sum(1 for row, req in enumerate(self._row_req)
+                   if req is not None and self._row_len[row] < len(req.prompt))
 
     # ------------------------------------------------------- on-demand paging
     def _ensure_runway(self) -> None:
@@ -581,7 +823,7 @@ class PagedEngine:
             if req is None:
                 continue
             need = min(self._row_len[row] + 2 * self._chunk_runway,
-                       len(req.prompt) + req.max_new_tokens + self.gamma + 1, self.t_max)
+                       len(req.prompt) + req.max_new_tokens + self._gam_max + 1, self.t_max)
             while (self._row_req[row] is not None
                    and len(self._row_blocks[row]) * self.page < need):
                 blk = self.allocator.alloc_one()
@@ -608,7 +850,9 @@ class PagedEngine:
         along, so the resumed run replays the preempted continuation, bit
         for bit when the prefill recomputes the decode path's KV bit for bit
         (fp32 on the CPU; on the card a low bit can flip a sample, the
-        distribution unchanged). A row without one restarts its request.
+        distribution unchanged). A row without one restarts its request, as
+        a staged row still prefilling does (it has run no step); its pages
+        are never registered.
 
         The chunk metadata is read synchronously, so the last snapshot is
         the end state of the chunk just run: JAX's row-generation guard
@@ -629,7 +873,7 @@ class PagedEngine:
                 "bonus": prev.get("bonus", 0) + int(hv["bonus"][row]),
                 "acc_rate_sum": prev.get("acc_rate_sum", 0.0) + float(hv["acc_rate_sum"][row]),
                 "acc_len": prev.get("acc_len", []) + hv["acc_len_hist"][row][:steps].tolist(),
-                "gamma_steps": prev.get("gamma_steps", 0) + steps * self.gamma,
+                "gamma_steps": prev.get("gamma_steps", 0) + self._row_drafted[row],
                 "prefix_cached_tokens": prev.get("prefix_cached_tokens", req.cached_len),
                 "target_total": prev.get("target_total", orig_plen + req.max_new_tokens),
             }
@@ -639,6 +883,7 @@ class PagedEngine:
                 prefill_time=req.prefill_time, resume_key=hv["key"][row].copy(), carry=carry,
                 orig_prompt_len=orig_plen)
         self.allocator.free(self._row_blocks[row])
+        self._pending_reg.pop(row, None)
         self._commit_pages -= self._row_commit[row]
         self._row_commit[row] = 0
         self._row_req[row] = None
@@ -703,11 +948,12 @@ class PagedEngine:
         _, _, _, p_lens, _, cached = arrays
         return int(max(-(-(p - c) // self.extend_chunk) for p, c in zip(p_lens, cached)))
 
-    def _extend_window(self, arrays, j: int) -> None:
-        """Window ``j`` of the hits' suffixes: the [KB, W] prompt tokens at
-        cached + j*W through both models. A row whose prompt is exhausted
-        carries the sentinel table; a shorter tail is padded, its KV written
-        past the prompt into the row's own pages (or the trash block)."""
+    def _extend_window(self, arrays, j: int, draft_only: bool = False) -> None:
+        """Window ``j`` of the suffixes: the [KB, W] prompt tokens at
+        cached + j*W through both models, or the draft alone for a staged
+        admission. A row whose prompt is exhausted carries the sentinel
+        table; a shorter tail is padded, its KV written past the prompt into
+        the row's own pages (or the trash block)."""
         _, tables, prompts, p_lens, _, cached = arrays
         w = self.extend_chunk
         lens_now = cached + j * w
@@ -718,13 +964,18 @@ class PagedEngine:
             take = min(w, int(p_lens[r]) - s0)
             window[r, :take] = prompts[r, s0:s0 + take]
         tabs = np.where(live[:, None], tables, self.allocator.num_blocks)
-        self.state = _paged_extend_body(
-            self.params_d, self.params_t, self.state, self._dev(tabs, torch.int32),
-            self._dev(np.where(live, lens_now, 0), torch.int32), self._dev(window),
-            bundle_d=self.bundle_d, bundle_t=self.bundle_t)
+        args = (self.state, self._dev(tabs, torch.int32),
+                self._dev(np.where(live, lens_now, 0), torch.int32), self._dev(window))
+        if draft_only:
+            self.state = _paged_draft_extend_body(self.params_d, *args, bundle_d=self.bundle_d)
+        else:
+            self.state = _paged_extend_body(self.params_d, self.params_t, *args,
+                                            bundle_d=self.bundle_d, bundle_t=self.bundle_t)
 
-    def _finalize_admission(self, arrays, keys) -> None:
-        self.state = _paged_finalize_body(self.state, *self._install_args(arrays, keys))
+    def _finalize_admission(self, arrays, keys, cur0=None) -> None:
+        self.state = _paged_finalize_body(
+            self.state, *self._install_args(arrays, keys),
+            None if cur0 is None else self._dev(cur0))
 
     def _dispatch_extend(self, batch: List[Admission]) -> None:
         """Prefix-cache hits: the first ``cached_len`` positions' KV already
@@ -736,24 +987,68 @@ class PagedEngine:
         self._finalize_admission(arrays, keys)
         synchronize(self.device)  # TTFT: the suffixes' KV is on the device
 
-    def _dispatch_chunk(self) -> dict:
+    def _dispatch_chunk(self) -> torch.Tensor:
+        """Run one chunk at the controller's gamma; returns its packed
+        metadata. In epoch mode the first dispatch opens the epoch, and the
+        ramp epoch rotates the arms chunk by chunk (``_ramp_rotations``
+        cycles), then settles on the best per-chunk rate."""
+        if self._gamma_choices and self._ag_mode == "epoch":
+            if self._ep_start is None:
+                self._ep_start = time.perf_counter()
+            if self._ep_phase == "ramp":
+                arms = self._gamma_choices
+                k = self._ramp_chunks
+                self._ramp_chunks = k + 1
+                if k < self._ramp_rotations * len(arms):
+                    self.gamma = arms[k % len(arms)]
+                else:
+                    self.gamma = max(arms, key=lambda g: self._arm_rate.get(g, float("-inf")))
+        self._chunk_arm = (self.gamma, max(self.num_active, 1))
         self.state, pack = _paged_chunk_body(
             self.params_d, self.params_t, self.state, bundle_d=self.bundle_d,
             bundle_t=self.bundle_t, gamma=self.gamma, scfg=self.scfg,
-            eos_token_id=self.eos_token_id, n_steps=self.steps_per_sync)
-        return _unpack_chunk_meta(pack.cpu().numpy(), self.batch_rows, self.max_new_cap,
-                                  self.t_max)
+            eos_token_id=self.eos_token_id, n_steps=self.steps_per_sync,
+            prefill_extra=self.prefill_extra)
+        return pack
+
+    def _meta_np(self, pack: torch.Tensor) -> dict:
+        """Read a chunk's packed metadata (the one device-to-host copy) and
+        feed the gamma controller: the chunk's accepted and step deltas and
+        its wall, the gap since the previous read (None after an idle step)
+        times the live rows, as JAX normalises it."""
+        hv = _unpack_chunk_meta(pack.cpu().numpy(), self.batch_rows, self.max_new_cap,
+                                self.t_max)
+        g, live = self._chunk_arm
+        now = time.perf_counter()
+        wall = None if self._last_fetch_t is None else max(now - self._last_fetch_t, 1e-9) * live
+        self._last_fetch_t = now
+        self._update_gamma(float(hv["acc_delta"]), float(hv["step_delta"]), g, wall)
+        return hv
 
     def _harvest(self, hv: dict) -> None:
         """Keep the chunk's snapshot (the rows' lengths for table growth, and
-        what a preempted row resumes from), complete the rows it finished,
-        merging a resumed request's carried counters, free their pages and
-        deactivate them."""
+        what a preempted row resumes from), stamp the TTFT of staged rows
+        whose prefill it completed and register their prompt pages, complete
+        the rows it finished, merging a resumed request's carried counters,
+        free their pages and deactivate them."""
         self._last_harvest = hv
         self._unharvested.clear()
+        g = self._chunk_arm[0]
         for i, r in enumerate(self._row_req):
-            if r is not None:
-                self._row_len[i] = int(hv["cur_len"][i])
+            if r is None:
+                continue
+            self._row_len[i] = int(hv["cur_len"][i])
+            steps = int(hv["steps"][i])
+            self._row_drafted[i] += (steps - self._row_steps[i]) * g
+            self._row_steps[i] = steps
+            if r.prefill_time is None and self._row_len[i] >= len(r.prompt):
+                r.prefill_time = time.perf_counter()
+        for row, (req, hashes, blocks) in list(self._pending_reg.items()):
+            if self._row_req[row] is not req:
+                del self._pending_reg[row]
+            elif self._row_len[row] >= len(req.prompt):
+                self.allocator.register(hashes, blocks)
+                del self._pending_reg[row]
         fin = [i for i, r in enumerate(self._row_req) if r is not None and hv["done"][i]]
         for row in fin:
             req = self._row_req[row]
@@ -765,11 +1060,12 @@ class PagedEngine:
             steps = int(hv["steps"][row])
             now = time.perf_counter()
             details = {
-                "ttft_s": req.prefill_time - req.submit_time,
+                "ttft_s": (req.prefill_time if req.prefill_time is not None else now)
+                - req.submit_time,
                 "latency_s": now - req.submit_time,
                 "acc_len": carry.get("acc_len", []) + hv["acc_len_hist"][row][:steps].tolist(),
                 "acc_rate": (carry.get("acc_rate_sum", 0.0) + float(hv["acc_rate_sum"][row]))
-                / max(carry.get("gamma_steps", 0) + steps * self.gamma, 1),
+                / max(carry.get("gamma_steps", 0) + self._row_drafted[row], 1),
                 "target_call_times": carry.get("steps", 0) + steps,
                 "approx_call_times": carry.get("steps", 0) + steps,
                 "accepted_count": carry.get("accepted", 0) + int(hv["accepted"][row]),
@@ -779,6 +1075,12 @@ class PagedEngine:
                 "prefix_cached_tokens": carry.get("prefix_cached_tokens", req.cached_len),
             }
             self.completions[req.rid] = Completion(req.rid, out, orig_plen, details)
+            if self._gamma_choices and self._ag_mode == "epoch" and not self._resync:
+                # this residency's tokens only: a resumed request's earlier
+                # ones belong to an earlier epoch; during the hold after an
+                # arm switch the drain belongs to no arm
+                self._ep_tokens += max(len(out) - p_len, 0)
+                self._ep_completions += 1
             self.allocator.free(self._row_blocks[row])
             self._commit_pages -= self._row_commit[row]
             self._row_commit[row] = 0
@@ -787,17 +1089,163 @@ class PagedEngine:
         if fin:
             self.state.active[torch.as_tensor(fin, device=self.device)] = False
 
+    # ---------------------------------------------------------- adaptive gamma
+    def _update_gamma(self, acc_delta: float, step_delta: float, used_gamma: int,
+                      wall: Optional[float]) -> None:
+        """Per-chunk feedback (JAX ``_update_gamma``): the acceptance
+        estimate (E[n] = a(1-a^g)/(1-a) inverted by bisection, for
+        reporting), each arm's EMA of committed tokens per chunk wall, and
+        in chunk mode the choice: every arm measured twice, then the best,
+        with the runner-up every 8th chunk."""
+        if not self._gamma_choices or step_delta <= 0:
+            return
+        mean_n = acc_delta / step_delta
+        g = used_gamma
+        lo, hi = 1e-4, 1.0 - 1e-4
+        for _ in range(30):
+            mid = 0.5 * (lo + hi)
+            if mid * (1.0 - mid**g) / (1.0 - mid) < mean_n:
+                lo = mid
+            else:
+                hi = mid
+        a = 0.5 * (lo + hi)
+        self._acc_ema = a if self._acc_ema is None else 0.7 * self._acc_ema + 0.3 * a
+        if wall and wall > 0:
+            # committed tokens ~= accepted + one bonus or resample a round
+            rate = (acc_delta + step_delta) / wall
+            prev = self._arm_rate.get(used_gamma)
+            self._arm_rate[used_gamma] = rate if prev is None else 0.6 * prev + 0.4 * rate
+            self._arm_visits[used_gamma] = self._arm_visits.get(used_gamma, 0) + 1
+        self._chunk_count += 1
+        if self._ag_mode == "epoch":
+            return  # the epoch controller alone picks the arm (_epoch_tick)
+        hungry = [g for g in self._gamma_choices if self._arm_visits.get(g, 0) < 2]
+        if hungry:
+            self.gamma = hungry[0]
+            return
+        ranked = sorted(self._gamma_choices, key=lambda g: self._arm_rate.get(g, float("-inf")),
+                        reverse=True)
+        self.gamma = ranked[1] if self._chunk_count % 8 == 0 and len(ranked) > 1 else ranked[0]
+
+    def _epoch_reset(self) -> None:
+        """Drop the open epoch's partial count (the engine went idle);
+        learned rates survive."""
+        self._ep_tokens = 0
+        self._ep_completions = 0
+        self._ep_start = None
+
+    def _epoch_tick(self) -> None:
+        """Epoch mode (JAX ``_epoch_tick``): close the epoch once a full row
+        turnover has completed (or, exploring, once its wall passes
+        ``_ep_wall_cap`` times the best pace), credit the arm with the
+        epoch's completed tokens per second (the ramp's arm-mixed epoch
+        credits none), and pick the next arm: unexplored arms no deeper than
+        the best per-chunk rate first, then the incumbent (a challenger
+        must beat it by ``_ep_hysteresis``), probing the others every
+        ``_ep_reprobe_every`` epochs. An arm switch holds admission until a
+        full wave of rows is free."""
+        if not self._gamma_choices or self._ag_mode != "epoch" or self._resync:
+            return
+        now = time.perf_counter()
+        if self._ep_start is None:
+            return  # no work dispatched yet (_dispatch_chunk opens it)
+        wall = now - self._ep_start
+        capped = (self._ep_phase in ("ramp", "explore", "probe")
+                  and self._best_wall_pc is not None
+                  and wall > self._ep_wall_cap * self._best_wall_pc * self._ep_size)
+        if self._ep_completions < self._ep_size and not capped:
+            return
+        rate = self._ep_tokens / max(wall, 1e-9)
+        ramp_mixed = self._ep_phase == "ramp"
+        self._ep_history.append({
+            "gamma": "mixed" if ramp_mixed else self.gamma,
+            "phase": self._ep_phase,
+            "completions": self._ep_completions,
+            "wall_s": round(wall, 3),
+            "tok_per_s": round(rate, 1),
+            "capped": capped,
+        })
+        if not ramp_mixed:
+            prev = self._ep_rate.get(self.gamma)
+            self._ep_rate[self.gamma] = rate if prev is None else 0.5 * prev + 0.5 * rate
+        if not capped and self._ep_completions > 0:
+            wpc = wall / self._ep_completions
+            if self._best_wall_pc is None or wpc < self._best_wall_pc:
+                self._best_wall_pc = wpc
+        self._ep_count += 1
+        prior = sorted(self._gamma_choices, key=lambda g: self._arm_rate.get(g, float("-inf")),
+                       reverse=True)
+        chunk_best = prior[0]
+        unexplored = [g for g in prior if g not in self._ep_rate
+                      and (g <= chunk_best or self._arm_rate.get(g) is None)]
+        prev_gamma = self.gamma
+        if unexplored:
+            self.gamma = unexplored[0]
+            self._ep_phase = "explore"
+        else:
+            ranked = sorted((g for g in self._gamma_choices if g in self._ep_rate),
+                            key=lambda g: self._ep_rate[g], reverse=True)
+            inc = self._ep_incumbent
+            if inc not in self._gamma_choices or inc not in self._ep_rate:
+                inc = ranked[0]
+            elif (ranked[0] != inc
+                  and self._ep_rate[ranked[0]] > self._ep_hysteresis * self._ep_rate[inc]):
+                inc = ranked[0]
+            self._ep_incumbent = inc
+            others = [g for g in prior if g != inc]
+            if others and self._ep_count % self._ep_reprobe_every == 0:
+                idx = (self._ep_count // self._ep_reprobe_every - 1) % len(others)
+                self.gamma = others[idx]
+                self._ep_phase = "probe"
+            else:
+                self.gamma = inc
+                self._ep_phase = "exploit"
+        if self.gamma != prev_gamma:
+            self._resync = True
+        self._ep_tokens = 0
+        self._ep_completions = 0
+        self._ep_start = now
+
+    def adaptive_stats(self) -> dict:
+        """A snapshot of the gamma controller."""
+        return {
+            "mode": self._ag_mode if self._gamma_choices else "fixed",
+            "gamma": self.gamma,
+            "incumbent": self._ep_incumbent if self._ep_incumbent is not None else self.gamma,
+            "acc_ema": self._acc_ema,
+            "epoch_rates": dict(self._ep_rate),
+            "chunk_rates": dict(self._arm_rate),
+            "epoch_phase": self._ep_phase,
+            "epochs": self._ep_count,
+            "epoch_history": list(self._ep_history),
+        }
+
+    # -------------------------------------------------------------------- loop
     def _prepare_chunk(self) -> None:
         self._admit()
         self._ensure_runway()
         self._flush_maintenance()
+
+    def _run_chunk(self) -> None:
+        if self._n_prefilling():
+            self.interleaved_chunks += 1
+        self._harvest(self._meta_np(self._dispatch_chunk()))
+        self._epoch_tick()
+
+    def _idle(self) -> None:
+        """Nothing runs: the open epoch and the chunk wall restart with the
+        next chunk."""
+        self._epoch_reset()
+        self._last_fetch_t = None
 
     def step(self) -> int:
         """Admit, grow tables, run one chunk, harvest. Returns the rows
         still busy."""
         self._prepare_chunk()
         if self.num_active:
-            self._harvest(self._dispatch_chunk())
+            self._run_chunk()
+        else:
+            self._idle()
         return self.num_active
 
     def run_until_idle(self, max_steps: int = 10_000) -> int:
@@ -806,8 +1254,9 @@ class PagedEngine:
         while steps < max_steps:
             self._prepare_chunk()
             if not self.num_active:
+                self._idle()
                 break
-            self._harvest(self._dispatch_chunk())
+            self._run_chunk()
             steps += 1
         return steps
 

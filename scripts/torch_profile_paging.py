@@ -78,7 +78,7 @@ def make_run(kind, pair, kw):
 
     engine._dispatch_prefill = timed("prefill", engine._dispatch_prefill)
     engine._dispatch_extend = timed("extend", engine._dispatch_extend)
-    engine._dispatch_chunk = timed("chunk", engine._dispatch_chunk)
+    engine._run_chunk = timed("chunk", engine._run_chunk)  # the chunk, its read and harvest
     active = []
     prepare = engine._prepare_chunk
 

@@ -206,8 +206,19 @@ def test_partial_result_and_submit_checks(pair):
     ("mesh", object()),
 ])
 def test_later_options_raise(pair, option, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(pair, **{option: value})
+    """Only the data-parallel mesh is left to a later slice; the options
+    ported since (chunked prefill, prefill_extra, adaptive gamma) build and
+    are kept."""
+    if option == "mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _engine(pair, **{option: value})
+        return
+    eng = _engine(pair, **{option: value})
+    kept = {"chunked_prefill": eng.chunked_prefill, "prefill_extra": eng.prefill_extra,
+            "adaptive_gamma": eng._gamma_choices}[option]
+    assert kept == value
+    with pytest.raises(ValueError, match="adaptive_gamma_mode"):
+        _engine(pair, **{option: value}, adaptive_gamma_mode="bandit")
 
 
 def test_reservation_without_on_demand_takes_the_worst_case(pair):
