@@ -40,7 +40,11 @@ Phases, each printing lines before the last:
      M = 80, 108, 204, 272 (16 x 5, 12 x 9, 12 x 17, 16 x 17); B3 at the
      adaptive arms' verifies (B=16 x Hkv 40 x S_new 5 / 17), the cold mix's
      (B=12 x 9 / 17 with a staged row at length 0 and one mid-prompt) and
-     the draft-only windows (KB 1 / 8 x Hkv 6 x 32, batch-invariant);
+     the draft-only windows (KB 1 / 8 x Hkv 6 x 32, batch-invariant). At the
+     slotted engine's shapes: B2 at B=16 slots over S_max 256 with per-slot
+     lengths that differ row to row (an idle slot at 1, split edges, one at
+     256 - 9), the target verify (Hkv 40 x S_new 9, int8 KV) and the draft
+     steps (Hkv 6 x S_new 1 / 2, dense), with the grid's block count;
   3. forward: logits of a 2-layer, full-width (5120) int8 Llama slice on the
      card with the kernels vs the same weights on the CPU with the plain
      versions, through a contiguous cache and through a paged int8 pool
@@ -55,7 +59,10 @@ Phases, each printing lines before the last:
      ``load_pretrained``, leaves and logits bit-equal to what was written;
      and prefix reuse: a 576-token prompt prefilled at once (the miss path)
      against 512 prefilled tokens plus two 32-token extend windows (the hit
-     path), the last logits and the suffix's KV within 3e-2;
+     path), the last logits and the suffix's KV within 3e-2; and SARATHI's
+     staged prefill: a 960-token prompt prefilled at once against the same
+     prompt staged through 120 verify windows of 9 tokens (B1 planned from
+     M, B3 over the pages), the last logits and the prompt's KV within 3e-2;
   4. single-stream path: the 13B-shaped int8 target + 768-wide int8 draft,
      born on the card from a seed; autoregressive and speculative decoding
      with bench.py's settings (64-token prompt, 128 new tokens, gamma=24,
@@ -84,7 +91,15 @@ Phases, each printing lines before the last:
      requests' TTFT, ``interleaved_chunks`` (0 monolithic, fewer at
      prefill_extra 8), B3 in the draft-only windows; and fixed gamma 8
      against ``adaptive_gamma=(4, 8, 16)`` on 96 uniform requests (16 rows
-     of two pages): the ramp must run every arm; ``adaptive_stats()``;
+     of two pages): the ramp must run every arm; ``adaptive_stats()``. Then
+     the slotted path: the same pair through ``ContinuousBatchingEngine``
+     behind ``BatchedInferenceServer`` with ``scripts/bench_serving.py
+     --config 13b --max_total_len 256 --gamma 8 --num_slots 16 --kv_int8
+     --steps_per_sync 8``'s settings (16 slots x 256 positions, int8 KV
+     target), after ``warmup()``: 24 x (64, 64) from threads and one over
+     HTTP; tok/s, TTFT, chunks and host ms a chunk beside the paged uniform
+     mix; acc_rate >= 0.6, B1 and B2 launched and B3 not; then 8 requests
+     as a burst and one at a time, whose ids must be equal;
   6. tree/beam path: the same pair through multi iid (width 4), beam v1 and
      beam v2 (4 beams) with ``scripts/bench_beam.py --thirteen_b``'s
      settings (gamma 4, 64 new tokens); B2 must serve every tree verify,
@@ -110,8 +125,9 @@ Phases, each printing lines before the last:
      the paged path and B3 not on the others;
   9. a ``{"kernels": [...]}`` line (each kernel also with its numbers at the
      OPT path's shapes, under "opt", and B1 and B3 at the extend window's,
-     under "extend", and at the cold mix's 12 x 17 verify, under
-     "sarathi"), the card line again, and as the last
+     under "extend", at the cold mix's 12 x 17 verify, under "sarathi",
+     and B1 and B2 at the slotted verify, under "slotted"), the card line
+     again, and as the last
      line ``{"ok": true, "device": {...}}``. Each phase prints its seconds.
 Any failed check raises: the script exits non-zero and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -185,6 +201,12 @@ COLD_ROWS, COLD_SYNC, COLD_LEN, COLD_NEW, COLD_N, COLD_EXTRA = 12, 4, 960, 32, 3
 ADAPT_ARMS, ADAPT_N, ADAPT_PAGES = (4, 8, 16), 96, 2
 SARATHI_TARGET_M = (ROWS * (ADAPT_ARMS[0] + 1), COLD_ROWS * (SERVE_GAMMA + 1),
                     COLD_ROWS * (SERVE_GAMMA + 1 + COLD_EXTRA), ROWS * (ADAPT_ARMS[2] + 1))
+# the slotted engine (scripts/bench_serving.py --config 13b --max_total_len 256
+# --gamma 8 --num_slots 16 --kv_int8 --steps_per_sync 8): 16 slots of 256
+# positions, the paged uniform cell's 4,096-position KV budget; 24 requests of
+# 64-token prompts and 64 new tokens after warmup(). Its verify is B1 at
+# M = 16 x 9 = 144 (the paged serving verify's) and B2 at B=16 x Hkv 40 x 9
+SLOTS, SLOT_LEN, SLOT_N, SLOT_NEW = 16, 256, 24, 64
 
 
 def log(*a):
@@ -501,8 +523,8 @@ def phase_flash_decode(results):
         p = plan(1, hkv, s_new, S_MAX)
         log(f"[flash_decode] {what}: {'int8-KV' if quant else 'dense'} Hkv={hkv} S_new={s_new} "
             f"len={length} plan ps={p.ps} blocks={p.blocks(1, hkv)}: kernel_ms {t_k:.4f} "
-            f"plain_ms {t_p:.4f} library_ms {'n/a' if t_l is None else f'{t_l:.4f}'} "
-            f"(F.scaled_dot_product_attention over [0,len) + block, dense only) "
+            f"plain_ms {t_p:.4f} library_ms {t_l:.4f} "
+            f"(F.scaled_dot_product_attention over [0,len) + block; int8: a dequantized view) "
             f"bound_us {b_ms * 1e3:.2f} ({b_by}) bound share {b_ms / t_k:.3f}; "
             f"{n_sets} input sets rotated")
         if what == "single verify" and not quant:
@@ -537,11 +559,12 @@ def _rows_inputs(gen, b, hkv, s_new, quant, lens, tree):
 
 
 def _time_flash(gen, hkv, s_new, lens, quant=False, tree=False):
-    """Kernel, plain and (dense only) SDPA times of B2 at B = len(lens) rows
-    (see :func:`_rows_inputs`). Inputs rotate through > L2 bytes and are
+    """Kernel, plain and SDPA times of B2 at B = len(lens) rows (see
+    :func:`_rows_inputs`). Inputs rotate through > L2 bytes and are
     contiguous, so that only the kernel runs inside the timed graph; SDPA
     attends [0, max len) + the block under a float mask (-inf past a row's
-    length, the causal or tree bias on the block)."""
+    length, the causal or tree bias on the block), over a dequantized bf16
+    view of an int8 cache (made untimed)."""
     import torch.nn.functional as F
 
     from llmspeculativesampling_tpu_torch.kernels.flash_decode import (
@@ -564,23 +587,24 @@ def _time_flash(gen, hkv, s_new, lens, quant=False, tree=False):
         q, kn, vn, kc, vc, lengths, bias, ks, vs = sets[i % len(sets)]
         return flash_decode_ref(q, kn, vn, kc, vc, lengths, bias, scale=1.0, k_scales=ks, v_scales=vs)
 
-    t_k, t_p, t_l = time_ms(kern, 50), time_ms(plain, 20), None
-    if not quant:
-        width = max(lens)
-        lib_sets = []
-        for q, kn, vn, kc, vc, lengths, bias, _, _ in sets:
-            pre = torch.arange(width, device="cuda")[None, None, :] < lengths[:, None, None]
-            pre = torch.where(pre, 0.0, float("-inf")).expand(b, s_new, width)
-            mask = torch.cat([pre, torch.where(bias == 0, 0.0, float("-inf"))], dim=2)[:, None]
-            lib_sets.append((q, torch.cat([kc[:, :, :width], kn], 2),
-                             torch.cat([vc[:, :, :width], vn], 2), mask.contiguous()))
+    t_k, t_p = time_ms(kern, 50), time_ms(plain, 20)
+    width = max(max(lens), 1)
+    lib_sets = []
+    for q, kn, vn, kc, vc, lengths, bias, ks, vs in sets:
+        if quant:  # a dequantized view, made untimed
+            kc, vc = kc.float() * ks[..., None], vc.float() * vs[..., None]
+        pre = torch.arange(width, device="cuda")[None, None, :] < lengths[:, None, None]
+        pre = torch.where(pre, 0.0, float("-inf")).expand(b, s_new, width)
+        mask = torch.cat([pre, torch.where(bias == 0, 0.0, float("-inf"))], dim=2)[:, None]
+        lib_sets.append((q, torch.cat([kc[:, :, :width].to(q.dtype), kn], 2),
+                         torch.cat([vc[:, :, :width].to(q.dtype), vn], 2), mask.contiguous()))
 
-        def lib(i):
-            q, k_all, v_all, mask = lib_sets[i % len(lib_sets)]
-            return F.scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask, scale=1.0)
+    def lib(i):
+        q, k_all, v_all, mask = lib_sets[i % len(lib_sets)]
+        return F.scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask, scale=1.0)
 
-        t_l = time_ms(lib, 50)
-        del lib_sets
+    t_l = time_ms(lib, 50)
+    del lib_sets
     b_ms, b_by = _flash_bound(hkv, s_new, sum(lens), quant, rows=b)
     n = len(sets)
     del sets
@@ -680,6 +704,61 @@ def phase_flash_algorithms(results):
         rows[f"{what} B={b}"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                                      bound_by=b_by)
     results["flash_decode_algorithms"] = dict(max_abs_err=worst, per_call=rows)
+
+
+def _slot_lens(s_new):
+    """Per-slot lengths of a slotted call (B=16 over S_max 256): an idle
+    slot (cur_len 2: its verify rolls back to 1), slots on the edges of 64-
+    and 128-position splits, mid-run slots and one at the last start the
+    cache takes (S_max - S_new)."""
+    return [1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 70, 100, 150, 200, 230, S_MAX - s_new]
+
+
+def phase_flash_slotted(results):
+    """B2 at the slotted engine's shapes, per-slot lengths that differ row
+    to row (:func:`_slot_lens`): the target verify (B=16 x Hkv 40 x S_new
+    9, int8 KV, and bf16 as a check) and the draft steps (B=16 x Hkv 6 x
+    S_new 1 and 2, dense). The grid follows S_max, not the live lengths
+    (ROADMAP B-queue item 1): every call launches the blocks of 256
+    positions a slot."""
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import (
+        flash_decode_attention, flash_decode_ref, plan)
+
+    card = card_line()
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rtol = atol = 2.0 ** -7
+    s9 = SERVE_GAMMA + 1
+    shapes = [("slotted target verify", 40, s9, True), ("slotted draft step", 6, 1, False),
+              ("slotted draft re-feed", 6, 2, False)]
+    log(f"[slotted B2] tolerance as [flash_decode]: {atol:.2e} + {rtol:.2e}*|plain| (one bf16 ulp), "
+        "each case bit-identical across a repeat and contiguous inputs, one launch a call, "
+        "counters 0")
+    worst, rows = 0.0, {}
+    cases = [(what, hkv, s_new, q) for what, hkv, s_new, q in shapes]
+    cases.append(("slotted target verify", 40, s9, False))
+    for what, hkv, s_new, quant in cases:
+        lens = _slot_lens(s_new)
+        q, kn, vn, kc, vc, lengths, bias, ks, vs = _rows_inputs(gen, SLOTS, hkv, s_new, quant,
+                                                               lens, False)
+        max_abs, _ = _check_case(
+            f"flash_decode {what} quant={quant} B={SLOTS} Hkv={hkv} S_new={s_new} len={lens}",
+            flash_decode_attention, flash_decode_ref, (q, kn, vn, kc, vc, lengths, bias),
+            dict(scale=1.0, k_scales=ks, v_scales=vs), rtol, atol)
+        worst = max(worst, max_abs)
+    for what, hkv, s_new, quant in shapes:
+        lens = _slot_lens(s_new)
+        t_k, t_p, t_l, b_ms, b_by, n_sets = _time_flash(gen, hkv, s_new, lens, quant)
+        p = plan(SLOTS, hkv, s_new, S_MAX)
+        rows[what] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                          blocks=p.blocks(SLOTS, hkv), live=sum(lens))
+        log(f"[slotted B2] {what}: {'int8-KV' if quant else 'dense'} B={SLOTS} Hkv={hkv} "
+            f"S_new={s_new} over S_max {S_MAX}, {sum(lens)} live positions (plan ps={p.ps} "
+            f"blocks={p.blocks(SLOTS, hkv)}: the grid covers S_max, not the live lengths): kernel_ms "
+            f"{t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} (F.scaled_dot_product_attention, "
+            f"causal as a float mask; int8: a dequantized view) bound_us {b_ms * 1e3:.2f} ({b_by}) "
+            f"bound share {b_ms / t_k:.3f}; {n_sets} input sets rotated ({card})")
+    log(f"[slotted B2] {len(cases)} cases within tolerance, worst max_abs_err {worst:.3e}")
+    results["slotted_b2"] = dict(per_call=rows, max_abs_err=worst)
 
 
 def _paged_inputs(gen, lens, hq, hkv, s_new, d, page, p_max, quant, tree=False,
@@ -1409,6 +1488,68 @@ def phase_prefix_forward():
     del pt
 
 
+def phase_sarathi_forward():
+    """SARATHI's staged prefill against the admission prefill, on the
+    2-layer 5120-wide int8 slice with a paged int8 pool: one 960-token
+    prompt prefilled at once (B1's batch-invariant plan, block-only
+    attention) and the same prompt staged through the verify windows a
+    staged row rides (gamma + 1 = 9 tokens at cur_len - 1 = 0, 8, ..., 952;
+    B1 planned from M, B3 over the pages). The last position's logits and
+    the prompt's KV must agree within _hold_logits's 3e-2; the deltas are
+    printed."""
+    import dataclasses
+
+    from llmspeculativesampling_tpu_torch.cache.paged import init_paged_cache
+    from llmspeculativesampling_tpu_torch.core.synthetic import synthetic_pair_int8
+    from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
+        gather_pages, paged_flash_decode_attention)
+
+    _, _, bt, pt = synthetic_pair_int8(num_layers=2, draft_layers=2, seed=12, device="cuda")
+    cfg = bt.cfg
+    w = SERVE_GAMMA + 1
+    n_pages = -(-(COLD_LEN + w) // PAGE)
+    table = torch.tensor([[(5 * i + 3) % n_pages for i in range(n_pages)]], dtype=torch.int32,
+                         device="cuda")
+    tokens = torch.zeros((1, n_pages * PAGE), dtype=torch.long, device="cuda")
+    tokens[:, :COLD_LEN] = torch.as_tensor(
+        np.random.default_rng(13).integers(100, 31000, (1, COLD_LEN)), device="cuda")
+
+    def pool():
+        cache = init_paged_cache(cfg.num_layers, n_pages, cfg.num_kv_heads, PAGE, cfg.head_dim, 1,
+                                 n_pages, quant=True, device="cuda")
+        return dataclasses.replace(cache, block_tables=table)
+
+    def at(cache, length):
+        return dataclasses.replace(cache, lengths=torch.tensor([length], dtype=torch.int32,
+                                                                device="cuda"))
+
+    mono = pool()
+    logits_mono, _ = bt.forward(pt, cfg, tokens[:, :COLD_LEN], at(mono, 0), paged_prefill=True)
+    staged = pool()
+    launches = paged_flash_decode_attention.launches
+    starts = range(0, COLD_LEN - 1, SERVE_GAMMA)
+    for st in starts:
+        logits_st, _ = bt.forward(pt, cfg, tokens[:, st:st + w], at(staged, st))
+    torch.cuda.synchronize()
+    if paged_flash_decode_attention.launches - launches != len(starts) * cfg.num_layers:
+        raise AssertionError("the staged windows did not take the paged kernel")
+    _hold_logits(f"[sarathi forward] 2-layer 5120-wide int8, int8 pool, position {COLD_LEN - 1}: "
+                 f"{len(starts)} staged verify windows of {w} vs a monolithic {COLD_LEN}-token "
+                 "prefill", logits_st[:, COLD_LEN - 1 - starts[-1]].float().cpu(),
+                 logits_mono[:, -1].float().cpu())
+    for name in ("k", "v"):
+        deq = [torch.stack([(gather_pages(q_l, table).float() * gather_pages(s_l, table)[..., None])
+                            [..., :COLD_LEN, :] for q_l, s_l in zip(getattr(c, name + "_q"),
+                                                                    getattr(c, name + "_s"))]).cpu()
+               for c in (staged, mono)]
+        rel = float((deq[0] - deq[1]).abs().max() / deq[1].abs().max())
+        log(f"[sarathi forward] prompt {name} (positions 0-{COLD_LEN - 1}, both layers): "
+            f"max|staged-monolithic|/max|monolithic| {rel:.2e} (tol 3e-2)")
+        if not rel <= 3e-2:
+            raise AssertionError(f"sarathi forward: the staged prompt's {name} disagrees")
+    del pt
+
+
 def phase_tree_forward():
     """A tree forward (4 rows x 17 tokens: ``positions`` and ``tree_mask``
     as ``tree_verify`` builds them, so B2 runs under the ancestor bias) of
@@ -1471,13 +1612,12 @@ def phase_tree_forward():
             _, _, path_nodes, _ = backtrack_path(parents, nodes.reshape(TREE_GAMMA, TREE_BEAMS),
                                                  parent, max_l, TREE_GAMMA, TREE_BEAMS)
             valid = (torch.arange(TREE_GAMMA) < max_l)[None].expand(rows, TREE_GAMMA)
+            bufs = [f.name for f in dataclasses.fields(src) if f.name not in ("length", "lengths")]
             got = compact_tree_paths(
-                dataclasses.replace(src, **{f.name: getattr(src, f.name).cuda().clone()
-                                            for f in dataclasses.fields(src) if f.name != "length"}),
+                dataclasses.replace(src, **{b: getattr(src, b).cuda().clone() for b in bufs}),
                 path_nodes.cuda(), valid.cuda(), cur_len)
             ref = compact_tree_paths(
-                dataclasses.replace(src, **{f.name: getattr(src, f.name).cpu().clone()
-                                            for f in dataclasses.fields(src) if f.name != "length"}),
+                dataclasses.replace(src, **{b: getattr(src, b).cpu().clone() for b in bufs}),
                 path_nodes, valid, cur_len)
             if got.length != ref.length or not all(
                     torch.equal(a.cpu(), b) for a, b in zip(kv_buffers(got), kv_buffers(ref))):
@@ -2703,6 +2843,163 @@ def phase_serving(results, pair):
         for name in serving["uniform"]["launches"]}
 
 
+def _slotted_engine(pair):
+    """A ``ContinuousBatchingEngine`` with scripts/bench_serving.py's settings
+    for the 13B config: 16 slots of 256 positions, int8 KV target, gamma 8,
+    steps_per_sync 8, max_new_cap 64."""
+    import dataclasses
+
+    from llmspeculativesampling_tpu_torch.serve.scheduler import ContinuousBatchingEngine
+
+    bd, pd, bt, pt = pair
+    return ContinuousBatchingEngine(
+        bd, pd, dataclasses.replace(bt, kv_quant=True), pt, num_slots=SLOTS,
+        max_total_len=SLOT_LEN, max_new_cap=SLOT_NEW, gamma=SERVE_GAMMA, eos_token_id=2,
+        temperature=1.0, top_k=20, top_p=0.9, steps_per_sync=SYNC, device="cuda")
+
+
+def phase_slotted(results, pair):
+    """The slotted serving path: ``BatchedInferenceServer`` over the
+    slotted engine (scripts/bench_serving.py --config 13b --max_total_len
+    256 --gamma 8 --num_slots 16 --kv_int8 --steps_per_sync 8), after
+    ``warmup()``; 24 requests of 64-token prompts and 64 new tokens from
+    client threads and one more over HTTP on a loopback port. Checks every
+    output, acc_rate >= 0.6, B1 and B2 launched and B3 not; prints tok/s,
+    TTFT, latency, chunks and host ms a chunk, and the paged uniform mix of
+    this run beside it (the same 4,096-position KV budget)."""
+    import threading
+    import urllib.request
+
+    from llmspeculativesampling_tpu_torch.serve.server import (
+        BatchedInferenceServer, InferenceServer, ServerConfig, make_http_server)
+
+    bd, pd, bt, pt = pair
+    card = card_line()
+    engine = _slotted_engine(pair)
+    t0 = time.perf_counter()
+    engine.warmup(prompt_len=64)
+    torch.cuda.synchronize()
+    log(f"[slotted] warmup() {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(100, 31000, 64).astype(np.int32) for _ in range(SLOT_N)]
+    prompts.append(prompts[0])  # the HTTP request repeats the first prompt
+    reqs = [(64, SLOT_NEW)] * len(prompts)
+    base = InferenceServer(bd, pd, engine.bundle_t, pt, config=ServerConfig(
+        num_tokens=SLOT_NEW, top_k=20, top_p=0.9, gamma=SERVE_GAMMA, eos_token_id=2),
+        device="cuda")
+    server = BatchedInferenceServer(base, engine=engine)
+    details, prefills, chunk_ms = [], [], []
+    take, prefill, chunk = engine.result, engine._dispatch_prefill, engine._dispatch_chunk
+
+    def result(rid):
+        comp = take(rid)
+        details.append(comp.details)
+        return comp
+
+    def dispatch_prefill(batch, bucket):
+        prefills.append(len(batch))
+        return prefill(batch, bucket)
+
+    def dispatch_chunk():
+        t = time.perf_counter()
+        out = chunk()
+        out = out.cpu()  # the harvest's one read: the chunk's wall ends here
+        chunk_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    engine.result, engine._dispatch_prefill = result, dispatch_prefill
+    engine._dispatch_chunk = dispatch_chunk
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    http_thread.start()
+    outs = [None] * len(prompts)
+
+    def call(i):
+        _, outs[i] = server.process_request({"prompt_ids": prompts[i].tolist(),
+                                             "max_tokens": SLOT_NEW})
+
+    def call_http(i):
+        body = json.dumps({"prompt_ids": prompts[i].tolist(), "max_tokens": SLOT_NEW}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/predict",
+                                     data=body, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            outs[i] = np.asarray(json.loads(r.read())["output_ids"])
+
+    reset_launches()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=call_http if i == len(prompts) - 1 else call, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    httpd.shutdown()
+    httpd.server_close()
+    server.shutdown()
+    http_thread.join(timeout=10)
+    if any(t.is_alive() for t in threads) or http_thread.is_alive():
+        raise AssertionError("slotted: a client thread did not finish")
+    gen_tokens = _check_outputs("slotted", reqs, prompts, outs, bt.cfg.vocab_size)
+    if engine.num_active or engine._pending:
+        raise AssertionError("slotted: the engine did not drain")
+    acc = float(np.mean([d["acc_rate"] for d in details]))
+    snap = base.stats.snapshot()
+    log(f"[slotted {SLOTS}x{SLOT_LEN}] {len(prompts)} requests, {gen_tokens} generated tokens in "
+        f"{wall:.2f} s: {gen_tokens / wall:.2f} tok/s aggregate, TTFT p50 {snap['ttft_p50_s']} s "
+        f"p95 {snap['ttft_p95_s']} s, latency p50 {snap['latency_p50_s']} s (ServerStats), "
+        f"{len(chunk_ms)} chunks of up to {SYNC} steps, host ms a chunk p50 "
+        f"{_pct(chunk_ms, 50):.1f} max {max(chunk_ms):.1f}, acc_rate {acc:.4f} ({card})")
+    log(f"[slotted] requests per admission prefill, in order: {prefills}; launches {launches}")
+    if acc < 0.6:
+        raise AssertionError(f"slotted: acceptance {acc:.3f} < 0.6: a kernel is likely wrong")
+    if launches["int8_matmul"] <= 0 or launches["flash_decode"] <= 0:
+        raise AssertionError("slotted: B1 or B2 was not launched on the slotted path")
+    if launches["paged_flash_decode"] != 0:
+        raise AssertionError("slotted: B3 ran on the slotted path")
+    paged = results["serving"]["uniform"]
+    log(f"[slotted vs paged] paged/slotted throughput {paged['tok_s'] / (gen_tokens / wall):.2f}x "
+        f"({paged['tok_s']:.2f} / {gen_tokens / wall:.2f} tok/s), TTFT p50 slotted/paged "
+        f"{snap['ttft_p50_s'] / paged['ttft_p50_s']:.2f}x; the same 4,096-position KV budget "
+        f"(paged: {BLOCKS} blocks of {PAGE} over {ROWS} rows, 25 x (64, 48); slotted: {SLOTS} x "
+        f"{SLOT_LEN}, 25 x (64, {SLOT_NEW})); this run ({card})")
+    results["slotted"] = dict(tok_s=gen_tokens / wall, wall_s=wall, tokens=gen_tokens,
+                              acc_rate=acc, chunks=len(chunk_ms), chunk_ms_p50=_pct(chunk_ms, 50),
+                              **{k: snap[k] for k in ("latency_p50_s", "ttft_p50_s",
+                                                      "ttft_p95_s")})
+    results["launches"]["slotted"] = launches
+    engine.result, engine._dispatch_prefill = take, prefill
+    engine._dispatch_chunk = chunk
+    _slotted_burst_trickle(engine)
+    del engine, server, base
+    torch.cuda.empty_cache()
+
+
+def _slotted_burst_trickle(engine, n_req: int = 8):
+    """8 requests through the slotted engine as a burst (one admission
+    prefill of all of them) and one at a time, under the same rids (so the
+    same per-request streams): the output ids must be equal. Every decode
+    step runs all 16 slots, whoever holds them."""
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(100, 31000, 64).astype(np.int32) for _ in range(n_req)]
+    rid0 = engine._next_rid
+    burst = [engine.submit(p, 48) for p in prompts]
+    engine.run_until_idle()
+    burst = [engine.result(r).output_ids for r in burst]
+    engine._next_rid = rid0
+    trickle = []
+    for p in prompts:
+        rid = engine.submit(p, 48)
+        engine.run_until_idle()
+        trickle.append(engine.result(rid).output_ids)
+    diff = [i for i, (a, b) in enumerate(zip(burst, trickle)) if not np.array_equal(a, b)]
+    log(f"[slotted burst vs trickle] {n_req - len(diff)}/{n_req} requests give identical output "
+        f"ids ({sum(len(o) - 64 for o in burst)} generated tokens in the burst)")
+    if diff:
+        raise AssertionError(f"slotted burst vs trickle: requests {diff} depend on their admission")
+
+
 def phase_opt_path(results, reps: int):
     """The OPT path at full width: ``synthetic_opt_pair_int8_small_draft``
     (OPT-13B int8 target, 640-wide 2-layer draft, tied bf16 heads) born on
@@ -2816,11 +3113,11 @@ def main() -> int:
 
     timed(phase_device, _build)
     for phase in (phase_int8_matmul, phase_flash_decode, phase_flash_tree, phase_flash_algorithms,
-                  phase_paged_flash_decode, phase_paged_extend, phase_paged_sarathi,
-                  phase_opt_int8_matmul, phase_opt_attention):
+                  phase_flash_slotted, phase_paged_flash_decode, phase_paged_extend,
+                  phase_paged_sarathi, phase_opt_int8_matmul, phase_opt_attention):
         timed(phase, results)
-    for phase in (phase_forward, phase_paged_forward, phase_prefix_forward, phase_tree_forward,
-                  phase_opt_forward, phase_fp8_forward, phase_loader):
+    for phase in (phase_forward, phase_paged_forward, phase_prefix_forward, phase_sarathi_forward,
+                  phase_tree_forward, phase_opt_forward, phase_fp8_forward, phase_loader):
         timed(phase)
     pair = timed(build_pair)
     for phase in (phase_main_path, phase_tree_path, phase_algorithms):
@@ -2828,7 +3125,7 @@ def main() -> int:
     timed(phase_serving, results, pair)
     timed(phase_burst_trickle, results, pair)
     for phase in (phase_shared_prefix, phase_longgen, phase_hit_burst_trickle, phase_cold_mix,
-                  phase_adaptive):
+                  phase_adaptive, phase_slotted):
         timed(phase, results, pair)
     del pair
     gc.collect()
@@ -2912,6 +3209,23 @@ def main() -> int:
             k["sarathi"] = dict(at=at, bound_by=row["bound_by"], max_abs_err=err,
                                 launches=by_path["cold_mix"][k["name"]]
                                 + by_path["adaptive"][k["name"]],
+                                **{key: calls * row[key] for key in ("ms", "plain_ms", "library_ms",
+                                                                     "bound_ms")})
+    # the same numbers at the slotted engine's verify (16 slots x 9, per-slot
+    # lengths, int8 KV), under "slotted"; "launches" there: the slotted run's
+    b2 = results["slotted_b2"]
+    slotted_rows = {
+        "int8_matmul": ("one slotted target verify forward: 281 calls at M=144",
+                        results["int8_matmul"], 1, results["int8_matmul"]["max_abs_err"]),
+        "flash_decode": ("one slotted target verify forward: 40 calls, B=16, Hkv=40, S_new=9 over "
+                         "S_max 256, per-slot lengths 1-247, int8 KV",
+                         b2["per_call"]["slotted target verify"], 40, b2["max_abs_err"]),
+    }
+    for k in kernels:
+        if k["name"] in slotted_rows:
+            at, row, calls, err = slotted_rows[k["name"]]
+            k["slotted"] = dict(at=at, bound_by=row["bound_by"], max_abs_err=err,
+                                launches=by_path["slotted"][k["name"]],
                                 **{key: calls * row[key] for key in ("ms", "plain_ms", "library_ms",
                                                                      "bound_ms")})
     log(f"[smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")

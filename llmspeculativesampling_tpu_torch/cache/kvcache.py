@@ -5,8 +5,16 @@
   the int8 variant holds int8 ``k_q``/``v_q`` and fp32 per-(b, h, position)
   scales ``[L, B, H_kv, S_max]``.
 * ``length`` is a host int: positions ``>= length`` are dead. Rollback
-  replaces the pointer and moves no data. The engines' host loops know
-  every length, so no device round trip is needed to read it.
+  replaces the pointer and moves no data. The single-request engines' host
+  loops know every length, so no device round trip is needed to read it.
+* ``lengths`` (optional) is an int32 ``[B]`` tensor on the device: a cache
+  whose rows are independent sequences (the slot engine,
+  ``serve/scheduler.py``) carries one length a row there and never reads
+  it on the host. Then ``length`` is unused: writes land at each row's
+  length (:func:`write_layer` with a tensor start, one indexed write a
+  buffer), :func:`rollback_rows` moves the pointers, and
+  :func:`install_rows` copies freshly prefilled rows into place. This is
+  the port's form of the JAX slot engine's vmapped per-slot cache.
 * Unlike the JAX package, whose arrays are immutable, writes go **in
   place** into the preallocated buffers: a cache returned by
   :func:`rollback` or by a forward shares its buffers with the cache it
@@ -30,6 +38,7 @@ class KVCache:
     k: torch.Tensor
     v: torch.Tensor
     length: int
+    lengths: Optional[torch.Tensor] = None  # int32 [B] per-row lengths, or None
 
     @property
     def max_len(self) -> int:
@@ -50,6 +59,7 @@ class QuantKVCache:
     k_s: torch.Tensor
     v_s: torch.Tensor
     length: int
+    lengths: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
@@ -84,6 +94,25 @@ def init_quant_cache(num_layers, batch, num_kv_heads, max_len, head_dim,
 def rollback(cache, new_length: int):
     """Truncate to ``new_length`` positions: only the pointer moves."""
     return dataclasses.replace(cache, length=int(new_length))
+
+
+def rollback_rows(cache, new_lengths):
+    """Per-row truncation to ``new_lengths`` [B], contiguous or paged: only
+    the pointers move. A host-int contiguous cache takes device lengths
+    here."""
+    dev = kv_buffers(cache)[0].device if cache.lengths is None else cache.lengths.device
+    return dataclasses.replace(cache, lengths=torch.as_tensor(new_lengths, device=dev).to(
+        torch.int32))
+
+
+def install_rows(cache, rows: torch.Tensor, fresh) -> None:
+    """Copy the first ``len(rows)`` rows of ``fresh`` (a cache of the same
+    model, e.g. just prefilled from length 0) into rows ``rows`` of
+    ``cache``, positions ``[0, fresh.max_len)``, in place. Later positions
+    keep what they held: no row reads past its length."""
+    n = rows.shape[0]
+    for big, small in zip(kv_buffers(cache), kv_buffers(fresh)):
+        big[:, rows, :, :small.shape[3]] = small[:, :n]
 
 
 def kv_buffers(cache) -> tuple:
@@ -158,14 +187,30 @@ def _start(start: int, s: int, s_max: int) -> int:
     return max(0, min(int(start), s_max - s))
 
 
-def write_layer(cache_k_l, cache_v_l, start: int, k_new, v_new) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Write ``S`` new positions of one layer at ``start``, in place.
+def _write(buf: torch.Tensor, part: torch.Tensor, start) -> None:
+    """Write ``part`` [B, H, S(, D)] into ``buf`` [B, H, S_max(, D)] at
+    ``start``, in place: a host int (every row), or a per-row int tensor
+    [B] on the device (one indexed write). Each row's window is clamped
+    into the buffer, as ``dynamic_update_slice`` clamps it (under the JAX
+    slot engine's vmap, row by row)."""
+    s = part.shape[2]
+    if isinstance(start, torch.Tensor):
+        st = start.to(device=buf.device, dtype=torch.long).clamp(0, buf.shape[2] - s)
+        pos = st[:, None] + torch.arange(s, device=buf.device)[None, :]
+        rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+        buf[rows, :, pos] = part.transpose(1, 2).to(buf.dtype)
+    else:
+        st = _start(start, s, buf.shape[2])
+        buf[:, :, st:st + s] = part.to(buf.dtype)
+
+
+def write_layer(cache_k_l, cache_v_l, start, k_new, v_new) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write ``S`` new positions of one layer at ``start`` (a host int, or
+    per-row lengths [B] on the device), in place.
 
     ``cache_[kv]_l``: [B, H_kv, S_max, D]; ``[kv]_new``: [B, H_kv, S, D]."""
-    s = k_new.shape[2]
-    st = _start(start, s, cache_k_l.shape[2])
-    cache_k_l[:, :, st:st + s] = k_new.to(cache_k_l.dtype)
-    cache_v_l[:, :, st:st + s] = v_new.to(cache_v_l.dtype)
+    _write(cache_k_l, k_new, start)
+    _write(cache_v_l, v_new, start)
     return cache_k_l, cache_v_l
 
 
@@ -177,16 +222,13 @@ def _quantize_kv(x: torch.Tensor):
     return q, scale
 
 
-def write_layer_quant(k_q_l, k_s_l, v_q_l, v_s_l, start: int, k_new, v_new):
-    """Quantize and write ``S`` new positions of one layer, in place."""
-    s = k_new.shape[2]
-    st = _start(start, s, k_q_l.shape[2])
+def write_layer_quant(k_q_l, k_s_l, v_q_l, v_s_l, start, k_new, v_new):
+    """Quantize and write ``S`` new positions of one layer at ``start`` (as
+    :func:`write_layer`), in place."""
     kq, ks = _quantize_kv(k_new)
     vq, vs = _quantize_kv(v_new)
-    k_q_l[:, :, st:st + s] = kq
-    v_q_l[:, :, st:st + s] = vq
-    k_s_l[:, :, st:st + s] = ks
-    v_s_l[:, :, st:st + s] = vs
+    for buf, part in ((k_q_l, kq), (v_q_l, vq), (k_s_l, ks), (v_s_l, vs)):
+        _write(buf, part, start)
     return k_q_l, k_s_l, v_q_l, v_s_l
 
 
@@ -201,8 +243,9 @@ def layer_slices(cache, layer: int):
     return (cache.k[layer], cache.v[layer])
 
 
-def update_and_read_layer(slices, length: int, k_new, v_new, dtype):
-    """Write the new block, then return (slices, k_all, v_all) with k_all/v_all
+def update_and_read_layer(slices, length, k_new, v_new, dtype):
+    """Write the new block at ``length`` (a host int, or per-row lengths
+    [B] on the device), then return (slices, k_all, v_all) with k_all/v_all
     in compute dtype [B, H, S_max, D]."""
     if len(slices) == 4:
         k_q_l, k_s_l, v_q_l, v_s_l = write_layer_quant(*slices, length, k_new, v_new)

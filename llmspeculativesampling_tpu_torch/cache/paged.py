@@ -43,7 +43,7 @@ import torch
 
 from ..core.config import resolve_device
 from ..kernels.paged_flash_decode import gather_pages
-from .kvcache import _quantize_kv
+from .kvcache import _quantize_kv, rollback_rows  # noqa: F401 (re-exported)
 
 
 @dataclasses.dataclass
@@ -119,12 +119,6 @@ def init_paged_cache(num_layers: int, num_blocks: int, num_kv_heads: int, page: 
 
 def is_paged(cache) -> bool:
     return isinstance(cache, (PagedKVCache, QuantPagedKVCache))
-
-
-def rollback_rows(cache, new_lengths):
-    """Per-row truncation: only the length pointers move."""
-    lens = torch.as_tensor(new_lengths, device=cache.lengths.device).to(torch.int32)
-    return dataclasses.replace(cache, lengths=lens)
 
 
 def set_row_table(cache, row: int, table_row, length: int):

@@ -10,9 +10,13 @@ Attention dispatch follows the JAX forward: a new block of at most 32
 tokens (decode, verify, tree steps) writes the cache first and then runs
 the flash-decode kernel over the live prefix plus the new block; a longer
 block (the prefill) takes the einsum path over ``[0, S_max)`` with a mask.
-A paged cache (``cache/paged.py``, the serving path) has per-row lengths
-on the device: short blocks go to the paged flash-decode kernel, longer ones
-to the gather path, and ``paged_prefill=True`` runs block-only causal
+A contiguous cache with per-row ``lengths`` on the device (the slot
+engine, ``serve/scheduler.py``) takes the same two paths by row: the
+flash-decode kernel gets the lengths as they are and each row's block lands
+at its own length; the einsum path masks each row at its length. A paged
+cache (``cache/paged.py``, the paged serving path) has per-row lengths on
+the device too: short blocks go to the paged flash-decode kernel, longer
+ones to the gather path, and ``paged_prefill=True`` runs block-only causal
 attention over empty rows. The TPU-only floors of the JAX gates
 (``s_max >= 2*block_t``, ``head_dim >= 64``, ``page % 128 == 0``, a TPU
 backend) do not carry over. Matmuls accumulate in fp32, softmax and RMSNorm
@@ -59,7 +63,8 @@ def flash_layer_attention(q, k, v, cache_slices, length, lengths, bias_blk, scal
     """One layer's attention through the flash-decode kernel. ``q``/``k``/``v``:
     [B, S, H, D] fresh projections, passed to the kernel as [B, H, S, D]
     views (no copy). Writes the new block into the layer's cache buffers at
-    the host ``length`` (in place), then attends over the live prefix
+    ``length`` (the host int, or per-row lengths on the device; in place),
+    then attends over the live prefix
     (``lengths``, int32 [B] on the device) plus the new block, read from
     ``k``/``v`` and not back from the cache. Returns ctx [B, S, hidden]: on
     the card the kernel writes [B, S, H, D] memory, so this is a view."""
@@ -178,8 +183,9 @@ class AttentionPlan:
     """One forward's attention dispatch over ``cache``, shared by every
     layer (and by ``models/opt.py``): which path the new block of ``s``
     tokens takes, the cache length (a host int for the contiguous cache,
-    per-row ``lengths`` on the device for both), each token's default
-    ``offset`` for its position, and the additive biases."""
+    else None; per-row ``lengths`` on the device for the kernels, the
+    paged cache and a contiguous cache that carries them), each token's
+    default ``offset`` for its position, and the additive biases."""
 
     paged: bool
     use_flash: bool
@@ -190,6 +196,12 @@ class AttentionPlan:
     offset: object
     bias_blk: Optional[torch.Tensor]  # [B, S, S], the flash and block-only paths
     bias: Optional[torch.Tensor]      # [B, 1, S, S_max], the einsum paths
+
+    @property
+    def write_at(self):
+        """Where a contiguous cache takes the new block: the host length,
+        else each row's device length."""
+        return self.lengths if self.length is None else self.length
 
 
 def attention_plan(cache, s: int, batch: int, device, flash: str,
@@ -205,6 +217,11 @@ def attention_plan(cache, s: int, batch: int, device, flash: str,
         s_max = cache.max_pages * cache.page
         offset = lengths.long()[:, None]
         use_flash = not paged_prefill and flash_decode.should_use(s, flash)
+    elif cache.lengths is not None:
+        length, lengths = None, cache.lengths
+        s_max = cache.max_len
+        offset = lengths.long()[:, None]
+        use_flash = flash_decode.should_use(s, flash)
     else:
         length, lengths = int(cache.length), None
         s_max = cache.max_len
@@ -213,10 +230,11 @@ def attention_plan(cache, s: int, batch: int, device, flash: str,
     bias_blk = bias = None
     if use_flash or paged_prefill:
         bias_blk = block_bias(s, tree_mask, batch, device)
-        if not paged:
+        if length is not None:
             lengths = torch.full((batch,), length, dtype=torch.int32, device=device)
     else:
-        mask = attention_mask(lengths if paged else length, s, s_max, tree_mask, batch, device)
+        mask = attention_mask(lengths if length is None else length, s, s_max, tree_mask, batch,
+                              device)
         bias = torch.where(mask, 0.0, _MASK_VALUE).float()[:, None]  # [B,1,S,S_max]
     return AttentionPlan(paged, use_flash, paged_prefill, paged_prefill or batch_invariant, length,
                          lengths, offset, bias_blk, bias)
@@ -238,7 +256,7 @@ def layer_attention(plan: AttentionPlan, cache, li: int, q, k, v, scale: float,
     else:
         slices = layer_slices(cache, li)
         if plan.use_flash:
-            return flash_layer_attention(q, k, v, slices, plan.length, plan.lengths,
+            return flash_layer_attention(q, k, v, slices, plan.write_at, plan.lengths,
                                          plan.bias_blk, scale)
     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
     if plan.paged_prefill:
@@ -250,7 +268,7 @@ def layer_attention(plan: AttentionPlan, cache, li: int, q, k, v, scale: float,
             slices, cache.block_tables, plan.lengths, kh, vh, dtype)
         att_bias = plan.bias
     else:
-        _, k_all, v_all = update_and_read_layer(slices, plan.length, kh, vh, dtype)
+        _, k_all, v_all = update_and_read_layer(slices, plan.write_at, kh, vh, dtype)
         att_bias = plan.bias
     qh = q.transpose(1, 2).reshape(b, n_kv, n_heads // n_kv, s, head_dim)
     scores = torch.einsum("bhgsd,bhtd->bhgst", qh.float(), k_all.float())
@@ -264,7 +282,7 @@ def layer_attention(plan: AttentionPlan, cache, li: int, q, k, v, scale: float,
 def advance(plan: AttentionPlan, cache, s: int):
     """The cache after a forward of ``s`` tokens: length (or every row's
     device length) += s."""
-    if plan.paged:
+    if plan.length is None:
         return dataclasses.replace(cache, lengths=plan.lengths + s)
     return dataclasses.replace(cache, length=plan.length + s)
 
@@ -283,7 +301,8 @@ def forward(
 
     Writes the S new positions' k/v at the cache's length (in place) and
     returns (logits [B, S, V] float32, cache with length += S). A paged
-    cache advances every row's length on the device.
+    cache, or a contiguous one with per-row ``lengths``, advances every
+    row's length on the device; each row's positions start at its length.
 
     ``paged_prefill=True`` (paged caches only) declares every row empty
     (lengths 0): attention runs block-only over the new tokens, as the JAX

@@ -57,13 +57,15 @@ def forward(
     ``max_position + 2`` rows. A position outside it raises and is never
     wrapped or clamped: before any work where the contiguous cache's host
     length shows it, else by the embedding lookup (``IndexError`` on the
-    CPU, a device-side assert on the card)."""
+    CPU, a device-side assert on the card). A cache with per-row device
+    lengths is never read on the host: the slot engine checks its bound
+    once, at construction."""
     b, s = tokens.shape
     dev = tokens.device
     dtype = cfg.torch_dtype
     layers = unstack_layers(params)["layers"]
     plan = attention_plan(cache, s, b, dev, cfg.flash, tree_mask, paged_prefill, batch_invariant)
-    if not plan.paged and plan.length + s > cfg.max_position:
+    if plan.length is not None and plan.length + s > cfg.max_position:
         raise ValueError(f"positions up to {plan.length + s - 1} exceed the learned table of "
                          f"{cfg.max_position} positions")
     if positions is None:

@@ -5,7 +5,7 @@ at once over a shared block-pool KV cache (counterpart of
 The draft and verify phases run batch-level (one batched forward with
 per-row block tables and lengths, ``models/llama.py``'s paged path, whose
 attention is the paged flash-decode kernel) and the accept/resample math runs
-per row (``engine/speculative.py::accept_phase_rows``). Each row draws from
+per row: the step is ``serve/batched.py``'s, which the slotted engine shares. Each row draws from
 its own random stream keyed by (engine seed, request id)
 (``ops/sampling.py::row_keys``), so the same request set gives the same
 outputs whatever the arrival order or the release cadence.
@@ -83,96 +83,33 @@ from ..cache.paged import (
     SharedPageAllocator,
     init_paged_cache,
     prompt_page_hashes,
-    rollback_rows,
 )
 from ..core.config import resolve_device, synchronize
-from ..engine.speculative import accept_phase_rows
 from ..engine.types import ModelBundle, first_eos_truncate, pad_prompt
 from ..models.llama import unstack_layers
-from ..ops.sampling import (
-    SamplingConfig,
-    dist_concat,
-    dist_map,
-    dist_norm,
-    dist_sample_u,
-    dist_width,
-    row_keys,
-    row_uniform,
+from ..ops.sampling import SamplingConfig, dist_map, row_keys
+from .batched import (
+    BatchState,
+    accept_rows,
+    admit_rows,
+    commit_rows,
+    draft_phase_batched,
+    run_steps,
+    verify_phase_batched,
 )
 from .scheduler import Completion, Request
 
 
 @dataclasses.dataclass
-class PagedBatchState:
-    tokens: torch.Tensor        # [B, T_max] int64
-    cur_len: torch.Tensor       # [B] int64
-    draft_cache: object         # PagedKVCache / QuantPagedKVCache, batch B
-    target_cache: object
-    key: torch.Tensor           # [B, 2] per-row stream keys (ops/sampling.py)
-    active: torch.Tensor        # [B] bool
-    done: torch.Tensor          # [B] bool
-    target_len: torch.Tensor    # [B] int64
+class PagedBatchState(BatchState):
+    """``BatchState`` over paged caches (``draft_cache``/``target_cache``:
+    PagedKVCache / QuantPagedKVCache, batch B), plus ``prefill_to``."""
+
     # rows with cur_len < prefill_to are still prefilling (SARATHI): each
     # step their verify window carries the next prompt tokens through the
     # batched target forward, they sample nothing and their stream key
     # stays frozen. prefill_to == p_len for rows prefilled at admission.
     prefill_to: torch.Tensor    # [B] int64
-    accepted: torch.Tensor      # [B] int64
-    resamples: torch.Tensor
-    bonus: torch.Tensor
-    steps: torch.Tensor
-    acc_rate_sum: torch.Tensor  # [B] f32
-    acc_len_hist: torch.Tensor  # [B, max_new_cap] int64
-
-
-def _rows_window(tokens: torch.Tensor, starts: torch.Tensor, width: int) -> torch.Tensor:
-    """Per-row window tokens[b, starts[b] : starts[b]+width] -> [B, width]
-    (indices clamped into the buffer: only dead rows reach its end)."""
-    idx = starts[:, None] + torch.arange(width, device=tokens.device)[None, :]
-    return torch.gather(tokens, 1, idx.clamp(0, tokens.shape[1] - 1))
-
-
-def _sample_rows(dist, keys):
-    """One draw per row from its own stream -> (ids [B], keys')."""
-    u, keys = row_uniform(keys, dist_width(dist))
-    return dist_sample_u(dist, u), keys
-
-
-def _draft_phase_batched(bundle, params, scfg, gamma, tokens, cur_len, cache, keys):
-    """Batched draft: every row re-feeds positions cur_len-2, cur_len-1 (the
-    paged rollback is the per-row length reset), then gamma-1 single-token
-    steps. Returns (tokens' (a new tensor, drafts written at cur_len..),
-    cache', q_stack [B, gamma, ...], drafts [B, gamma], keys')."""
-    cfg = bundle.cfg
-    cache = rollback_rows(cache, cur_len - 2)
-    logits, cache = bundle.forward(params, cfg, _rows_window(tokens, cur_len - 2, 2), cache)
-    q = dist_norm(logits[:, -1], scfg)
-    x, keys = _sample_rows(q, keys)
-    qs, xs = [q], [x]
-    for _ in range(gamma - 1):
-        logits, cache = bundle.forward(params, cfg, x[:, None], cache)
-        q = dist_norm(logits[:, 0], scfg)
-        x, keys = _sample_rows(q, keys)
-        qs.append(q)
-        xs.append(x)
-    drafts = torch.stack(xs, dim=1)
-    cols = cur_len[:, None] + torch.arange(gamma, device=tokens.device)[None, :]
-    tokens = tokens.scatter(1, cols.clamp(0, tokens.shape[1] - 1), drafts)
-    q_stack = dist_concat([dist_map(lambda a: a[:, None], d) for d in qs], axis=1)
-    return tokens, cache, q_stack, drafts, keys
-
-
-def _verify_phase_batched(bundle, params, scfg, gamma, tokens, cur_len, cache, extra: int = 0):
-    """One batched target forward over per-row windows of gamma+1+extra
-    tokens -> (p_stack [B, gamma+1+extra, ...], cache'). ``extra``
-    (prefill_extra) lets prefilling rows push gamma+extra prompt tokens a
-    step; a decode row's trailing ``extra`` positions carry junk whose KV
-    lands past its accepted length (rewritten before its length reaches
-    it) and whose distributions the caller drops."""
-    cache = rollback_rows(cache, cur_len - 1)
-    window = _rows_window(tokens, cur_len - 1, gamma + 1 + extra)
-    logits, cache = bundle.forward(params, bundle.cfg, window, cache)
-    return dist_norm(logits, scfg), cache
 
 
 def _gate(cache, ok: torch.Tensor):
@@ -200,11 +137,11 @@ def _paged_spec_step(bundle_d, bundle_t, params_d, params_t, scfg, gamma, eos_to
     tokens, cur_len = state.tokens, state.cur_len
     live = state.active & ~state.done
     prefilling = cur_len < state.prefill_to
-    tokens2, draft_cache, q_stack, drafts, keys = _draft_phase_batched(
+    tokens2, draft_cache, q_stack, drafts, keys = draft_phase_batched(
         bundle_d, params_d, scfg, gamma, tokens, cur_len,
         _gate(state.draft_cache, live & ~prefilling), state.key)
     tokens2 = torch.where(prefilling[:, None], tokens, tokens2)
-    p_stack, target_cache = _verify_phase_batched(
+    p_stack, target_cache = verify_phase_batched(
         bundle_t, params_t, scfg, gamma, tokens2, cur_len, _gate(state.target_cache, live),
         extra=prefill_extra)
     if prefill_extra:
@@ -213,42 +150,14 @@ def _paged_spec_step(bundle_d, bundle_t, params_d, params_t, scfg, gamma, eos_to
     draft_cache = dataclasses.replace(draft_cache, block_tables=state.draft_cache.block_tables)
     target_cache = dataclasses.replace(target_cache, block_tables=state.target_cache.block_tables)
 
-    r, keys = row_uniform(keys, gamma)
-    u_t, keys = row_uniform(keys, dist_width(p_stack))
-    tokens3, new_len, _, n, all_acc, acc_step = accept_phase_rows(
-        gamma, tokens2, cur_len, q_stack, drafts, p_stack, r, u_t)
+    tokens3, new_len, n, all_acc, acc_step, keys = accept_rows(
+        gamma, tokens2, cur_len, q_stack, drafts, p_stack, keys)
     new_len = torch.where(prefilling, torch.minimum(cur_len + gamma + prefill_extra,
                                                     state.prefill_to), new_len)
     tokens3 = torch.where(prefilling[:, None], tokens, tokens3)
     keys = torch.where(prefilling[:, None], state.key, keys)
-
-    pos = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    new_mask = (pos >= cur_len[:, None]) & (pos < new_len[:, None])
-    done_now = (new_mask & (tokens3 == eos_token_id)).any(dim=1) & ~prefilling
-    stats = live & ~prefilling
-
-    def sel(new, old, keep=live):
-        return torch.where(keep, new, old)
-
-    col = state.steps.clamp(max=state.acc_len_hist.shape[1] - 1)
-    hist = state.acc_len_hist.scatter(1, col[:, None], n[:, None])
-    return PagedBatchState(
-        tokens=torch.where(live[:, None], tokens3, tokens),
-        cur_len=sel(new_len, cur_len),
-        draft_cache=draft_cache,
-        target_cache=target_cache,
-        key=keys,
-        active=state.active,
-        done=sel(done_now | (new_len >= state.target_len), state.done),
-        target_len=state.target_len,
-        prefill_to=state.prefill_to,
-        accepted=sel(state.accepted + n, state.accepted, stats),
-        resamples=sel(state.resamples + (~all_acc).long(), state.resamples, stats),
-        bonus=sel(state.bonus + all_acc.long(), state.bonus, stats),
-        steps=sel(state.steps + 1, state.steps, stats),
-        acc_rate_sum=sel(state.acc_rate_sum + acc_step, state.acc_rate_sum, stats),
-        acc_len_hist=torch.where(stats[:, None], hist, state.acc_len_hist),
-    )
+    return commit_rows(state, tokens3, new_len, n, all_acc, acc_step, keys, eos_token_id, live,
+                       live & ~prefilling, draft_cache=draft_cache, target_cache=target_cache)
 
 
 def _paged_chunk_body(params_d, params_t, state: PagedBatchState, *, bundle_d, bundle_t,
@@ -260,11 +169,8 @@ def _paged_chunk_body(params_d, params_t, state: PagedBatchState, *, bundle_d, b
     accepted-token and step deltas, which feed the adaptive-gamma
     controller."""
     a0, s0 = state.accepted.sum(), state.steps.sum()
-    for _ in range(n_steps):
-        if not bool((state.active & ~state.done).any()):
-            break
-        state = _paged_spec_step(bundle_d, bundle_t, params_d, params_t, scfg, gamma,
-                                 eos_token_id, state, prefill_extra)
+    state = run_steps(state, n_steps, lambda st: _paged_spec_step(
+        bundle_d, bundle_t, params_d, params_t, scfg, gamma, eos_token_id, st, prefill_extra))
     return state, _pack_chunk_meta(state, state.accepted.sum() - a0, state.steps.sum() - s0)
 
 
@@ -316,25 +222,12 @@ def _admit_tables(state: PagedBatchState, rows, tables) -> None:
 
 def _install_state(state: PagedBatchState, rows, prompts, p_lens, max_news, keys,
                    cur0=None) -> None:
-    """Install admitted rows' scheduler metadata (tokens, lengths, stream
-    keys, flags, zeroed counters) in place. ``cur_len`` starts at ``cur0``
+    """Install admitted rows' scheduler metadata in place (``admit_rows``)
+    and their ``prefill_to = p_len``. ``cur_len`` starts at ``cur0``
     (default p_len); a staged row passes cached_len + 1 and enters the step
-    loop mid-prompt, ``prefill_to = p_len`` marking where its prefill ends."""
-    cur0 = p_lens if cur0 is None else cur0
-    for cache in (state.draft_cache, state.target_cache):
-        cache.lengths[rows] = cur0.to(torch.int32)
-    tok_rows = torch.zeros((rows.shape[0], state.tokens.shape[1]), dtype=state.tokens.dtype,
-                           device=state.tokens.device)
-    tok_rows[:, :prompts.shape[1]] = prompts
-    state.tokens[rows] = tok_rows
-    state.cur_len[rows] = cur0
-    state.key[rows] = keys
-    state.active[rows] = True
-    state.done[rows] = False
-    state.target_len[rows] = p_lens + max_news
+    loop mid-prompt, ``prefill_to`` marking where its prefill ends."""
+    admit_rows(state, rows, prompts, p_lens, max_news, keys, cur0)
     state.prefill_to[rows] = p_lens
-    for name in ("accepted", "resamples", "bonus", "steps", "acc_rate_sum", "acc_len_hist"):
-        getattr(state, name)[rows] = 0
 
 
 def _paged_prefill_body(params_d, params_t, state: PagedBatchState, rows, tables, prompts,

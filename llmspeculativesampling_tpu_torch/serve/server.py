@@ -8,12 +8,12 @@ the last 1024 requests, and the card's memory from ``torch.cuda``).
 Two front ends, as in the JAX package: :class:`InferenceServer` runs one
 request at a time through ``speculative_generate`` under a lock;
 :class:`BatchedInferenceServer` puts an engine with the scheduler interface
-(the paged engine, ``--paged``) behind concurrent requests.
+behind concurrent requests: the slotted ``ContinuousBatchingEngine``
+(``--num_slots N``), or the paged engine (``--paged``).
 ``InferenceServer.from_pretrained`` loads two local checkpoint directories
-(Llama, Qwen2, Mistral or OPT; local files only) or the synthetic pair. Not
-ported yet: the slotted engine (``--num_slots`` without ``--paged``,
-ROADMAP A13).
+(Llama, Qwen2, Mistral or OPT; local files only) or the synthetic pair.
 
+    python -m llmspeculativesampling_tpu_torch.serve.server --num_slots 16 --max_total_len 256
     python -m llmspeculativesampling_tpu_torch.serve.server --paged --kv_quant
 """
 
@@ -175,18 +175,26 @@ class BatchedInferenceServer:
     """Continuous-batching front end: concurrent ``process_request`` calls
     share the rows of ``engine`` (any engine with ``submit`` / ``step`` /
     ``result`` / ``completions`` / ``_pending`` / ``num_active`` /
-    ``partial_result``, here the paged engine). A daemon thread steps the
-    engine while work is queued; request threads wait on a condition until
-    their rid completes."""
+    ``partial_result``, the paged engine among them), or, when none is
+    given, of a slotted ``ContinuousBatchingEngine`` of ``num_slots`` slots
+    of ``max_total_len`` positions built from the server's config. A daemon
+    thread steps the engine while work is queued; request threads wait on
+    a condition until their rid completes."""
 
-    def __init__(self, server: InferenceServer, engine=None):
-        if engine is None:
-            raise NotImplementedError(
-                "the slotted ContinuousBatchingEngine is not ported yet (ROADMAP A13); "
-                "pass engine=PagedEngine(...)")
+    def __init__(self, server: InferenceServer, num_slots: int = 4, max_total_len: int = 1024,
+                 max_new_cap: int = 256, engine=None):
+        c = server.config
         self.tokenizer = server.tokenizer
-        self.config = server.config
+        self.config = c
         self.stats = server.stats
+        if engine is None:
+            from .scheduler import ContinuousBatchingEngine
+
+            engine = ContinuousBatchingEngine(
+                server.bundle_d, server.params_d, server.bundle_t, server.params_t,
+                num_slots=num_slots, max_total_len=max_total_len, max_new_cap=max_new_cap,
+                gamma=c.gamma, eos_token_id=c.eos_token_id, temperature=c.temperature,
+                top_k=c.top_k, top_p=c.top_p, device=server.device)
         self.engine = engine
         self._cv = threading.Condition()
         self._results: dict = {}
@@ -399,7 +407,10 @@ def main(argv=None):
     p.add_argument("--num_tokens", type=int, default=40)
     p.add_argument("--gamma", type=int, default=4)
     p.add_argument("--num_slots", type=int, default=0,
-                   help="with --paged: the engine's batch rows (default 8)")
+                   help=">0 serves through the slotted continuous-batching engine with that "
+                        "many slots; with --paged: the engine's batch rows (default 8)")
+    p.add_argument("--max_total_len", type=int, default=1024,
+                   help="the slotted engine's positions a slot")
     p.add_argument("--paged", action="store_true", help="serve through the paged-KV engine")
     p.add_argument("--prefix_cache", action="store_true",
                    help="with --paged: automatic prefix caching; a repeated page-aligned prompt "
@@ -408,9 +419,6 @@ def main(argv=None):
     p.add_argument("--num_blocks", type=int, default=64, help="with --paged: pool blocks")
     p.add_argument("--page", type=int, default=128)
     args = p.parse_args(argv)
-    if args.num_slots > 0 and not args.paged:
-        raise NotImplementedError(
-            "--num_slots without --paged needs the slotted engine, not ported yet (ROADMAP A13)")
     srv = InferenceServer.from_pretrained(
         args.approx_model_name, args.target_model_name,
         ServerConfig(num_tokens=args.num_tokens, gamma=args.gamma))
@@ -425,6 +433,9 @@ def main(argv=None):
             top_k=c.top_k, top_p=c.top_p, kv_quant=args.kv_quant,
             prefix_cache=args.prefix_cache, device=srv.device)
         srv = BatchedInferenceServer(srv, engine=engine)
+    elif args.num_slots > 0:
+        srv = BatchedInferenceServer(srv, num_slots=args.num_slots,
+                                     max_total_len=args.max_total_len)
     httpd = make_http_server(srv, args.host, args.port)
     print(f"serving on {args.host}:{args.port}")
     httpd.serve_forever()

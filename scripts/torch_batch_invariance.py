@@ -42,10 +42,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_batch_invariance: CUDA is not available", file=sys.stderr)
         return 1
+    import importlib
+
     from llmspeculativesampling_tpu_torch.cache.paged import init_paged_cache
     from llmspeculativesampling_tpu_torch.core.synthetic import synthetic_pair_int8_small_draft
-    from llmspeculativesampling_tpu_torch.kernels import int8_matmul as b1
     from llmspeculativesampling_tpu_torch.models.llama import unstack_layers
+
+    b1 = importlib.import_module("llmspeculativesampling_tpu_torch.kernels.int8_matmul")
 
     card = card_line()
     gen = torch.Generator(device="cuda").manual_seed(3)

@@ -7,15 +7,19 @@ fp32 in different orders, so 1e-5 of the largest output; with bf16 x the
 result is rounded to bf16 as well, so two bf16 ulps (2**-7) relative plus
 1e-3 of the largest output for sums that cancel."""
 
+import importlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
 from llmspeculativesampling_tpu.kernels.int8_matmul import _int8_matmul_2d, int8_matmul_ref
-from llmspeculativesampling_tpu_torch.kernels import int8_matmul as port
 
 from _torch_port import to_np
+
+# the module: the package attribute ``kernels.int8_matmul`` is the function, as in JAX
+port = importlib.import_module("llmspeculativesampling_tpu_torch.kernels.int8_matmul")
 
 
 def _inputs(m, k, n, seed=0):

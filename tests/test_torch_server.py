@@ -1,10 +1,11 @@
 """The port's serving front end (``serve/server.py``) on the CPU: the paged
 engine behind ``BatchedInferenceServer`` and the HTTP routes on a loopback
 port (``/health``, ``/stats``, ``/predict`` and its SSE stream), the
-single-request ``InferenceServer``, and the options that wait for later
-slices. Tiny random fp32 models, so only shapes, counts and the prompt are
-checked here; the engine's outputs are held to the JAX engine in
-tests/test_torch_paged_engine.py."""
+slotted engine that ``BatchedInferenceServer`` and ``--num_slots`` build,
+and the single-request ``InferenceServer``. Tiny random fp32 models, so
+only shapes, counts and the prompt are checked here; the engines' outputs
+are held to the JAX engines in tests/test_torch_paged_engine.py and
+tests/test_torch_scheduler.py."""
 
 import json
 import threading
@@ -20,6 +21,7 @@ from llmspeculativesampling_tpu_torch.engine.types import ModelBundle
 from llmspeculativesampling_tpu_torch.models import llama
 from llmspeculativesampling_tpu_torch.serve import server as srv
 from llmspeculativesampling_tpu_torch.serve.paged import PagedEngine
+from llmspeculativesampling_tpu_torch.serve.scheduler import ContinuousBatchingEngine
 
 VOCAB = 128
 
@@ -160,20 +162,9 @@ def test_single_request_server():
         s.process_request({"prompt": "hello"})
 
 
-def test_later_slices_raise():
-    bd, pd, bt, pt = _pair()
-    base = srv.InferenceServer(bd, pd, bt, pt, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        srv.BatchedInferenceServer(base)
-    with pytest.raises(NotImplementedError, match="A13"):
-        srv.main(["--num_slots", "4"])
-    with pytest.raises(FileNotFoundError):  # checkpoint loading exists: the directory must
-        srv.InferenceServer.from_pretrained("/models/a", "/models/b")
-
-
-def test_main_builds_the_paged_engine_from_its_flags(monkeypatch):
-    """``--paged --prefix_cache --num_blocks`` reach the engine: a
-    prefix-caching pool of that many blocks behind the batched front end."""
+def _capture_main(monkeypatch, argv):
+    """Run ``main(argv)`` with the tiny pair and without serving: returns
+    the front end it built."""
     bd, pd, bt, pt = _pair()
     monkeypatch.setattr(srv.InferenceServer, "from_pretrained", classmethod(
         lambda cls, a, b, config: cls(bd, pd, bt, pt, config=config, device="cpu")))
@@ -188,8 +179,94 @@ def test_main_builds_the_paged_engine_from_its_flags(monkeypatch):
         return Httpd()
 
     monkeypatch.setattr(srv, "make_http_server", make)
-    srv.main(["--paged", "--prefix_cache", "--num_blocks", "12", "--kv_quant", "--port", "0"])
-    batched = made[0]
+    srv.main(argv)
+    return made[0]
+
+
+def test_later_slices_raise(monkeypatch):
+    """The slices these options waited for are in: ``BatchedInferenceServer``
+    without an engine builds the slotted engine from the server's config,
+    and so does ``--num_slots`` without ``--paged``, with
+    ``--max_total_len`` reaching it. Checkpoints load from local files: a
+    missing directory raises."""
+    with pytest.raises(FileNotFoundError):  # checkpoint loading exists: the directory must
+        srv.InferenceServer.from_pretrained("/models/a", "/models/b")
+    bd, pd, bt, pt = _pair()
+    config = srv.ServerConfig(gamma=3, top_k=7, eos_token_id=-1)
+    base = srv.InferenceServer(bd, pd, bt, pt, config=config, device="cpu")
+    batched = srv.BatchedInferenceServer(base)
+    try:
+        eng = batched.engine
+        assert isinstance(eng, ContinuousBatchingEngine)
+        assert (eng.num_slots, eng.max_total_len, eng.max_new_cap) == (4, 1024, 256)
+        assert eng.gamma == 3 and eng.scfg.top_k == 7 and eng.eos_token_id == -1
+        assert eng.device.type == "cpu"
+    finally:
+        batched.shutdown()
+    batched = _capture_main(monkeypatch, ["--num_slots", "4", "--max_total_len", "256",
+                                          "--port", "0"])
+    try:
+        eng = batched.engine
+        assert isinstance(eng, ContinuousBatchingEngine)
+        assert eng.num_slots == 4 and eng.max_total_len == 256
+        _, ids = batched.process_request({"prompt_ids": list(range(3, 40)), "max_tokens": 5})
+        _check_output(ids, list(range(3, 40)), 5, gamma=4)
+    finally:
+        batched.shutdown()
+
+
+def test_slotted_server_concurrent_requests():
+    """tests/test_serve.py:140 on the port: concurrent requests share the
+    slot batch of the engine ``BatchedInferenceServer`` builds."""
+    bd, pd, bt, pt = _pair()
+    base = srv.InferenceServer(bd, pd, bt, pt, config=srv.ServerConfig(eos_token_id=-1),
+                               device="cpu")
+    batched = srv.BatchedInferenceServer(base, num_slots=3, max_total_len=256)
+    try:
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(5, VOCAB, n).tolist() for n in (12, 20, 7, 16)]
+        outs = [None] * len(prompts)
+
+        def work(i):
+            _, outs[i] = batched.process_request({"prompt_ids": prompts[i], "max_tokens": 6 + i})
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        for i, out in enumerate(outs):
+            _check_output(out, prompts[i], 6 + i, gamma=4)
+        assert batched.stats.snapshot()["requests"] == len(prompts)
+        assert batched.engine.num_active == 0
+    finally:
+        batched.shutdown()
+
+
+def test_streaming_on_slotted_engine():
+    """tests/test_serve.py:274 on the port: the stream runs on the slotted
+    engine (``partial_result``); its chunks are the completion's tokens."""
+    bd, pd, bt, pt = _pair()
+    base = srv.InferenceServer(bd, pd, bt, pt, config=srv.ServerConfig(eos_token_id=-1),
+                               device="cpu")
+    batched = srv.BatchedInferenceServer(base, num_slots=2, max_total_len=256)
+    try:
+        prompt = list(range(10, 26))
+        chunks = list(batched.process_request_stream({"prompt_ids": prompt, "max_tokens": 16}))
+        assert len(chunks) >= 1
+        _check_output(prompt + [int(t) for c in chunks for t in c], prompt, 16, gamma=4)
+        st = batched.stats.snapshot()
+        assert st["requests"] == 1 and st["ttft_p50_s"] is not None
+    finally:
+        batched.shutdown()
+
+
+def test_main_builds_the_paged_engine_from_its_flags(monkeypatch):
+    """``--paged --prefix_cache --num_blocks`` reach the engine: a
+    prefix-caching pool of that many blocks behind the batched front end."""
+    batched = _capture_main(monkeypatch, ["--paged", "--prefix_cache", "--num_blocks", "12",
+                                          "--kv_quant", "--port", "0"])
     try:
         eng = batched.engine
         assert eng.prefix_cache and eng.on_demand and eng.allocator.num_blocks == 12
