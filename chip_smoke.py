@@ -123,11 +123,26 @@ Phases, each printing lines before the last:
      Each path's launch counters are set to 0 just before it and read just
      after; each kernel of a path must have run on it, B2 must not run on
      the paged path and B3 not on the others;
-  9. a ``{"kernels": [...]}`` line (each kernel also with its numbers at the
+  9. the evaluation harness, through ``evalx.harness.main`` at its own
+     full-width synthetic pair (Llama 2048 x 16, vocab 32000, bf16): every
+     method over 2 prompts of 64 tokens with 64 new tokens and the score,
+     the speculative block under ``--profile_dir`` (a Chrome trace must be
+     written), and autoregressive blocks until one runs over 2 s (its
+     energy from nvidia-smi must be > 0); every block makes tokens and
+     carries the JAX harness's keys, B2 runs and B3 not;
+ 10. the trained pair: ``train_tiny_pair()`` at its defaults on the card,
+     both losses below 0.75x their start, the trained draft accepted at
+     >= 0.55 and an untrained one at <= 0.20 (6 prompts x 48 tokens, gamma
+     4), the int8 target (B1) within 0.15 of its acc_rate and 0.35 of its
+     score, get_score of spec minus AR over 16 prompts; one forward on the
+     card against the CPU (fp32, 1e-4); B2 and B1 raise under grad. Phase 2
+     holds B2 at both pairs' shapes and B1 at the int8 target's;
+ 11. a ``{"kernels": [...]}`` line (each kernel also with its numbers at the
      OPT path's shapes, under "opt", and B1 and B3 at the extend window's,
      under "extend", at the cold mix's 12 x 17 verify, under "sarathi",
-     and B1 and B2 at the slotted verify, under "slotted"), the card line
-     again, and as the last
+     B1 and B2 at the slotted verify, under "slotted", B2 at the harness
+     verify, under "harness", and B1 and B2 at the trained pair's verify,
+     under "trained_pair"), the card line again, and as the last
      line ``{"ok": true, "device": {...}}``. Each phase prints its seconds.
 Any failed check raises: the script exits non-zero and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -149,6 +164,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12    # H100 SXM dense bf16 tensor rate
+FP32_OPS_PER_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
 L2_FLUSH_BYTES = 128 << 20  # rotate through this many bytes of operands: > 50 MB L2
 
 # main-path shapes (bench.py settings on the 13B-int8 pair)
@@ -207,6 +223,26 @@ SARATHI_TARGET_M = (ROWS * (ADAPT_ARMS[0] + 1), COLD_ROWS * (SERVE_GAMMA + 1),
 # 64-token prompts and 64 new tokens after warmup(). Its verify is B1 at
 # M = 16 x 9 = 144 (the paged serving verify's) and B2 at B=16 x Hkv 40 x 9
 SLOTS, SLOT_LEN, SLOT_N, SLOT_NEW = 16, 256, 24, 64
+# the evaluation harness (python -m llmspeculativesampling_tpu_torch.evalx.harness
+# --dataset synthetic --methods all --num_prompts 2 --max_tokens 64 --score):
+# synthetic_pair's Llama, 2048 wide x 16 layers (16 heads of 128), vocab
+# 32000, bf16; gamma 4, width 4, 8 beams; caches of aligned_total(64 + 64 +
+# gamma + 1) = 256 positions (BiLD's gamma 10 too)
+HARNESS_ARGS = ["--dataset", "synthetic", "--num_prompts", "2", "--max_tokens", "64"]
+HARNESS_HKV, HARNESS_GAMMA, HARNESS_S_MAX = 16, 4, 256
+# JAX's harness result keys a block (llmspeculativesampling_tpu/evalx/harness.py:302-320)
+HARNESS_KEYS = {"method", "prompts", "total_tokens", "total_time_s", "s_per_token", "tokens_per_s",
+                "mean_acc_len", "acc_rate", "target_call_times", "approx_call_times", "energy_j",
+                "j_per_token"}
+# the trained pair: train_tiny_pair()'s defaults (a 256-wide 4-layer byte-level
+# target, an independent 128-wide 2-layer draft, 4 heads, fp32, 300 steps
+# each of 16 x 128 bytes) and tests/test_trained_pair.py's generation: 32-byte
+# prompts, 48 new tokens, gamma 4, top_k 20, top_p 0.9; caches of
+# aligned_total(64 + 48 + 5) = 128. Its int8 target's projections (per layer;
+# the head stays dense, as quantize_params leaves it by default)
+TRAINED_PROMPT, TRAINED_NEW, TRAINED_GAMMA, TRAINED_S_MAX = 32, 48, 4, 128
+TRAINED_SHAPES = [(256, 256, 4), (256, 1024, 2), (1024, 256, 1)]
+TRAINED_LAYERS = 4
 
 
 def log(*a):
@@ -399,18 +435,19 @@ def phase_int8_matmul(results):
     results["int8_matmul"]["extend"] = dict(fwd[m], ms=inv[m], plan_from_m_ms=fwd[m]["ms"])
 
 
-def _flash_inputs(gen, b, hq, hkv, s_new, d, quant, tree, dtype=torch.bfloat16):
+def _flash_inputs(gen, b, hq, hkv, s_new, d, quant, tree, dtype=torch.bfloat16, s_max=S_MAX):
     """Inputs in the layouts the forward passes: q/k_new/v_new are
-    [B, H, S_new, D] views of [B, S_new, H, D] projections. bf16 q comes with
-    the softmax scale folded in (called with scale 1.0, so kernel and plain
-    version see the same q); fp32 q is raw (scale 1/sqrt(d): the kernel's
-    fold rounds nothing in fp32)."""
+    [B, H, S_new, D] views of [B, S_new, H, D] projections, the cache
+    [B, Hkv, s_max, D]. bf16 q comes with the softmax scale folded in
+    (called with scale 1.0, so kernel and plain version see the same q);
+    fp32 q is raw (scale 1/sqrt(d): the kernel's fold rounds nothing in
+    fp32)."""
     q = torch.randn((b, s_new, hq, d), generator=gen, device="cuda")
     q = (q / math.sqrt(d) if dtype == torch.bfloat16 else q).to(dtype).transpose(1, 2)
     kn = torch.randn((b, s_new, hkv, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
     vn = torch.randn((b, s_new, hkv, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
-    kc = torch.randn((b, hkv, S_MAX, d), generator=gen, device="cuda")
-    vc = torch.randn((b, hkv, S_MAX, d), generator=gen, device="cuda")
+    kc = torch.randn((b, hkv, s_max, d), generator=gen, device="cuda")
+    vc = torch.randn((b, hkv, s_max, d), generator=gen, device="cuda")
     vis = torch.ones((s_new, s_new), dtype=torch.bool, device="cuda").tril()
     if tree:
         vis &= torch.rand((s_new, s_new), generator=gen, device="cuda") > 0.3
@@ -446,18 +483,24 @@ def _check_case(name, fn, ref, args, kw, rtol, atol):
     return check_close(name, got, ref(*args, **kw), rtol, atol)
 
 
-def _flash_bound(hkv, s_new, length, quant, rows=1, extra_bytes=0, stored=None):
+def _flash_bound(hkv, s_new, length, quant, rows=1, extra_bytes=0, stored=None, d=128,
+                 dtype=torch.bfloat16):
     """Least time of one call: live prefix K/V (and scales) read once, q,
     k_new, v_new, out, bias, lengths (and ``extra_bytes``: block tables)
-    once; QK^T and PV in bf16 over ``length``, the rows' summed live
-    prefix. ``stored``: the distinct prefix positions when rows share pages
-    (a shared page is read once), else ``length``."""
-    kv_b = 1 if quant else 2
+    once; QK^T and PV over ``length``, the rows' summed live prefix, at the
+    bf16 tensor rate (fp32: the CUDA cores' rate). ``stored``: the distinct
+    prefix positions when rows share pages (a shared page is read once),
+    else ``length``."""
+    elem = 4 if dtype == torch.float32 else 2
+    kv_b = 1 if quant else elem
     stored = length if stored is None else stored
-    nbytes = (2 * stored * hkv * 128 * kv_b + (2 * stored * hkv * 4 if quant else 0)
-              + 4 * rows * hkv * s_new * 128 * 2 + rows * s_new * s_new * 4 + rows * 4
+    nbytes = (2 * stored * hkv * d * kv_b + (2 * stored * hkv * 4 if quant else 0)
+              + 4 * rows * hkv * s_new * d * elem + rows * s_new * s_new * 4 + rows * 4
               + extra_bytes)
-    return bound(nbytes, 2 * 2 * hkv * s_new * (length + rows * s_new) * 128)
+    ops = 2 * 2 * hkv * s_new * (length + rows * s_new) * d
+    if dtype == torch.float32:  # bound() counts operations at the bf16 rate
+        ops *= BF16_OPS_PER_S / FP32_OPS_PER_S
+    return bound(nbytes, ops)
 
 
 def phase_flash_decode(results):
@@ -549,18 +592,21 @@ def _tree_bias(gen, b):
     return block_bias(TREE_TOKENS, block[None].expand(b, TREE_TOKENS, TREE_TOKENS), b, "cuda")
 
 
-def _rows_inputs(gen, b, hkv, s_new, quant, lens, tree):
-    """B2 inputs at B = len(lens) rows with per-row lengths, Hq = Hkv,
-    D=128: the causal bias, or (``tree``) a tree verify's ancestor bias."""
-    q, kn, vn, kc, vc, bias, ks, vs = _flash_inputs(gen, b, hkv, hkv, s_new, 128, quant, False)
+def _rows_inputs(gen, b, hkv, s_new, quant, lens, tree, d=128, dtype=torch.bfloat16,
+                 s_max=S_MAX):
+    """B2 inputs at B = len(lens) rows with per-row lengths, Hq = Hkv: the
+    causal bias, or (``tree``) a tree verify's ancestor bias."""
+    q, kn, vn, kc, vc, bias, ks, vs = _flash_inputs(gen, b, hkv, hkv, s_new, d, quant, False,
+                                                    dtype, s_max)
     if tree:
         bias = _tree_bias(gen, b)
     return q, kn, vn, kc, vc, torch.tensor(lens, dtype=torch.int32, device="cuda"), bias, ks, vs
 
 
-def _time_flash(gen, hkv, s_new, lens, quant=False, tree=False):
+def _time_flash(gen, hkv, s_new, lens, quant=False, tree=False, d=128, dtype=torch.bfloat16,
+                s_max=S_MAX):
     """Kernel, plain and SDPA times of B2 at B = len(lens) rows (see
-    :func:`_rows_inputs`). Inputs rotate through > L2 bytes and are
+    :func:`_rows_inputs`; fp32 q is raw, so every call takes 1/sqrt(d)). Inputs rotate through > L2 bytes and are
     contiguous, so that only the kernel runs inside the timed graph; SDPA
     attends [0, max len) + the block under a float mask (-inf past a row's
     length, the causal or tree bias on the block), over a dequantized bf16
@@ -571,21 +617,23 @@ def _time_flash(gen, hkv, s_new, lens, quant=False, tree=False):
         flash_decode_attention, flash_decode_ref)
 
     b = len(lens)
+    scale = 1.0 if dtype == torch.bfloat16 else d ** -0.5
 
     def make():
-        t = _rows_inputs(gen, b, hkv, s_new, quant, lens, tree)
+        t = _rows_inputs(gen, b, hkv, s_new, quant, lens, tree, d, dtype, s_max)
         return [x.contiguous() if x is not None else None for x in t]
 
     sets = _rotated(make)
 
     def kern(i):
         q, kn, vn, kc, vc, lengths, bias, ks, vs = sets[i % len(sets)]
-        return flash_decode_attention(q, kn, vn, kc, vc, lengths, bias, scale=1.0,
+        return flash_decode_attention(q, kn, vn, kc, vc, lengths, bias, scale=scale,
                                       k_scales=ks, v_scales=vs)
 
     def plain(i):
         q, kn, vn, kc, vc, lengths, bias, ks, vs = sets[i % len(sets)]
-        return flash_decode_ref(q, kn, vn, kc, vc, lengths, bias, scale=1.0, k_scales=ks, v_scales=vs)
+        return flash_decode_ref(q, kn, vn, kc, vc, lengths, bias, scale=scale, k_scales=ks,
+                                v_scales=vs)
 
     t_k, t_p = time_ms(kern, 50), time_ms(plain, 20)
     width = max(max(lens), 1)
@@ -601,11 +649,11 @@ def _time_flash(gen, hkv, s_new, lens, quant=False, tree=False):
 
     def lib(i):
         q, k_all, v_all, mask = lib_sets[i % len(lib_sets)]
-        return F.scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask, scale=1.0)
+        return F.scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask, scale=scale)
 
     t_l = time_ms(lib, 50)
     del lib_sets
-    b_ms, b_by = _flash_bound(hkv, s_new, sum(lens), quant, rows=b)
+    b_ms, b_by = _flash_bound(hkv, s_new, sum(lens), quant, rows=b, d=d, dtype=dtype)
     n = len(sets)
     del sets
     return t_k, t_p, t_l, b_ms, b_by, n
@@ -1336,6 +1384,111 @@ def phase_opt_attention(results):
             "rotated")
         rows[what] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
     results["opt_attention"] = dict(max_abs_err=worst, per_call=rows)
+
+
+def phase_flash_harness(results):
+    """B2 at the evaluation harness's shapes (synthetic_pair's Llama: bf16,
+    Hkv 16, D 128, S_max 256: the verify 1 x 5, decode 1 x 1, re-feed
+    1 x 2, BiLD's check 1 x 11, multi's verify 4 x 5, random beam's decode
+    8 x 1) and the trained pair's (fp32, Hkv 4, S_max 128: the target's
+    D 64 verify 1 x 5 and decode, the draft's D 32 step and re-feed)."""
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import (
+        flash_decode_attention, flash_decode_ref, plan)
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    g1, top = HARNESS_GAMMA + 1, HARNESS_S_MAX
+    harness = [("verify", 1, g1, [n]) for n in (59, 64, 96, 128, top - g1)]
+    harness += [("decode", 1, 1, [n]) for n in (64, 127, 128, top - 1)]
+    harness += [("draft re-feed", 1, 2, [96]), ("BiLD check", 1, 11, [64]),
+                ("BiLD check", 1, 11, [top - 11]), ("multi verify", 4, g1, [64, 97, 150, 200]),
+                ("random-beam decode", 8, 1, [96] * 8)]
+    trained = [("target verify", 64, g1, [n]) for n in (32, 63, 64, 100, TRAINED_S_MAX - g1)]
+    trained += [("target decode", 64, 1, [n]) for n in (32, 80)]
+    trained += [("draft step", 32, 1, [n]) for n in (32, 80)] + [("draft re-feed", 32, 2, [80])]
+    worst = {}
+    for tag, cases, dtype, s_max, tol in (
+            ("harness", [(w, b, s, ls, 128) for w, b, s, ls in harness], torch.bfloat16,
+             HARNESS_S_MAX, 2.0 ** -7),
+            ("trained", [(w, 1, s, ls, d) for w, d, s, ls in trained], torch.float32,
+             TRAINED_S_MAX, 1e-4)):
+        hkv = HARNESS_HKV if tag == "harness" else 4
+        for what, b, s_new, lens, d in cases:
+            q, kn, vn, kc, vc, lengths, bias, _, _ = _rows_inputs(
+                gen, b, hkv, s_new, False, lens, False, d=d, dtype=dtype, s_max=s_max)
+            scale = 1.0 if dtype == torch.bfloat16 else d ** -0.5
+            max_abs, _ = _check_case(
+                f"flash_decode {tag} {what} B={b} Hkv={hkv} S_new={s_new} D={d} len={lens}",
+                flash_decode_attention, flash_decode_ref, (q, kn, vn, kc, vc, lengths, bias),
+                dict(scale=scale), tol, tol)
+            worst[tag] = max(worst.get(tag, 0.0), max_abs)
+    log(f"[flash_decode harness] {len(harness)} harness cases (bf16, Hkv 16, D 128, S_max 256; "
+        f"tol {2.0 ** -7:.2e} + {2.0 ** -7:.2e}*|plain|) worst max_abs_err {worst['harness']:.3e}; "
+        f"{len(trained)} trained-pair cases (fp32, Hkv 4, D 64 / 32, S_max 128; tol 1e-4 + "
+        f"1e-4*|plain|) worst {worst['trained']:.3e}")
+    rows = {}
+    for what, hkv, s_new, d, dtype, s_max, length in (
+            ("harness verify", HARNESS_HKV, g1, 128, torch.bfloat16, HARNESS_S_MAX, 96),
+            ("harness decode", HARNESS_HKV, 1, 128, torch.bfloat16, HARNESS_S_MAX, 96),
+            ("trained target verify", 4, g1, 64, torch.float32, TRAINED_S_MAX, 64),
+            ("trained draft step", 4, 1, 32, torch.float32, TRAINED_S_MAX, 64)):
+        t_k, t_p, t_l, b_ms, b_by, n_sets = _time_flash(gen, hkv, s_new, [length], d=d,
+                                                        dtype=dtype, s_max=s_max)
+        p = plan(1, hkv, s_new, s_max)
+        log(f"[flash_decode harness] {what}: {str(dtype)[6:]} B=1 Hkv={hkv} S_new={s_new} D={d} "
+            f"len={length} S_max={s_max} plan ps={p.ps} blocks={p.blocks(1, hkv)}: kernel_ms "
+            f"{t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} (F.scaled_dot_product_attention, "
+            f"causal as a float mask) bound_us {b_ms * 1e3:.3f} ({b_by}) bound share "
+            f"{b_ms / t_k:.3f}; {n_sets} input sets rotated")
+        rows[what] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
+    results["flash_decode_harness"] = dict(max_abs_err=worst, per_call=rows)
+
+
+def phase_trained_int8_matmul(results):
+    """B1 at the trained pair's int8 target (256 wide, 4 layers, ffn 1024;
+    fp32 activations, which the kernel rounds to bf16 as the plain version
+    does): each projection against the plain version at M = 1 (decode), 5
+    (the verify), 64 (the prompt bucket) and 128 (get_score's padded
+    forward), and one forward's 28 calls timed at M 1 and 5."""
+    from llmspeculativesampling_tpu_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref, plan
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    timed_m = (1, TRAINED_GAMMA + 1)
+    fwd = {m: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0) for m in timed_m}
+    worst = 0.0
+    for m in timed_m + (64, 128):
+        for k, n, per_layer in TRAINED_SHAPES:
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            ws = _rotated(lambda: torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8,
+                                                device="cuda"))
+            s = (0.8 + 0.4 * torch.rand((n,), generator=gen, device="cuda")) / (73.0 * math.sqrt(k))
+            ref = int8_matmul_ref(x, ws[0], s)
+            max_abs, _ = check_close(f"int8_matmul trained M={m} K={k} N={n}",
+                                     int8_matmul(x[None], ws[0], s)[0], ref, 0.0,
+                                     1e-4 * float(ref.abs().max()))
+            worst = max(worst, max_abs)
+            if m not in fwd:
+                del ws
+                continue
+            xb, w16 = x.to(torch.bfloat16), [w.to(torch.bfloat16) for w in ws]
+            t_k = time_ms(lambda i: int8_matmul(x[None], ws[i % len(ws)], s), 20)
+            t_p = time_ms(lambda i: int8_matmul_ref(x, ws[i % len(ws)], s), 5)
+            t_l = time_ms(lambda i: torch.matmul(xb, w16[i % len(w16)]), 20)
+            b_ms, b_by = bound(m * k * 4 + k * n + n * 4 + m * n * 4, 2 * m * k * n)
+            log(f"[int8_matmul trained] M={m} K={k} N={n} plan {plan(m, k, n)}: max_abs_err "
+                f"{max_abs:.3e} kernel_ms {t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} "
+                f"(torch.matmul on pre-cast bf16) bound_us {b_ms * 1e3:.3f} ({b_by}) bound share "
+                f"{b_ms / t_k:.3f}")
+            for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms)):
+                fwd[m][key] += TRAINED_LAYERS * per_layer * t
+            fwd[m]["bound_by"] = b_by
+            del ws, w16
+    for m, f in fwd.items():
+        log(f"[int8_matmul trained] one int8 target forward ({7 * TRAINED_LAYERS} launches at "
+            f"M={m}): kernel_ms {f['ms']:.4f} plain_ms {f['plain_ms']:.4f} library_ms "
+            f"{f['library_ms']:.4f} bound_ms {f['bound_ms']:.5f} ({f['bound_by']}) bound share "
+            f"{f['bound_ms'] / f['ms']:.3f}; every projection within 1e-4*max|plain| at M 1, 5, "
+            f"64, 128 (worst {worst:.3e})")
+    results["int8_matmul_trained"] = dict(forwards=fwd, max_abs_err=worst)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -3093,6 +3246,181 @@ def phase_opt_path(results, reps: int):
     results["launches"]["opt"] = total
 
 
+def phase_harness(results):
+    """The evaluation harness through its entry point
+    (``evalx.harness.main``) on the card, at its own synthetic pair (full
+    width: Llama 2048 x 16, vocab 32000, bf16): every method over 2 synthetic
+    prompts of 64 tokens, 64 new tokens each, with the target-logprob score;
+    then the speculative block under ``--profile_dir``; then autoregressive
+    blocks, doubling the prompts until one's engines run over 2 s. Every block
+    must make tokens and carry JAX's result keys, B2 must launch and B3 not,
+    the profiler must write a trace, and the long block must report energy
+    > 0 from nvidia-smi."""
+    import tempfile
+
+    from llmspeculativesampling_tpu_torch.evalx import harness
+    from llmspeculativesampling_tpu_torch.utils.power import PowerMonitor
+
+    card = card_line()
+    source = PowerMonitor().source
+    if source != "nvidia-smi":
+        raise AssertionError(f"harness: the power source is {source}, not nvidia-smi")
+    reset_launches()
+    blocks = harness.main(HARNESS_ARGS + ["--methods", "all", "--score"])
+    if [r["method"] for r in blocks] != list(harness.ALL_METHODS):
+        raise AssertionError(f"harness: blocks {[r['method'] for r in blocks]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        traced = harness.main(HARNESS_ARGS + ["--methods", "speculative", "--profile_dir", tmp])
+        traces = [os.path.join(d, f) for d, _, fs in os.walk(tmp) for f in fs if f.endswith(".json")]
+        trace_mb = sum(os.path.getsize(f) for f in traces) / 1e6
+    if not traces:
+        raise AssertionError("harness: --profile_dir wrote no trace")
+    n = 4
+    for _ in range(4):
+        long_block = harness.main(["--dataset", "synthetic", "--methods", "autoregressive",
+                                   "--num_prompts", str(n), "--max_tokens", "128"])[0]
+        if long_block["total_time_s"] > 2.0:
+            break
+        n *= 2
+    launches = read_launches()
+    for r in blocks + traced + [long_block]:
+        want = HARNESS_KEYS | ({"prob_score"} if r in blocks else set())
+        if set(r) != want:
+            raise AssertionError(f"harness {r['method']}: keys {sorted(set(r) ^ want)} differ")
+        if not (r["total_tokens"] >= r["prompts"] > 0 and r["tokens_per_s"] > 0):
+            raise AssertionError(f"harness {r['method']}: made no tokens: {r}")
+        if "prob_score" in r and not math.isfinite(r["prob_score"]):
+            raise AssertionError(f"harness {r['method']}: score {r['prob_score']}")
+    if long_block["total_time_s"] <= 2.0 or not long_block["energy_j"] > 0:
+        raise AssertionError(f"harness: no energy from a block over 2 s: {long_block}")
+    if launches["flash_decode"] <= 0 or launches["paged_flash_decode"] != 0:
+        raise AssertionError(f"harness: B2 did not run, or B3 ran: {launches}")
+    for r in blocks + traced + [long_block]:
+        log(f"[harness] {r['method']}: {r['prompts']} prompts, {r['total_tokens']} tokens, tok/s "
+            f"{r['tokens_per_s']}, acc_rate {r['acc_rate']}, mean acc_len {r['mean_acc_len']}, "
+            f"energy_j {r['energy_j']}, prob_score {r.get('prob_score')} ({card})")
+    log(f"[harness] --profile_dir: {len(traces)} Chrome trace(s), {trace_mb:.1f} MB; power from "
+        f"{source}: {long_block['energy_j']} J over {long_block['total_time_s']} s of engine time; "
+        f"launches on the harness path {launches}")
+    results["harness"] = {r["method"]: r for r in blocks}
+    results["launches"]["harness"] = launches
+
+
+def phase_trained_pair(results):
+    """The port's first trained pair: ``train_tiny_pair()`` at the JAX
+    module's defaults on the card, then the gates of
+    tests/test_trained_pair.py: both losses below 0.75x their start; over 6
+    prompts x 48 new tokens at gamma 4 the trained draft's acc_rate >= 0.55,
+    an untrained draft's <= 0.20; the int8 target (B1) within 0.15 of the
+    fp32 target's acc_rate and its outputs within 0.35 of their get_score.
+    Prints get_score of spec minus AR over 16 prompts; holds one forward of
+    the card-trained target against the same params on the CPU (fp32:
+    1e-4 relative); B2 and B1 must refuse to run under grad."""
+    from llmspeculativesampling_tpu_torch.engine.autoregressive import autoregressive_generate
+    from llmspeculativesampling_tpu_torch.engine.speculative import speculative_generate
+    from llmspeculativesampling_tpu_torch.evalx.metrics import get_score
+    from llmspeculativesampling_tpu_torch.models import llama
+    from llmspeculativesampling_tpu_torch.quant.core import quantize_params
+    from llmspeculativesampling_tpu_torch.train import pinned_corpus, train_tiny_pair
+
+    card = card_line()
+    corpus = pinned_corpus()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bd, pd, bt, pt, info = train_tiny_pair()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = info["target_loss"][-1][0] + info["draft_loss"][-1][0] + 2
+    log(f"[trained] train_tiny_pair(): {steps} steps of 16 x 128 bytes in {train_s:.2f} s, "
+        f"{1e3 * train_s / steps:.2f} ms a step (256x4 target and 128x2 draft together); target "
+        f"loss {info['target_loss']}, draft loss {info['draft_loss']} ({card})")
+    for key in ("target_loss", "draft_loss"):
+        (_, l0), (_, l1) = info[key][0], info[key][-1]
+        if not l1 < 0.75 * l0:
+            raise AssertionError(f"trained: {key} fell from {l0} to {l1} only")
+    kw = dict(gamma=TRAINED_GAMMA, eos_token_id=-1, temperature=1.0, top_k=20, top_p=0.9,
+              details=True, device="cuda")
+
+    def spec(draft, target, prompts, seed0=0):
+        accs, outs = [], []
+        for i, p in enumerate(prompts):
+            out, d = speculative_generate(bd, draft, bt, target, p, TRAINED_NEW,
+                                          generator=torch.Generator(device="cuda").manual_seed(
+                                              seed0 + i), **kw)
+            accs.append(d["acc_rate"])
+            outs.append((out, len(p)))
+        return float(np.mean(accs)), outs
+
+    def windows(seed, n):
+        rng = np.random.default_rng(seed)
+        return [corpus[o:o + TRAINED_PROMPT].astype(np.int32)
+                for o in rng.integers(0, corpus.size - TRAINED_PROMPT - 8, n)]
+
+    prompts = windows(0, 6)
+    reset_launches()
+    acc_fp, outs_fp = spec(pd, pt, prompts)
+    untrained = llama.init_params(bd.cfg, torch.Generator(device="cuda").manual_seed(999),
+                                  device="cuda")
+    acc_untrained, _ = spec(untrained, pt, prompts)
+    deltas = []
+    for i, p in enumerate(windows(42, 16)):
+        out = spec(pd, pt, [p], seed0=i)[1][0][0]
+        ar = autoregressive_generate(bt, pt, p, TRAINED_NEW, eos_token_id=-1, top_k=20, top_p=0.9,
+                                     generator=torch.Generator(device="cuda").manual_seed(100 + i),
+                                     device="cuda")
+        deltas.append(get_score(bt, pt, out, TRAINED_PROMPT) - get_score(bt, pt, ar, TRAINED_PROMPT))
+    b1_before = read_launches()["int8_matmul"]
+    qt = quantize_params(pt, "llama")
+    acc_q, outs_q = spec(pd, qt, prompts)
+    launches = read_launches()
+    b1_int8 = launches["int8_matmul"] - b1_before
+    s_fp = float(np.mean([get_score(bt, pt, o, pl) for o, pl in outs_fp]))
+    s_q = float(np.mean([get_score(bt, pt, o, pl) for o, pl in outs_q]))
+    deltas = np.asarray(deltas)
+    log(f"[trained] acc_rate over 6 prompts x {TRAINED_NEW} tokens at gamma {TRAINED_GAMMA}: "
+        f"trained draft {acc_fp:.4f}, untrained {acc_untrained:.4f}; int8 target {acc_q:.4f} "
+        f"({b1_int8} B1 launches); get_score of the fp32 target's outputs {s_fp:.4f}, the int8 "
+        f"target's {s_q:.4f} (delta {s_q - s_fp:+.4f}); get_score spec - AR over 16 prompts: "
+        f"mean {deltas.mean():+.4f}, sd {deltas.std(ddof=1):.4f}, se "
+        f"{deltas.std(ddof=1) / 4:.4f}; launches {launches} ({card})")
+    if not (acc_fp >= 0.55 and acc_untrained <= 0.20 and acc_fp > acc_untrained + 0.30):
+        raise AssertionError(f"trained: acc_rate {acc_fp:.4f} trained, {acc_untrained:.4f} untrained")
+    if not (abs(acc_q - acc_fp) < 0.15 and abs(s_q - s_fp) < 0.35):
+        raise AssertionError(f"trained: int8 target moved acc_rate {acc_fp:.4f} -> {acc_q:.4f} or "
+                             f"score {s_fp:.4f} -> {s_q:.4f}")
+    if b1_int8 <= 0 or launches["flash_decode"] <= 0 or launches["paged_flash_decode"] != 0:
+        raise AssertionError(f"trained: B1 or B2 did not run, or B3 ran: {launches}")
+
+    # one forward of the card-trained target: a 128-byte prefill (the einsum
+    # path) and a 5-byte verify (B2), against the same params on the CPU
+    block = torch.as_tensor(corpus[:128 + TRAINED_GAMMA + 1].astype(np.int64))[None]
+    outs = {}
+    for dev, params in (("cuda", pt), ("cpu", _to_cpu(pt))):
+        cache = bt.make_cache(1, 256, device=dev)
+        l0, cache = bt.forward(params, bt.cfg, block[:, :128].to(dev), cache)
+        l1, _ = bt.forward(params, bt.cfg, block[:, 128:].to(dev), cache)
+        outs[dev] = [t.float().cpu() for t in (l0, l1)]
+    for name, g, r in zip(("prefill 128", "verify 5"), outs["cuda"], outs["cpu"]):
+        _hold_logits(f"[trained] fp32 target {name}", g, r, rel_tol=1e-4)
+
+    # the kernels have no backward pass: under grad they raise
+    grad_t = {k: (v.clone().requires_grad_() if k == "embed" else v) for k, v in pt.items()}
+    grad_q = {k: (v.clone().requires_grad_() if k == "embed" else v) for k, v in qt.items()}
+    for name, params, n_tok in (("B2", grad_t, 16), ("B1", grad_q, 64)):
+        try:
+            bt.forward(params, bt.cfg, block[:, :n_tok].cuda(), bt.make_cache(1, 128, device="cuda"))
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            log(f"[trained] {name} under grad raises: {e}")
+        else:
+            raise AssertionError(f"trained: {name} ran under grad with an input requiring grad")
+    results["trained_pair"] = dict(train_ms_a_step=1e3 * train_s / steps, acc_rate=acc_fp,
+                                   acc_untrained=acc_untrained, acc_int8=acc_q,
+                                   score_delta_int8=s_q - s_fp, spec_minus_ar=float(deltas.mean()))
+    results["launches"]["trained_pair"] = launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on an NVIDIA GPU", file=sys.stderr)
@@ -3114,7 +3442,8 @@ def main() -> int:
     timed(phase_device, _build)
     for phase in (phase_int8_matmul, phase_flash_decode, phase_flash_tree, phase_flash_algorithms,
                   phase_flash_slotted, phase_paged_flash_decode, phase_paged_extend,
-                  phase_paged_sarathi, phase_opt_int8_matmul, phase_opt_attention):
+                  phase_paged_sarathi, phase_opt_int8_matmul, phase_opt_attention,
+                  phase_flash_harness, phase_trained_int8_matmul):
         timed(phase, results)
     for phase in (phase_forward, phase_paged_forward, phase_prefix_forward, phase_sarathi_forward,
                   phase_tree_forward, phase_opt_forward, phase_fp8_forward, phase_loader):
@@ -3131,6 +3460,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()  # the Llama pair's 13.3 GB go before the OPT pair's 13.1 GB
     timed(phase_opt_path, results, REPS)
+    for phase in (phase_harness, phase_trained_pair):
+        timed(phase, results)
     by_path = results["launches"]
     kernels = [
         {"name": "int8_matmul", "route": "cuda",
@@ -3228,6 +3559,29 @@ def main() -> int:
                                 launches=by_path["slotted"][k["name"]],
                                 **{key: calls * row[key] for key in ("ms", "plain_ms", "library_ms",
                                                                      "bound_ms")})
+    # the same numbers at the harness pair's verify (B2) and the trained
+    # pair's (B2, fp32; B1, its int8 target's forward at M=5), under
+    # "harness" and "trained_pair"; "launches" there: those paths'
+    fh, b1t = results["flash_decode_harness"], results["int8_matmul_trained"]
+    new_rows = {
+        ("flash_decode", "harness"): ("one harness target verify forward: 16 calls, B=1, Hkv=16, "
+                                      "S_new=5, D=128, len=96, bf16", fh["per_call"]["harness verify"],
+                                      16, fh["max_abs_err"]["harness"]),
+        ("flash_decode", "trained_pair"): ("one trained target verify forward: 4 calls, B=1, Hkv=4, "
+                                           "S_new=5, D=64, len=64, fp32",
+                                           fh["per_call"]["trained target verify"], 4,
+                                           fh["max_abs_err"]["trained"]),
+        ("int8_matmul", "trained_pair"): (f"one trained int8 target verify forward: 28 calls at "
+                                          f"M={TRAINED_GAMMA + 1}, K/N 256/1024, fp32 x",
+                                          b1t["forwards"][TRAINED_GAMMA + 1], 1, b1t["max_abs_err"]),
+    }
+    for k in kernels:
+        for (name, path), (at, row, calls, err) in new_rows.items():
+            if k["name"] == name:
+                k[path] = dict(at=at, bound_by=row["bound_by"], max_abs_err=err,
+                               launches=by_path[path][name],
+                               **{key: calls * row[key] for key in ("ms", "plain_ms", "library_ms",
+                                                                    "bound_ms")})
     log(f"[smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -18,7 +18,10 @@
 * Unlike the JAX package, whose arrays are immutable, writes go **in
   place** into the preallocated buffers: a cache returned by
   :func:`rollback` or by a forward shares its buffers with the cache it
-  came from.
+  came from. Under autograd a layer's view of the stacked buffers shares
+  their version counter, which the next layer's write bumps: what a layer
+  attends to is copied first there (:func:`grad_safe`), so a forward
+  stays differentiable.
 """
 
 from __future__ import annotations
@@ -243,12 +246,21 @@ def layer_slices(cache, layer: int):
     return (cache.k[layer], cache.v[layer])
 
 
+def grad_safe(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied when grad mode is on and it requires grad. A layer's
+    view of the stacked ``[L, ...]`` buffers shares their version counter;
+    an op that saves the view for its backward would find it bumped by the
+    next layer's in-place write. The copy is saved instead, and the
+    gradient still flows through the write into the new block."""
+    return t.clone() if torch.is_grad_enabled() and t.requires_grad else t
+
+
 def update_and_read_layer(slices, length, k_new, v_new, dtype):
     """Write the new block at ``length`` (a host int, or per-row lengths
     [B] on the device), then return (slices, k_all, v_all) with k_all/v_all
-    in compute dtype [B, H, S_max, D]."""
+    in compute dtype [B, H, S_max, D] (copies under grad, :func:`grad_safe`)."""
     if len(slices) == 4:
         k_q_l, k_s_l, v_q_l, v_s_l = write_layer_quant(*slices, length, k_new, v_new)
         return slices, dequant_layer(k_q_l, k_s_l, dtype), dequant_layer(v_q_l, v_s_l, dtype)
     k_l, v_l = write_layer(slices[0], slices[1], length, k_new, v_new)
-    return slices, k_l, v_l
+    return slices, grad_safe(k_l), grad_safe(v_l)

@@ -8,7 +8,9 @@ the root of the checkout (git-ignored), named by a hash of the source and
 flags, so an edited source rebuilds and an unchanged one is reused.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` raises on a non-zero code.
+:func:`check` raises on a non-zero code. No kernel has a backward pass:
+:func:`refuse_grad` makes a wrapper raise where autograd would need one,
+rather than return an output that silently cuts the gradient.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -109,3 +113,13 @@ def load(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA launch of {what} failed: cudaError {err}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if grad mode is on and an input of the kernel ``what`` requires
+    grad: its output would carry no ``grad_fn``."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward pass, and an input requires grad; "
+            "run it under torch.no_grad(), or differentiate the plain PyTorch path "
+            "(blocks longer than 32 tokens, or CPU tensors)")

@@ -285,7 +285,8 @@ def flash_decode_attention(
     v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Context [B, Hq, S_new, D] in q's dtype. CPU tensors take the plain
-    version; CUDA tensors the kernel."""
+    version; CUDA tensors the kernel, which raises under grad mode when an
+    input requires grad (it has no backward pass)."""
     if q.device.type == "cpu":
         return flash_decode_ref(
             q, k_new, v_new, k_cache, v_cache, length, block_bias,
@@ -293,6 +294,7 @@ def flash_decode_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _build.refuse_grad("flash_decode", q, k_new, v_new, k_cache, v_cache)
     lengths = _lengths(length, q.shape[0], q.device)
     return _launch(q, k_new, v_new, k_cache, v_cache, lengths, block_bias, scale, k_scales, v_scales)
 

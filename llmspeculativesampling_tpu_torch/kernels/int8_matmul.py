@@ -139,12 +139,14 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
                 batch_invariant: bool = False) -> torch.Tensor:
     """``x [..., K] @ dequant(w_q [K, N], scale [N]) -> [..., N]`` in x's
     dtype. CPU tensors take the plain version; CUDA tensors the kernel,
-    planned with ``batch_invariant`` (see :func:`plan`)."""
+    planned with ``batch_invariant`` (see :func:`plan`), which raises under
+    grad mode when ``x`` requires grad (the kernel has no backward pass)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cpu":
         out = int8_matmul_ref(x2, w_q, scale)
     elif x.device.type == "cuda":
+        _build.refuse_grad("int8_matmul", x, scale)
         out = _launch(x2, w_q, scale, x.dtype, batch_invariant)
     else:
         raise ValueError(f"unsupported device {x.device}")

@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from . import _build
 from .flash_decode import flash_decode_ref, launch_common
 
 
@@ -85,7 +86,8 @@ def paged_flash_decode_attention(
     of row b are read; table ids are clamped into the pool. CPU tensors
     take the plain version; CUDA tensors the kernel, whose grid
     ``batch_invariant`` plans without the batch, so a row's bits do not
-    depend on the rows beside it (``flash_decode.plan``)."""
+    depend on the rows beside it (``flash_decode.plan``); it raises under
+    grad mode when an input requires grad (it has no backward pass)."""
     if q.device.type == "cpu":
         return paged_flash_decode_ref(
             q, k_new, v_new, k_pool, v_pool, block_tables, lengths, block_bias,
@@ -93,6 +95,7 @@ def paged_flash_decode_attention(
         )
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _build.refuse_grad("paged_flash_decode", q, k_new, v_new, k_pool, v_pool)
     return _launch(q, k_new, v_new, k_pool, v_pool, block_tables, lengths, block_bias, scale,
                    k_scales, v_scales, batch_invariant)
 

@@ -34,6 +34,7 @@ import torch
 
 from ..cache import paged as paged_cache
 from ..cache.kvcache import (
+    grad_safe,
     layer_slices,
     update_and_read_layer,
     write_layer,
@@ -67,7 +68,9 @@ def flash_layer_attention(q, k, v, cache_slices, length, lengths, bias_blk, scal
     then attends over the live prefix
     (``lengths``, int32 [B] on the device) plus the new block, read from
     ``k``/``v`` and not back from the cache. Returns ctx [B, S, hidden]: on
-    the card the kernel writes [B, S, H, D] memory, so this is a view."""
+    the card the kernel writes [B, S, H, D] memory, so this is a view. The
+    kernel has no backward pass: under grad only CPU tensors (the plain
+    version) get through."""
     b, s = q.shape[0], q.shape[1]
     kn, vn, qh = k.transpose(1, 2), v.transpose(1, 2), q.transpose(1, 2)
     if len(cache_slices) == 4:
@@ -77,8 +80,8 @@ def flash_layer_attention(q, k, v, cache_slices, length, lengths, bias_blk, scal
             v_scales=v_s_l)
     else:
         k_l, v_l = write_layer(cache_slices[0], cache_slices[1], length, kn, vn)
-        ctx = flash_decode.flash_decode_attention(qh, kn, vn, k_l, v_l, lengths, bias_blk,
-                                                  scale=scale)
+        ctx = flash_decode.flash_decode_attention(qh, kn, vn, grad_safe(k_l), grad_safe(v_l),
+                                                  lengths, bias_blk, scale=scale)
     return ctx.transpose(1, 2).reshape(b, s, -1)
 
 

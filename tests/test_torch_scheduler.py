@@ -388,7 +388,8 @@ def test_mesh_and_device():
 
 # ------------------------------------------------------------------ exports
 
-@pytest.mark.parametrize("sub", ["ops", "cache", "quant", "kernels", "engine", "serve"])
+@pytest.mark.parametrize("sub", ["ops", "cache", "quant", "kernels", "engine", "serve",
+                                 "evalx", "train", "utils"])
 def test_subpackage_exports_match_jax(sub):
     """Every name the JAX subpackage exports imports from the port's."""
     jmod = importlib.import_module(f"llmspeculativesampling_tpu.{sub}")
@@ -399,3 +400,30 @@ def test_subpackage_exports_match_jax(sub):
     if sub == "kernels":  # the function, as JAX's kernels.int8_matmul is
         assert callable(tmod.int8_matmul) and not inspect.ismodule(tmod.int8_matmul)
 
+
+def test_every_module_imports_without_jax():
+    """Each module of the port imports in a fresh interpreter in which
+    ``jax``, ``optax`` and the JAX package cannot be imported at all."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for name in ('jax', 'jaxlib', 'optax', 'llmspeculativesampling_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import llmspeculativesampling_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "print(len(names))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    n_modules = sum(1 for path in (root / "llmspeculativesampling_tpu_torch").rglob("*.py")
+                    if path.name != "__init__.py" or path.parent.name != "llmspeculativesampling_tpu_torch")
+    assert int(res.stdout.strip()) == n_modules
