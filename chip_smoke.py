@@ -44,7 +44,12 @@ Phases, each printing lines before the last:
      slotted engine's shapes: B2 at B=16 slots over S_max 256 with per-slot
      lengths that differ row to row (an idle slot at 1, split edges, one at
      256 - 9), the target verify (Hkv 40 x S_new 9, int8 KV) and the draft
-     steps (Hkv 6 x S_new 1 / 2, dense), with the grid's block count;
+     steps (Hkv 6 x S_new 1 / 2, dense), with the grid's block count. At
+     one tp=2 rank's shard shapes: B1 at q/k/v and gate/up with half their
+     columns, o and down with half their rows and fp32 output (the
+     row-parallel partials), the 16000-row head (M 1, 25, 144; draft M 1, 2,
+     16); B2 at Hkv 20 x 25 and 1, the draft's Hkv 3 x 1 / 2 and the slotted
+     16 x Hkv 20 x 9 (int8 KV); B3 at 16 x Hkv 20 x 9 (int8 pool) and Hkv 3;
   3. forward: logits of a 2-layer, full-width (5120) int8 Llama slice on the
      card with the kernels vs the same weights on the CPU with the plain
      versions, through a contiguous cache and through a paged int8 pool
@@ -122,7 +127,20 @@ Phases, each printing lines before the last:
      acc_len > 1, the pool ending free.
      Each path's launch counters are set to 0 just before it and read just
      after; each kernel of a path must have run on it, B2 must not run on
-     the paged path and B3 not on the others;
+     the paged path and B3 not on the others. Before the OPT pair, the
+     tensor-parallel path: two ranks on this one card over gloo
+     (``parallel/launch.py``; NCCL refuses two ranks on a device) build the
+     13B-int8 pair in turn and keep their tp=2 shards; the gathered logits
+     of a 64-token prefill and a 25-token verify within 3e-2 of the
+     unsharded forward's, ``norm_logits_topk_tp`` equal to the dense sparse
+     path, the gloo all_reduce time, then (launches counted from here) spec
+     (128 tokens, gamma 24) and AR (32) with ``tp_mesh``,
+     ``PagedMultiHostDriver`` over ``PagedEngine(mesh=)`` on the uniform
+     mix and ``MultiHostDriver`` over ``ContinuousBatchingEngine(mesh=)``
+     on 16 x (64, 64): tokens and completions identical on both ranks,
+     acc_rate >= 0.6, B1, B2 and B3 launched. Its tok/s are one card's
+     work split over two processes plus gloo's host transport, not TP
+     speed;
   9. the evaluation harness, through ``evalx.harness.main`` at its own
      full-width synthetic pair (Llama 2048 x 16, vocab 32000, bf16): every
      method over 2 prompts of 64 tokens with 64 new tokens and the score,
@@ -142,7 +160,8 @@ Phases, each printing lines before the last:
      under "extend", at the cold mix's 12 x 17 verify, under "sarathi",
      B1 and B2 at the slotted verify, under "slotted", B2 at the harness
      verify, under "harness", and B1 and B2 at the trained pair's verify,
-     under "trained_pair"), the card line again, and as the last
+     under "trained_pair", and all three at one tp=2 rank's shapes, under
+     "tp"), the card line again, and as the last
      line ``{"ok": true, "device": {...}}``. Each phase prints its seconds.
 Any failed check raises: the script exits non-zero and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -243,6 +262,21 @@ HARNESS_KEYS = {"method", "prompts", "total_tokens", "total_time_s", "s_per_toke
 TRAINED_PROMPT, TRAINED_NEW, TRAINED_GAMMA, TRAINED_S_MAX = 32, 48, 4, 128
 TRAINED_SHAPES = [(256, 256, 4), (256, 1024, 2), (1024, 256, 1)]
 TRAINED_LAYERS = 4
+# tensor parallelism: one rank's shard of the 13B-int8 pair at tp=2. q/k/v
+# and gate/up keep half their columns, o and down half their rows (their
+# partials leave B1 in fp32, to be summed over the ranks before the cast),
+# the head half the vocab; 20 of the 40 heads (the draft: 3 of 6). Two
+# ranks share the one card over gloo (parallel/launch.py). (K, N, per
+# layer, fp32 out)
+TP = 2
+TP_TARGET_SHAPES = [(5120, 2560, 3, False), (2560, 5120, 1, True), (5120, 6912, 2, False),
+                    (6912, 5120, 1, True), (5120, VOCAB // TP, 0, False)]
+TP_DRAFT_SHAPES = [(768, 384, 3, False), (384, 768, 1, True), (768, 1536, 2, False),
+                   (1536, 768, 1, True), (768, VOCAB // TP, 0, False)]
+TP_TARGET_M = (1, GAMMA + 1, ROWS * (SERVE_GAMMA + 1))  # AR decode, single verify, serving verify
+TP_DRAFT_M = (1, 2, ROWS)                               # draft decode, re-feed, serving draft step
+TP_AR_NEW, TP_SLOT_N = 32, 16  # AR tokens; slotted requests of (64, 64)
+TP_LIMIT_S = 480.0  # each rank's time limit
 
 
 def log(*a):
@@ -1492,6 +1526,115 @@ def phase_trained_int8_matmul(results):
 
 
 # ---------------------------------------------------------------- phase 3
+def phase_tp_kernels(results):
+    """B1, B2 and B3 through their public wrappers at one tp=2 rank's shard
+    shapes, against their plain versions on the card: B1 at the column-
+    and row-parallel projections (o and down with fp32 output) and the
+    half-vocab head, M = 1, 25 and 144 (draft M = 1, 2 and 16); B2 at the
+    single-stream verify (Hkv 20 x 25, len 128), the AR decode, the draft
+    (Hkv 3 x 1 / 2) and the slotted verify (16 x Hkv 20 x 9, int8 KV,
+    per-slot lengths); B3 at the serving verify (16 x Hkv 20 x 9, int8
+    pool, uniform lengths) and the serving draft (Hkv 3 x 1 / 2). Times,
+    bounds, plain and library times, and B2/B3's block counts."""
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import (
+        flash_decode_attention, flash_decode_ref, plan as flash_plan)
+    from llmspeculativesampling_tpu_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref, plan
+    from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
+        paged_flash_decode_attention, paged_flash_decode_ref)
+
+    card = card_line()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rtol, atol_rel = 2.0 ** -7, 1e-3
+    log(f"[tp B1] tolerance: bf16 output {rtol:.2e}*|plain| + {atol_rel:.0e}*max|plain| (as "
+        "[int8_matmul]); fp32 output (the row-parallel partials) 1e-4*max|plain|: the same exact "
+        "products summed in fp32 in other orders")
+    fwd = {(model, m): dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+           for model, ms in (("target", TP_TARGET_M), ("draft", TP_DRAFT_M)) for m in ms}
+    worst_b1 = 0.0
+    cases = [("target", m, *shape) for m in TP_TARGET_M for shape in TP_TARGET_SHAPES]
+    cases += [("draft", m, *shape) for m in TP_DRAFT_M for shape in TP_DRAFT_SHAPES]
+    for model, m, k, n, per_layer, f32 in cases:
+        out_dtype = torch.float32 if f32 else None
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        ws = _rotated(lambda: torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8,
+                                            device="cuda"))
+        s = (0.8 + 0.4 * torch.rand((n,), generator=gen, device="cuda")) / (73.0 * math.sqrt(k))
+        got = int8_matmul(x[None], ws[0], s, out_dtype=out_dtype)[0]
+        ref = int8_matmul_ref(x, ws[0], s, out_dtype)
+        top = float(ref.float().abs().max())
+        max_abs, rel = check_close(f"tp int8_matmul {model} M={m} K={k} N={n} fp32_out={f32}", got,
+                                   ref, 0.0 if f32 else rtol, (1e-4 if f32 else atol_rel) * top)
+        worst_b1 = max(worst_b1, max_abs)
+        w16 = [w.to(torch.bfloat16) for w in ws]
+        t_k = time_ms(lambda i: int8_matmul(x[None], ws[i % len(ws)], s, out_dtype=out_dtype), 20)
+        t_p = time_ms(lambda i: int8_matmul_ref(x, ws[i % len(ws)], s, out_dtype), 5)
+        if f32:
+            t_l = time_ms(lambda i: torch.mm(x, w16[i % len(w16)], out_dtype=torch.float32), 20)
+        else:
+            t_l = time_ms(lambda i: torch.matmul(x, w16[i % len(w16)]), 20)
+        b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * (4 if f32 else 2), 2 * m * k * n)
+        log(f"[tp B1] {model} M={m:3d} K={k:5d} N={n:5d}{' fp32 out' if f32 else ''} plan "
+            f"{plan(m, k, n)}: max_abs_err {max_abs:.3e} (rel {rel:.1e}) kernel_ms {t_k:.4f} "
+            f"plain_ms {t_p:.4f} library_ms {t_l:.4f} ({'torch.mm fp32 out' if f32 else 'torch.matmul'}"
+            f" on pre-widened bf16) bound_us {b_ms * 1e3:.1f} ({b_by}) bound share {b_ms / t_k:.3f}")
+        calls = (40 if model == "target" else 2) * per_layer or 1
+        row = fwd[(model, m)]
+        for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms)):
+            row[key] += calls * t
+        row["bound_by"] = b_by
+        del ws, w16
+    for (model, m), f in fwd.items():
+        calls = 281 if model == "target" else 15
+        log(f"[tp B1] one tp=2 rank's {model} forward ({calls} launches at M={m}): kernel_ms "
+            f"{f['ms']:.3f} plain_ms {f['plain_ms']:.3f} library_ms {f['library_ms']:.3f} bound_ms "
+            f"{f['bound_ms']:.3f} ({f['bound_by']}) bound share {f['bound_ms'] / f['ms']:.3f} ({card})")
+
+    rtol = atol = 2.0 ** -7
+    log(f"[tp B2/B3] tolerance as [flash_decode]: {atol:.2e} + {rtol:.2e}*|plain|, each case "
+        "bit-identical across a repeat and contiguous inputs, one launch a call, counters 0")
+    worst_b2 = worst_b3 = 0.0
+    per_call = {}
+    b2_cases = [("B2 target verify", 20, GAMMA + 1, [128], False),
+                ("B2 AR decode", 20, 1, [128], False),
+                ("B2 draft step", 3, 1, [128], False), ("B2 draft re-feed", 3, 2, [128], False),
+                ("B2 slotted verify", 20, SERVE_GAMMA + 1, _slot_lens(SERVE_GAMMA + 1), True)]
+    for what, hkv, s_new, lens, quant in b2_cases:
+        q, kn, vn, kc, vc, lengths, bias, ks, vs = _rows_inputs(gen, len(lens), hkv, s_new, quant,
+                                                               lens, False)
+        max_abs, _ = _check_case(f"tp flash_decode {what}", flash_decode_attention,
+                                 flash_decode_ref, (q, kn, vn, kc, vc, lengths, bias),
+                                 dict(scale=1.0, k_scales=ks, v_scales=vs), rtol, atol)
+        worst_b2 = max(worst_b2, max_abs)
+        t_k, t_p, t_l, b_ms, b_by, n_sets = _time_flash(gen, hkv, s_new, lens, quant)
+        blocks = flash_plan(len(lens), hkv, s_new, S_MAX).blocks(len(lens), hkv)
+        per_call[what] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                              blocks=blocks)
+        log(f"[tp B2] {what}: {'int8-KV' if quant else 'dense'} B={len(lens)} Hkv={hkv} "
+            f"S_new={s_new} lens {lens if len(lens) == 1 else sum(lens)} ({blocks} blocks): kernel_ms "
+            f"{t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} (SDPA) bound_us {b_ms * 1e3:.2f} "
+            f"({b_by}) bound share {b_ms / t_k:.3f}; {n_sets} input sets rotated ({card})")
+    uniform = _uniform_lens(gen, ROWS)
+    for what, hkv, s_new in (("B3 serving verify", 20, SERVE_GAMMA + 1),
+                             ("B3 serving draft step", 3, 1), ("B3 serving draft re-feed", 3, 2)):
+        q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = _paged_inputs(
+            gen, uniform, hkv, hkv, s_new, 128, PAGE, 1, True)
+        max_abs, _ = _check_case(f"tp paged_flash_decode {what}", paged_flash_decode_attention,
+                                 paged_flash_decode_ref, (q, kn, vn, kp, vp, tables, lengths, bias),
+                                 dict(scale=1.0, k_scales=ks, v_scales=vs), rtol, atol)
+        worst_b3 = max(worst_b3, max_abs)
+        t_k, t_p, t_l, b_ms, b_by, n_sets = _time_paged(gen, uniform, 1, hkv, s_new, True)
+        blocks = flash_plan(ROWS, hkv, s_new, PAGE, 1).blocks(ROWS, hkv)
+        per_call[what] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by,
+                              blocks=blocks)
+        log(f"[tp B3] {what}: int8 pool B={ROWS} Hkv={hkv} S_new={s_new}, {sum(uniform)} live "
+            f"positions, P=1 ({blocks} blocks): kernel_ms {t_k:.4f} plain_ms {t_p:.4f} library_ms "
+            f"{t_l:.4f} (SDPA over a pre-gathered view) bound_us {b_ms * 1e3:.2f} ({b_by}) bound "
+            f"share {b_ms / t_k:.3f}; {n_sets} input sets rotated ({card})")
+    log(f"[tp B2/B3] worst max_abs_err B2 {worst_b2:.3e} B3 {worst_b3:.3e}")
+    results["tp_kernels"] = dict(b1=fwd, b1_max_abs_err=worst_b1, per_call=per_call,
+                                 b2_max_abs_err=worst_b2, b3_max_abs_err=worst_b3)
+
+
 def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
@@ -3153,6 +3296,260 @@ def _slotted_burst_trickle(engine, n_req: int = 8):
         raise AssertionError(f"slotted burst vs trickle: requests {diff} depend on their admission")
 
 
+def _tp_logits(bundle, params, pre, ver):
+    """Logits of a 64-token prefill and a 25-token verify through one cache."""
+    cache = bundle.make_cache(1, S_MAX, device=pre.device)
+    l0, cache = bundle.forward(params, bundle.cfg, pre, cache)
+    l1, _ = bundle.forward(params, bundle.cfg, ver, cache)
+    return l0.float(), l1.float()
+
+
+def _time_all_reduce(mesh, shape, device, iters: int = 50) -> float:
+    """Host ms of one fp32 all_reduce of ``shape`` over the tp group, the
+    ranks started together by a barrier, each call waited for."""
+    import torch.distributed as dist
+
+    from llmspeculativesampling_tpu_torch.core.config import synchronize
+    from llmspeculativesampling_tpu_torch.parallel.comm import all_reduce
+
+    x = torch.randn(shape, device=device) * 1e-3
+    for _ in range(5):
+        all_reduce(x, mesh)
+    synchronize(x.device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        all_reduce(x, mesh)
+    synchronize(x.device)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def tp_rank() -> dict:
+    """One rank of the tp=2 path (run by ``phase_tp`` through
+    ``parallel/launch.py``, two ranks on cuda:0 over gloo). The ranks build
+    the 13B-int8 pair from seed 0 one at a time, keep their shards and free
+    the rest; rank 0 first runs the unsharded prefill and verify for the
+    parity check. Then: the tp=2 logits gathered, the distributed top-k on
+    them, the all_reduce time, and, launches counted from here, the
+    speculative and AR engines with ``tp_mesh``, ``PagedMultiHostDriver``
+    over ``PagedEngine(mesh=)`` and ``MultiHostDriver`` over
+    ``ContinuousBatchingEngine(mesh=)``. Returns tensors on the CPU, numpy
+    and numbers."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from llmspeculativesampling_tpu_torch.core.config import synchronize
+    from llmspeculativesampling_tpu_torch.core.synthetic import synthetic_pair_int8_small_draft
+    from llmspeculativesampling_tpu_torch.engine.autoregressive import autoregressive_generate
+    from llmspeculativesampling_tpu_torch.engine.speculative import speculative_generate
+    from llmspeculativesampling_tpu_torch.ops.sampling import (
+        SamplingConfig, norm_logits_topk, norm_logits_topk_tp)
+    from llmspeculativesampling_tpu_torch.parallel.comm import vocab_slice
+    from llmspeculativesampling_tpu_torch.parallel.sharding import make_mesh, param_specs, shard_params
+    from llmspeculativesampling_tpu_torch.serve.multihost import MultiHostDriver, PagedMultiHostDriver
+    from llmspeculativesampling_tpu_torch.serve.paged import PagedEngine
+    from llmspeculativesampling_tpu_torch.serve.scheduler import ContinuousBatchingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = "cuda"
+    rank, mesh = dist.get_rank(), make_mesh(1, TP)
+    out = {"rank": rank, "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        synchronize(torch.device(device))
+        now = time.perf_counter()
+        out["seconds"][name] = now - clock[0]
+        clock[0] = now
+        if rank == 0:
+            log(f"[tp rank 0] {name} {out['seconds'][name]:.1f} s")
+    rng = np.random.default_rng(3)
+    pre = torch.as_tensor(rng.integers(100, 31000, (1, 64)), device=device)
+    ver = torch.as_tensor(rng.integers(100, 31000, (1, GAMMA + 1)), device=device)
+    for r in range(TP):  # one full pair (13.3 GB) on the card at a time
+        if r == rank:
+            t0 = time.perf_counter()
+            bd, pd, bt, pt = synthetic_pair_int8_small_draft(device=device)
+            if rank == 0:
+                out["whole"] = [x.cpu() for x in _tp_logits(bt, pt, pre, ver)]
+            pd = shard_params(pd, param_specs("llama", bd.cfg), mesh)
+            pt = shard_params(pt, param_specs("llama", bt.cfg), mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["shard_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+            out["build_s"] = time.perf_counter() - t0
+        dist.barrier()
+    lap("build and shard, one rank after the other")
+
+    # parity: the gathered tp=2 logits, and the distributed top-k on them
+    l0, l1 = _tp_logits(bt.for_params(pt), pt, pre, ver)
+    out["tp"] = [l0.cpu(), l1.cpu()]
+    cfg = SamplingConfig(1.0, 20, 0.9)
+    dist_tp = norm_logits_topk_tp(vocab_slice(l1[0], mesh), SamplingConfig(1.0, 20, 0.9, tp_mesh=mesh))
+    dense = norm_logits_topk(l1[0], cfg)
+    out["topk_equal"] = bool(torch.equal(dist_tp.idx, dense.idx)
+                             and torch.equal(dist_tp.probs, dense.probs))
+    out["all_reduce_ms"] = {f"{what} {m} x 5120": _time_all_reduce(mesh, (m, 5120), device)
+                            for what, m in (("verify", GAMMA + 1), ("decode", 1),
+                                            ("serving verify", ROWS * (SERVE_GAMMA + 1)))}
+    # the transport's floor: the decode's size as a CPU tensor (no copies)
+    out["all_reduce_ms"]["decode 1 x 5120 on the host"] = _time_all_reduce(mesh, (1, 5120), "cpu")
+    lap("parity and all_reduce timing")
+
+    prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
+    kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, device=device, tp_mesh=mesh)
+
+    def gen(k):
+        return torch.Generator(device=device).manual_seed(k)
+
+    reqs, prompts = _mix_prompts("uniform")
+    worst = max(pl + mn for pl, mn in reqs) + SERVE_GAMMA + 1
+    paged = PagedEngine(bd, pd, bt, pt, batch_rows=ROWS, num_blocks=BLOCKS, page=PAGE,
+                        max_pages_per_req=-(-worst // PAGE), max_new_cap=max(mn for _, mn in reqs),
+                        gamma=SERVE_GAMMA, eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9,
+                        prompt_bucket=64, steps_per_sync=SYNC, kv_quant=True, mesh=mesh,
+                        device=device)
+    slots = ContinuousBatchingEngine(
+        bd, pd, dataclasses.replace(bt, kv_quant=True), pt, num_slots=SLOTS,
+        max_total_len=SLOT_LEN, max_new_cap=SLOT_NEW, gamma=SERVE_GAMMA, eos_token_id=2,
+        temperature=1.0, top_k=20, top_p=0.9, steps_per_sync=SYNC, mesh=mesh, device=device)
+    # warm-up (untimed): first launches, the allocator, the engines' waves
+    speculative_generate(bd, pd, bt, pt, prompt, 16, gamma=GAMMA, generator=gen(0), **kw)
+    autoregressive_generate(bt, pt, prompt, 4, generator=gen(0), **kw)
+    paged.warmup(prompt_lens=(64,))
+    slots.warmup(prompt_len=64)
+    lap("engines built and warmed up")
+
+    reset_launches()
+    sp_out, sp = speculative_generate(bd, pd, bt, pt, prompt, 128, gamma=GAMMA, generator=gen(1),
+                                      details=True, **kw)
+    ar_out, ar = autoregressive_generate(bt, pt, prompt, TP_AR_NEW, generator=gen(1), details=True,
+                                         **kw)
+    seg = {"single_stream": read_launches()}
+    lap("spec and AR")
+    out.update(spec_out=sp_out, ar_out=ar_out, spec_tok_s=sp["tokens_per_s"],
+               ar_tok_s=ar["tokens_per_s"], acc_rate=sp["acc_rate"],
+               acc_len=float(np.mean(sp["acc_len"])))
+
+    drv = PagedMultiHostDriver(paged, prompt_cap=64, batch_cap=8)
+    if drv.is_primary:
+        for p, (_, mn) in zip(prompts, reqs):
+            drv.submit(p, mn)
+    t0 = time.perf_counter()
+    drv.run_until_idle()
+    wall = time.perf_counter() - t0
+    comps = [drv.result(i) for i in range(len(reqs))]
+    seg["paged"] = read_launches()
+    lap("paged driver")
+    out["paged"] = dict(wall_s=wall, outs=[c.output_ids for c in comps],
+                        acc_rate=float(np.mean([c.details["acc_rate"] for c in comps])),
+                        free=paged.allocator.available_blocks == BLOCKS and not paged.num_active)
+
+    srng = np.random.default_rng(0)
+    sprompts = [srng.integers(100, 31000, 64).astype(np.int32) for _ in range(TP_SLOT_N)]
+    drv2 = MultiHostDriver(slots, prompt_cap=64)
+    if drv2.is_primary:
+        for p in sprompts:
+            drv2.submit(p, SLOT_NEW)
+    t0 = time.perf_counter()
+    drv2.run_until_idle()
+    wall = time.perf_counter() - t0
+    rids = sorted(slots.completions)
+    comps = [drv2.result(i) for i in rids]
+    seg["slotted"] = read_launches()
+    lap("slotted driver")
+    out["slotted"] = dict(wall_s=wall, rids=rids, outs=[c.output_ids for c in comps],
+                          prompts=sprompts,
+                          acc_rate=float(np.mean([c.details["acc_rate"] for c in comps])))
+    prev = {k: 0 for k in seg["single_stream"]}
+    out["segments"] = {}
+    for name, total in seg.items():  # counts a segment (the counters run on)
+        out["segments"][name] = {k: total[k] - prev[k] for k in total}
+        prev = total
+    out["launches"] = seg["slotted"]
+    return out
+
+
+def phase_tp(results):
+    """Tensor parallelism at tp=2 on the 13B-int8 pair, driven through
+    ``parallel/launch.py``: two gloo ranks share cuda:0 (NCCL refuses two
+    ranks on one device), so every number here is one card's work split
+    over two processes plus gloo's host transport: not TP speed, which
+    needs two cards. Checks: the gathered tp=2 logits within 3e-2 of the
+    unsharded forward's (``_hold_logits``), the distributed top-k's ids and
+    probs equal to the dense sparse path's, tokens and completions
+    identical on both ranks, every output well formed, acc_rate >= 0.6, B1,
+    B2 and B3 launched on the path (B2 not on the paged segment, B3 not on
+    the others) and the same launches on both ranks."""
+    from llmspeculativesampling_tpu_torch.parallel.launch import launch
+
+    card = card_line()
+    t0 = time.perf_counter()
+    r0, r1 = launch("chip_smoke:tp_rank", TP, device="cuda", timeout_s=TP_LIMIT_S)
+    log(f"[tp] two ranks on cuda:0 over gloo ran in {time.perf_counter() - t0:.1f} s; pair build "
+        f"and shard {r0['build_s']:.1f} / {r1['build_s']:.1f} s, {r0['shard_gib']:.2f} / "
+        f"{r1['shard_gib']:.2f} GiB allocated after a rank's shard ({card})")
+    for tag, g, r in zip(("prefill 64", "verify 25"), r0["tp"], r0["whole"]):
+        _hold_logits(f"[tp] tp=2 gathered vs unsharded {tag}", g, r)
+    dev = [float((g - r).abs().max() / r.abs().max()) for g, r in zip(r0["tp"], r0["whole"])]
+    if not all(torch.equal(a, b) for a, b in zip(r0["tp"], r1["tp"])):
+        raise AssertionError("[tp] the ranks' gathered logits differ")
+    if not (r0["topk_equal"] and r1["topk_equal"]):
+        raise AssertionError("[tp] norm_logits_topk_tp differs from norm_logits_topk")
+    log("[tp] norm_logits_topk_tp == norm_logits_topk (ids and probs) on the gathered verify "
+        "logits, both ranks")
+    for key in ("spec_out", "ar_out"):
+        if not np.array_equal(r0[key], r1[key]):
+            raise AssertionError(f"[tp] {key}: the ranks' tokens differ")
+    prompt = np.asarray(np.random.default_rng(0).integers(100, 31000, 64))
+    for key, cap in (("spec_out", 128 + GAMMA), ("ar_out", TP_AR_NEW)):
+        out, n = r0[key], 128 if key == "spec_out" else TP_AR_NEW
+        new = out[64:]
+        if not (np.array_equal(out[:64], prompt) and 1 <= len(new) <= cap
+                and (len(new) >= n or new[-1] == 2) and new.min() >= 0 and new.max() < VOCAB):
+            raise AssertionError(f"[tp] {key}: bad output of length {len(out)}")
+    if r0["acc_rate"] < 0.6:
+        raise AssertionError(f"[tp] acceptance {r0['acc_rate']:.3f} < 0.6: a kernel is likely wrong")
+    log(f"[tp] spec gamma={GAMMA} 128 tokens {r0['spec_tok_s']:.2f} tok/s, acc_rate "
+        f"{r0['acc_rate']:.4f}, mean acc_len {r0['acc_len']:.3f}; AR {TP_AR_NEW} tokens "
+        f"{r0['ar_tok_s']:.2f} tok/s: one card over gloo, not TP speed ({card})")
+    log(f"[tp] gloo all_reduce, fp32, host ms a call: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in r0["all_reduce_ms"].items()) + f" ({card})")
+    reqs, prompts = _mix_prompts("uniform")
+    p0, p1 = r0["paged"], r1["paged"]
+    if not all(np.array_equal(a, b) for a, b in zip(p0["outs"], p1["outs"])):
+        raise AssertionError("[tp] paged: the ranks' completions differ")
+    tokens = _check_outputs("tp paged", reqs, prompts, p0["outs"], VOCAB)
+    if not (p0["free"] and p1["free"]):
+        raise AssertionError("[tp] paged: the pool did not end fully free")
+    s0, s1 = r0["slotted"], r1["slotted"]
+    if s0["rids"] != s1["rids"] or not all(np.array_equal(a, b) for a, b in zip(s0["outs"], s1["outs"])):
+        raise AssertionError("[tp] slotted: the ranks' completions differ")
+    stokens = _check_outputs("tp slotted", [(64, SLOT_NEW)] * TP_SLOT_N, s0["prompts"], s0["outs"],
+                             VOCAB)
+    for tag, r, toks in (("paged", p0, tokens), ("slotted", s0, stokens)):
+        log(f"[tp {tag}] {toks} generated tokens in {r['wall_s']:.2f} s: {toks / r['wall_s']:.2f} "
+            f"tok/s aggregate, acc_rate {r['acc_rate']:.4f}: one card over gloo ({card})")
+        if r["acc_rate"] < 0.6:
+            raise AssertionError(f"[tp {tag}] acceptance {r['acc_rate']:.3f} < 0.6")
+    if r0["segments"] != r1["segments"]:
+        raise AssertionError(f"[tp] the ranks launched differently: {r0['segments']} / "
+                             f"{r1['segments']}")
+    seg = r0["segments"]
+    log(f"[tp] launches a rank: {seg}")
+    if any(r0["launches"][k] <= 0 for k in r0["launches"]):
+        raise AssertionError(f"[tp] a kernel was not launched on the tp path: {r0['launches']}")
+    if seg["paged"]["flash_decode"] or seg["single_stream"]["paged_flash_decode"] or \
+            seg["slotted"]["paged_flash_decode"]:
+        raise AssertionError(f"[tp] B2 ran on the paged segment or B3 off it: {seg}")
+    results["launches"]["tp"] = r0["launches"]
+    results["tp"] = dict(spec_tok_s=r0["spec_tok_s"], ar_tok_s=r0["ar_tok_s"],
+                         acc_rate=r0["acc_rate"], logits_dev=dev,
+                         all_reduce_ms=r0["all_reduce_ms"],
+                         paged_tok_s=tokens / p0["wall_s"], slotted_tok_s=stokens / s0["wall_s"])
+
+
 def phase_opt_path(results, reps: int):
     """The OPT path at full width: ``synthetic_opt_pair_int8_small_draft``
     (OPT-13B int8 target, 640-wide 2-layer draft, tied bf16 heads) born on
@@ -3443,7 +3840,7 @@ def main() -> int:
     for phase in (phase_int8_matmul, phase_flash_decode, phase_flash_tree, phase_flash_algorithms,
                   phase_flash_slotted, phase_paged_flash_decode, phase_paged_extend,
                   phase_paged_sarathi, phase_opt_int8_matmul, phase_opt_attention,
-                  phase_flash_harness, phase_trained_int8_matmul):
+                  phase_flash_harness, phase_trained_int8_matmul, phase_tp_kernels):
         timed(phase, results)
     for phase in (phase_forward, phase_paged_forward, phase_prefix_forward, phase_sarathi_forward,
                   phase_tree_forward, phase_opt_forward, phase_fp8_forward, phase_loader):
@@ -3458,7 +3855,8 @@ def main() -> int:
         timed(phase, results, pair)
     del pair
     gc.collect()
-    torch.cuda.empty_cache()  # the Llama pair's 13.3 GB go before the OPT pair's 13.1 GB
+    torch.cuda.empty_cache()  # the Llama pair's 13.3 GB go before the tp ranks' and the OPT pair's
+    timed(phase_tp, results)
     timed(phase_opt_path, results, REPS)
     for phase in (phase_harness, phase_trained_pair):
         timed(phase, results)
@@ -3575,6 +3973,22 @@ def main() -> int:
                                           f"M={TRAINED_GAMMA + 1}, K/N 256/1024, fp32 x",
                                           b1t["forwards"][TRAINED_GAMMA + 1], 1, b1t["max_abs_err"]),
     }
+    # the same numbers at one tp=2 rank's shard shapes, under "tp"; "launches"
+    # there: one rank's on the tp path (the other's are equal)
+    tpk = results["tp_kernels"]
+    pc = tpk["per_call"]
+    new_rows.update({
+        ("int8_matmul", "tp"): (f"one tp=2 rank's target verify forward: 281 calls at M={GAMMA + 1}, "
+                                "q/k/v and gate/up at half their columns, o and down at half "
+                                "their rows with fp32 output, a 16000-row head",
+                                tpk["b1"][("target", GAMMA + 1)], 1, tpk["b1_max_abs_err"]),
+        ("flash_decode", "tp"): ("one tp=2 rank's target verify forward: 40 calls, Hkv=20, "
+                                 "S_new=25, len=128, dense KV", pc["B2 target verify"], 40,
+                                 tpk["b2_max_abs_err"]),
+        ("paged_flash_decode", "tp"): ("one tp=2 rank's serving verify forward: 40 calls, B=16, "
+                                       "Hkv=20, S_new=9, int8 pool, uniform lengths",
+                                       pc["B3 serving verify"], 40, tpk["b3_max_abs_err"]),
+    })
     for k in kernels:
         for (name, path), (at, row, calls, err) in new_rows.items():
             if k["name"] == name:

@@ -38,16 +38,19 @@ def autoregressive_generate(
     generator: Optional[torch.Generator] = None,
     pad_token_id: Optional[int] = None,
     details: bool = False,
+    tp_mesh=None,
     device=None,
 ):
     """Generate ``max_new_tokens`` tokens. Returns numpy int32 [T] (prompt
     included, cut after the first generated EOS); with ``details=True`` also
     the timing dict (``total_time``, ``tokens_generated``, ``s_per_token``,
-    ``tokens_per_s``)."""
+    ``tokens_per_s``). ``tp_mesh``: see
+    ``engine/speculative.py::speculative_generate``."""
     del pad_token_id
     dev = resolve_device(device)
-    scfg = SamplingConfig(temperature, top_k, top_p)
+    scfg = SamplingConfig(temperature, top_k, top_p, tp_mesh=tp_mesh)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    bundle = bundle.for_params(params)
     params = unstack_layers(params)
     cfg = bundle.cfg
     prompt_padded, p_len = pad_prompt(prompt)
@@ -59,7 +62,7 @@ def autoregressive_generate(
     tokens = torch.zeros((1, max_total), dtype=torch.long, device=dev)
     prompt_t = torch.as_tensor(prompt_padded, dtype=torch.long).to(dev)
     tokens[:, : prompt_t.shape[1]] = prompt_t
-    logits, cache = bundle.forward(params, cfg, prompt_t, cache)
+    logits, cache = bundle.forward(params, cfg, prompt_t, cache, tp_mesh=tp_mesh)
     cache = rollback(cache, p_len)
     last_logits = logits[:, p_len - 1]
 
@@ -73,7 +76,7 @@ def autoregressive_generate(
             if bool((tokens[0, p_len:cur_len] == eos_token_id).any()):
                 break
         if cur_len < total:
-            logits, cache = bundle.forward(params, cfg, t[:, None], cache)
+            logits, cache = bundle.forward(params, cfg, t[:, None], cache, tp_mesh=tp_mesh)
             last_logits = logits[:, 0]
     out_tokens = tokens.cpu().numpy()
     wall = time.perf_counter() - t0

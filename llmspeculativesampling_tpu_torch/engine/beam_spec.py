@@ -96,11 +96,12 @@ def residual(mode: str, p_l, q_l):
 def _run(
     mode, bundle_d, params_d, bundle_t, params_t, prompt, max_new_tokens, *,
     gamma, width, num_beams, accept_thres, eos_token_id, temperature, top_k, top_p,
-    generator, details, random_seed, ref_row_compat, device,
+    generator, details, random_seed, ref_row_compat, tp_mesh, device,
 ):
     dev = resolve_device(device)
-    scfg = SamplingConfig(temperature, top_k, top_p)
+    scfg = SamplingConfig(temperature, top_k, top_p, tp_mesh=tp_mesh)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    bundle_d, bundle_t = bundle_d.for_params(params_d), bundle_t.for_params(params_t)
     params_d, params_t = unstack_layers(params_d), unstack_layers(params_t)
     cfg_t = bundle_t.cfg
     nb, w = num_beams, width
@@ -126,7 +127,8 @@ def _run(
     tokens[:, :prompt_t.shape[1]] = prompt_t
     host[:prompt_padded.shape[1]] = prompt_padded[0]
     _, draft_cache = bundle_d.forward(params_d, bundle_d.cfg, prompt_t.expand(nb, -1), draft_cache)
-    _, target_cache = bundle_t.forward(params_t, cfg_t, prompt_t.expand(w, -1), target_cache)
+    _, target_cache = bundle_t.forward(params_t, cfg_t, prompt_t.expand(w, -1), target_cache,
+                                       tp_mesh=tp_mesh)
     zero_row = torch.zeros((1, cfg_t.vocab_size), dtype=torch.float32, device=dev)
 
     total = p_len + max_new_tokens
@@ -149,7 +151,7 @@ def _run(
         # verify: one batched target forward over the w candidates
         target_cache = rollback(target_cache, cur_len - 1)
         vin = torch.cat([tokens[:, cur_len - 1:cur_len].expand(w, 1), cand], dim=1)
-        logits, target_cache = bundle_t.forward(params_t, cfg_t, vin, target_cache)
+        logits, target_cache = bundle_t.forward(params_t, cfg_t, vin, target_cache, tp_mesh=tp_mesh)
         p_stack = dist_norm(logits, scfg)  # [w, gamma+1, ...]
         p_sel = dist_prob_of(dist_map(lambda x: x[:, :gamma], p_stack), cand)  # [w, gamma]
         if mode == "beam":
@@ -214,20 +216,21 @@ def multi_beam_generate(
     gamma: int = 4, width: int = 4, num_beams: Optional[int] = None,
     eos_token_id: int, temperature: float = 1.0, top_k: int = 0, top_p: float = 0.0,
     generator: Optional[torch.Generator] = None, random_seed: Optional[int] = None,
-    details: bool = False, ref_row_compat: bool = False, device=None,
+    details: bool = False, ref_row_compat: bool = False, tp_mesh=None, device=None,
 ):
     """``multi_speculative_sampling(strategy='beam')``. Returns numpy int32
     [T] (prompt included, cut after the first generated EOS); with
     ``details=True`` also the reference-schema dict. ``random_seed`` reuses
     one fixed uniform for every accept test; ``ref_row_compat=True``
     reproduces the reference's q-buffer row misalignment (differential
-    runs only)."""
+    runs only). ``tp_mesh``: see
+    ``engine/speculative.py::speculative_generate``."""
     return _run(
         "beam", bundle_d, params_d, bundle_t, params_t, prompt, max_new_tokens,
         gamma=gamma, width=width, num_beams=num_beams or max(4, width), accept_thres=0.0,
         eos_token_id=eos_token_id, temperature=temperature, top_k=top_k, top_p=top_p,
         generator=generator, details=details, random_seed=random_seed,
-        ref_row_compat=ref_row_compat, device=device,
+        ref_row_compat=ref_row_compat, tp_mesh=tp_mesh, device=device,
     )
 
 
@@ -237,7 +240,7 @@ def mjsd_generate(
     gamma: int = 4, width: int = 8, num_beams: int = 8, accept_thres: float = 0.1,
     eos_token_id: int, temperature: float = 1.0, top_k: int = 0, top_p: float = 0.0,
     generator: Optional[torch.Generator] = None, random_seed: Optional[int] = None,
-    details: bool = False, ref_row_compat: bool = False, device=None,
+    details: bool = False, ref_row_compat: bool = False, tp_mesh=None, device=None,
 ):
     """``mjsd_speculative_sampling`` (multi-token joint accept). Returns
     as :func:`multi_beam_generate`. ``random_seed`` is accepted for
@@ -248,5 +251,5 @@ def mjsd_generate(
         gamma=gamma, width=width, num_beams=num_beams, accept_thres=accept_thres,
         eos_token_id=eos_token_id, temperature=temperature, top_k=top_k, top_p=top_p,
         generator=generator, details=details, random_seed=random_seed,
-        ref_row_compat=ref_row_compat, device=device,
+        ref_row_compat=ref_row_compat, tp_mesh=tp_mesh, device=device,
     )

@@ -99,7 +99,7 @@ def tree_verify(bundle, params, scfg, gamma, num_beams, row_tokens, cur_len: int
     positions = torch.cat([torch.full((1,), cur_len - 1, device=dev), cur_len + node_s])
     positions = positions[None].expand(r_rows, n + 1)
     logits, cache = bundle.forward(params, bundle.cfg, vin, cache, positions=positions,
-                                   tree_mask=block)
+                                   tree_mask=block, tp_mesh=scfg.tp_mesh)
     rr = node_roots.clamp(0, r_rows - 1)
     cols = torch.arange(n, device=dev) + 1
     if use_sparse(scfg):
@@ -588,10 +588,11 @@ def _tree_step(state: TreeState, mode, bundle_d, params_d, bundle_t, params_t, s
 
 def _run_tree(mode, bundle_d, params_d, bundle_t, params_t, prompt, max_new_tokens, *,
               gamma, num_beams, min_num_beams, extra_sample_cnt, expect_thres, eos_token_id,
-              temperature, top_k, top_p, generator, details, device):
+              temperature, top_k, top_p, generator, details, tp_mesh, device):
     dev = resolve_device(device)
-    scfg = SamplingConfig(temperature, top_k, top_p)
+    scfg = SamplingConfig(temperature, top_k, top_p, tp_mesh=tp_mesh)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    bundle_d, bundle_t = bundle_d.for_params(params_d), bundle_t.for_params(params_t)
     params_d, params_t = unstack_layers(params_d), unstack_layers(params_t)
     prompt_padded, p_len = pad_prompt(prompt)
     if p_len < 2:
@@ -614,7 +615,7 @@ def _run_tree(mode, bundle_d, params_d, bundle_t, params_t, prompt, max_new_toke
     _, draft_cache = bundle_d.forward(params_d, bundle_d.cfg, prompt_t.expand(b, width),
                                       draft_cache)
     _, target_cache = bundle_t.forward(params_t, bundle_t.cfg, prompt_t.expand(r_slots, width),
-                                       target_cache)
+                                       target_cache, tp_mesh=tp_mesh)
     state = TreeState(
         row_tokens=row_tokens, rows_host=rows_host, cur_len=p_len, draft_cache=draft_cache,
         target_cache=target_cache, beam_scores=torch.zeros((b,), dtype=torch.float32, device=dev),
@@ -683,7 +684,7 @@ def beam_speculative_generate(
     gamma: int = 4, width: int = 8, num_beams: int = 8, min_num_beams: int = 1,
     eos_token_id: int, temperature: float = 1.0, top_k: int = 0, top_p: float = 0.0,
     generator: Optional[torch.Generator] = None, random_seed=None, details: bool = False,
-    device=None,
+    tp_mesh=None, device=None,
 ):
     """beam_speculative_sampling ("v1"): tree-verified beam speculative
     decoding with the always-accept rescore. Returns numpy int32 [T]
@@ -691,13 +692,14 @@ def beam_speculative_generate(
 
     ``width`` is taken for signature parity: in the reference it only sets
     the draft's ``num_return_sequences`` while the walk iterates
-    ``num_beams``; the tree's branch factor here is ``num_beams``."""
+    ``num_beams``; the tree's branch factor here is ``num_beams``. ``tp_mesh``:
+    see ``engine/speculative.py::speculative_generate``."""
     del width, random_seed
     return _run_tree(
         "v1", bundle_d, params_d, bundle_t, params_t, prompt, max_new_tokens,
         gamma=gamma, num_beams=num_beams, min_num_beams=min_num_beams, extra_sample_cnt=-1,
         expect_thres=0.7, eos_token_id=eos_token_id, temperature=temperature, top_k=top_k,
-        top_p=top_p, generator=generator, details=details, device=device,
+        top_p=top_p, generator=generator, details=details, tp_mesh=tp_mesh, device=device,
     )
 
 
@@ -707,7 +709,7 @@ def beam_speculative_v2_generate(
     extra_sample_cnt: int = -1, expect_thres: float = 0.7,
     eos_token_id: int, temperature: float = 1.0, top_k: int = 0, top_p: float = 0.0,
     generator: Optional[torch.Generator] = None, random_seed=None, details: bool = False,
-    device=None,
+    tp_mesh=None, device=None,
 ):
     """beam_speculative_sampling_v2 (the flagship): tree-verified beam
     speculative decoding with the dynamic-width walk. ``extra_sample_cnt``
@@ -722,5 +724,5 @@ def beam_speculative_v2_generate(
         gamma=gamma, num_beams=num_beams, min_num_beams=min_num_beams,
         extra_sample_cnt=extra_sample_cnt, expect_thres=expect_thres, eos_token_id=eos_token_id,
         temperature=temperature, top_k=top_k, top_p=top_p, generator=generator, details=details,
-        device=device,
+        tp_mesh=tp_mesh, device=device,
     )

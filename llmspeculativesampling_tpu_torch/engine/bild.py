@@ -70,6 +70,7 @@ def bild_generate(
     generator: Optional[torch.Generator] = None,
     random_seed: Optional[int] = None,
     details: bool = False,
+    tp_mesh=None,
     device=None,
 ):
     """BiLD policy decode (the reference's ``BiLD_sampling``). Returns
@@ -77,11 +78,13 @@ def bild_generate(
     with ``details=True`` also the reference-schema dict.
 
     ``random_seed`` is accepted for signature parity: the reference never
-    consumes it in BiLD, whose policy is threshold-driven."""
+    consumes it in BiLD, whose policy is threshold-driven. ``tp_mesh``: see
+    ``engine/speculative.py::speculative_generate``."""
     del random_seed
     dev = resolve_device(device)
-    scfg = SamplingConfig(temperature, top_k, top_p)
+    scfg = SamplingConfig(temperature, top_k, top_p, tp_mesh=tp_mesh)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    bundle_d, bundle_t = bundle_d.for_params(params_d), bundle_t.for_params(params_t)
     params_d, params_t = unstack_layers(params_d), unstack_layers(params_t)
     cfg_d, cfg_t = bundle_d.cfg, bundle_t.cfg
     prompt_padded, p_len = pad_prompt(prompt)
@@ -97,8 +100,8 @@ def bild_generate(
     prompt_t = torch.as_tensor(prompt_padded, dtype=torch.long).to(dev)
     tokens[:, :prompt_t.shape[1]] = prompt_t
     host[:prompt_padded.shape[1]] = prompt_padded[0]
-    _, draft_cache = bundle_d.forward(params_d, cfg_d, prompt_t, draft_cache)
-    _, target_cache = bundle_t.forward(params_t, cfg_t, prompt_t, target_cache)
+    _, draft_cache = bundle_d.forward(params_d, cfg_d, prompt_t, draft_cache, tp_mesh=tp_mesh)
+    _, target_cache = bundle_t.forward(params_t, cfg_t, prompt_t, target_cache, tp_mesh=tp_mesh)
 
     total = p_len + max_new_tokens
     cur_len, last_check = p_len, p_len - 1
@@ -107,7 +110,7 @@ def bild_generate(
         # the small model decodes one token
         draft_cache = rollback(draft_cache, cur_len - 1)
         logits, draft_cache = bundle_d.forward(params_d, cfg_d, tokens[:, cur_len - 1:cur_len],
-                                               draft_cache)
+                                               draft_cache, tp_mesh=tp_mesh)
         q = dist_norm(logits[:, 0], scfg)
         x = dist_sample(gen, q)  # [1]
         tokens[:, cur_len] = x
@@ -121,7 +124,7 @@ def bild_generate(
             start = max(new_len - w, 0)
             target_cache = rollback(target_cache, start)
             logits, target_cache = bundle_t.forward(params_t, cfg_t, tokens[:, start:start + w],
-                                                    target_cache)
+                                                    target_cache, tp_mesh=tp_mesh)
             p_win = dist_norm(logits[0], scfg)
             n, row = check_window(p_win, tokens, start, last_check, new_len, rollback_thres)
             t = dist_sample(gen, dist_take(p_win, row[None]))  # the target's own token at n+1

@@ -51,12 +51,12 @@ def _draft_candidates(bundle, params, scfg, gamma, width, tokens, cur_len, cache
     (q_stack [w, gamma, ...], cand [w, gamma], cache)."""
     cache = rollback(cache, cur_len - 2)
     first_in = tokens[:, cur_len - 2:cur_len].expand(width, 2)
-    logits, cache = bundle.forward(params, bundle.cfg, first_in, cache)
+    logits, cache = bundle.forward(params, bundle.cfg, first_in, cache, tp_mesh=scfg.tp_mesh)
     q = dist_norm(logits[:, -1], scfg)  # [w, ...]
     x = dist_sample(generator, q)  # [w]
     qs, xs = [q], [x]
     for _ in range(gamma - 1):
-        logits, cache = bundle.forward(params, bundle.cfg, x[:, None], cache)
+        logits, cache = bundle.forward(params, bundle.cfg, x[:, None], cache, tp_mesh=scfg.tp_mesh)
         q = dist_norm(logits[:, 0], scfg)
         x = dist_sample(generator, q)
         qs.append(q)
@@ -125,6 +125,7 @@ def multi_speculative_generate(
     generator: Optional[torch.Generator] = None,
     random_seed: Optional[int] = None,
     details: bool = False,
+    tp_mesh=None,
     device=None,
 ):
     """Multi-candidate speculative sampling. Returns numpy int32 [T]
@@ -134,7 +135,8 @@ def multi_speculative_generate(
     (:func:`engine.beam_spec.multi_beam_generate`, ``num_beams`` defaulting
     to max(4, width)); 'diverse' raises as the reference does.
     ``random_seed`` reuses one fixed uniform for every accept test (the
-    reference's reseed-before-every-draw quirk)."""
+    reference's reseed-before-every-draw quirk). ``tp_mesh``: see
+    ``engine/speculative.py::speculative_generate``."""
     if strategy == "diverse":
         raise NotImplementedError("diverse strategy (reference :1510)")
     if strategy in ("beam", "acc_beam"):
@@ -142,13 +144,15 @@ def multi_speculative_generate(
             bundle_d, params_d, bundle_t, params_t, prompt, max_new_tokens,
             gamma=gamma, width=width, num_beams=num_beams,
             eos_token_id=eos_token_id, temperature=temperature, top_k=top_k, top_p=top_p,
-            generator=generator, random_seed=random_seed, details=details, device=device,
+            generator=generator, random_seed=random_seed, details=details, tp_mesh=tp_mesh,
+            device=device,
         )
     if strategy != "iid":
         raise RuntimeError("Strategy not implemented " + strategy)
     dev = resolve_device(device)
-    scfg = SamplingConfig(temperature, top_k, top_p)
+    scfg = SamplingConfig(temperature, top_k, top_p, tp_mesh=tp_mesh)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    bundle_d, bundle_t = bundle_d.for_params(params_d), bundle_t.for_params(params_t)
     params_d, params_t = unstack_layers(params_d), unstack_layers(params_t)
     prompt_padded, p_len = pad_prompt(prompt)
     if p_len < 2:
@@ -169,8 +173,8 @@ def multi_speculative_generate(
     tokens[:, :prompt_t.shape[1]] = prompt_t
     host[:prompt_padded.shape[1]] = prompt_padded[0]
     rep = prompt_t.expand(width, prompt_t.shape[1])
-    _, draft_cache = bundle_d.forward(params_d, bundle_d.cfg, rep, draft_cache)
-    _, target_cache = bundle_t.forward(params_t, bundle_t.cfg, rep, target_cache)
+    _, draft_cache = bundle_d.forward(params_d, bundle_d.cfg, rep, draft_cache, tp_mesh=tp_mesh)
+    _, target_cache = bundle_t.forward(params_t, bundle_t.cfg, rep, target_cache, tp_mesh=tp_mesh)
 
     total = p_len + max_new_tokens
     cur_len = p_len
@@ -181,7 +185,8 @@ def multi_speculative_generate(
             bundle_d, params_d, scfg, gamma, width, tokens, cur_len, draft_cache, gen)
         target_cache = rollback(target_cache, cur_len - 1)
         vin = torch.cat([tokens[:, cur_len - 1:cur_len].expand(width, 1), cand], dim=1)
-        logits, target_cache = bundle_t.forward(params_t, bundle_t.cfg, vin, target_cache)
+        logits, target_cache = bundle_t.forward(params_t, bundle_t.cfg, vin, target_cache,
+                                                tp_mesh=tp_mesh)
         p_stack = dist_norm(logits, scfg)  # [w, gamma+1, ...]
         max_l, choice, t, rate = _accept(scfg, gamma, q_stack, cand, p_stack, gen, fixed_r)
         rate_sum += rate

@@ -55,15 +55,19 @@ def random_width_beam_generate(
     top_p: float = 0.0,
     generator: Optional[torch.Generator] = None,
     details: bool = False,
+    tp_mesh=None,
     device=None,
 ):
     """Target-only random-width beam sampling (the reference's
     ``random_width_beam_sampling``). Returns the best candidate as numpy
     int32 [T] (prompt included); with ``details=True`` also the timing
-    dict of the reference's target-only blocks."""
+    dict of the reference's target-only blocks. ``tp_mesh``: see
+    ``engine/speculative.py::speculative_generate``; the joint takes a
+    full-vocab log-softmax, so the forwards give the full vocab."""
     dev = resolve_device(device)
-    scfg = SamplingConfig(temperature, top_k, top_p)
+    scfg = SamplingConfig(temperature, top_k, top_p, tp_mesh=tp_mesh)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    bundle = bundle.for_params(params)
     params = unstack_layers(params)
     cfg = bundle.cfg
     kmax, vocab = max_num_beams, cfg.vocab_size

@@ -56,12 +56,13 @@ def draft_phase(bundle, params, scfg, gamma, tokens, cur_len: int, cache, genera
     single-token forwards."""
     cfg = bundle.cfg
     cache = rollback(cache, cur_len - 2)
-    logits, cache = bundle.forward(params, cfg, tokens[:, cur_len - 2:cur_len], cache)
+    logits, cache = bundle.forward(params, cfg, tokens[:, cur_len - 2:cur_len], cache,
+                                   tp_mesh=scfg.tp_mesh)
     q = dist_norm(logits[:, -1], scfg)
     x = dist_sample(generator, q)  # [1]
     qs, xs = [q], [x]
     for _ in range(gamma - 1):
-        logits, cache = bundle.forward(params, cfg, x[:, None], cache)
+        logits, cache = bundle.forward(params, cfg, x[:, None], cache, tp_mesh=scfg.tp_mesh)
         q = dist_norm(logits[:, 0], scfg)
         x = dist_sample(generator, q)
         qs.append(q)
@@ -74,7 +75,8 @@ def draft_phase(bundle, params, scfg, gamma, tokens, cur_len: int, cache, genera
 def verify_phase(bundle, params, scfg, gamma, tokens, cur_len: int, cache):
     """One target forward over the gamma+1 tail tokens -> (p_stack [g+1, ...], cache)."""
     cache = rollback(cache, cur_len - 1)
-    logits, cache = bundle.forward(params, bundle.cfg, tokens[:, cur_len - 1:cur_len + gamma], cache)
+    logits, cache = bundle.forward(params, bundle.cfg, tokens[:, cur_len - 1:cur_len + gamma], cache,
+                                   tp_mesh=scfg.tp_mesh)
     return dist_norm(logits[0], scfg), cache
 
 
@@ -163,6 +165,7 @@ def speculative_generate(
     details: bool = False,
     stepwise: bool = False,
     verbose: bool = False,
+    tp_mesh=None,
     device=None,
 ):
     """Speculative sampling with KV rollback. Returns numpy int32 [T]
@@ -173,11 +176,18 @@ def speculative_generate(
     the measured approx/target/other split; otherwise the split is
     calibrated (engine/phases.py). ``verbose`` prints the per-token stream
     and implies ``stepwise``. ``random_seed`` reuses one fixed uniform for
-    every accept test (the reference's reseed-before-every-draw quirk)."""
+    every accept test (the reference's reseed-before-every-draw quirk).
+
+    Params sharded over a tensor-parallel mesh (``parallel/sharding.py``)
+    run on every rank of it, each with a generator made from the same
+    seed; ``tp_mesh`` (that mesh) samples from vocab-sharded logits
+    (``ops/sampling.py::norm_logits_topk_tp``) instead of gathered ones,
+    with the same result."""
     del pad_token_id
     dev = resolve_device(device)
-    scfg = SamplingConfig(temperature, top_k, top_p)
+    scfg = SamplingConfig(temperature, top_k, top_p, tp_mesh=tp_mesh)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    bundle_d, bundle_t = bundle_d.for_params(params_d), bundle_t.for_params(params_t)
     params_d, params_t = unstack_layers(params_d), unstack_layers(params_t)
     prompt_padded, p_len = pad_prompt(prompt)
     if p_len < 2:
@@ -196,8 +206,9 @@ def speculative_generate(
     tokens = torch.zeros((1, max_total), dtype=torch.long, device=dev)
     prompt_t = torch.as_tensor(prompt_padded, dtype=torch.long).to(dev)
     tokens[:, : prompt_t.shape[1]] = prompt_t
-    _, draft_cache = bundle_d.forward(params_d, bundle_d.cfg, prompt_t, draft_cache)
-    _, target_cache = bundle_t.forward(params_t, bundle_t.cfg, prompt_t, target_cache)
+    _, draft_cache = bundle_d.forward(params_d, bundle_d.cfg, prompt_t, draft_cache, tp_mesh=tp_mesh)
+    _, target_cache = bundle_t.forward(params_t, bundle_t.cfg, prompt_t, target_cache,
+                                       tp_mesh=tp_mesh)
 
     total = p_len + max_new_tokens
     cur_len = p_len

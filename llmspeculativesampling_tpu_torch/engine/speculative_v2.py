@@ -63,16 +63,20 @@ def speculative_generate_v2(
     generator: Optional[torch.Generator] = None,
     random_seed: Optional[int] = None,
     details: bool = False,
+    tp_mesh=None,
     device=None,
 ):
     """Speculative sampling without a KV cache (the reference's
     ``speculative_sampling_v2``). Returns numpy int32 [T] (prompt included,
     cut after the first generated EOS); with ``details=True`` also the
     reference-schema dict. ``random_seed`` reuses one fixed uniform for
-    every accept test (the reference's reseed-before-every-draw quirk)."""
+    every accept test (the reference's reseed-before-every-draw quirk).
+    ``tp_mesh``: see ``engine/speculative.py::speculative_generate``; every
+    distribution here is dense, so the forwards give the full vocab."""
     dev = resolve_device(device)
-    scfg = SamplingConfig(temperature, top_k, top_p)
+    scfg = SamplingConfig(temperature, top_k, top_p, tp_mesh=tp_mesh)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    bundle_d, bundle_t = bundle_d.for_params(params_d), bundle_t.for_params(params_t)
     params_d, params_t = unstack_layers(params_d), unstack_layers(params_t)
     prompt_padded, p_len = pad_prompt(prompt)
     max_total = aligned_total(prompt_padded.shape[1] + max_new_tokens + gamma + 1)

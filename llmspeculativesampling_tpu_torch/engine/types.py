@@ -5,25 +5,34 @@ helpers are this package's own copies)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 
 from ..cache.kvcache import init_cache, init_quant_cache
+from ..parallel.sharding import local_heads, mesh_of
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     """Static half of a model: config + forward function.
 
-    ``forward(params, cfg, tokens, cache, positions=None, tree_mask=None)``
-    -> (logits_f32 [B,S,V], cache). ``kv_quant=True`` selects the int8 KV
-    cache."""
+    ``forward(params, cfg, tokens, cache, positions=None, tree_mask=None,
+    tp_mesh=None)`` -> (logits_f32 [B,S,V], cache). ``kv_quant=True``
+    selects the int8 KV cache. ``mesh`` (a tensor-parallel mesh, set by
+    :meth:`for_params`) makes the caches hold this rank's kv heads."""
 
     family: str
     cfg: object
     forward: Callable
     kv_quant: bool = False
+    mesh: Optional[object] = None
+
+    def for_params(self, params) -> "ModelBundle":
+        """This bundle with the mesh ``params`` are sharded over (itself for
+        a whole tree), so its caches fit the sharded forward."""
+        mesh = mesh_of(params)
+        return self if mesh is self.mesh else dataclasses.replace(self, mesh=mesh)
 
     def make_cache(self, batch: int, max_len: int, device=None):
         c = self.cfg
@@ -34,11 +43,11 @@ class ModelBundle:
                 f"window {window}: this decoder implements full attention "
                 "and matches the checkpoint only within the window"
             )
+        n_kv = local_heads(c, self.mesh)[1]
         if self.kv_quant:
-            return init_quant_cache(c.num_layers, batch, c.num_kv_heads, max_len, c.head_dim,
-                                    device=device)
-        return init_cache(c.num_layers, batch, c.num_kv_heads, max_len, c.head_dim,
-                          c.torch_dtype, device=device)
+            return init_quant_cache(c.num_layers, batch, n_kv, max_len, c.head_dim, device=device)
+        return init_cache(c.num_layers, batch, n_kv, max_len, c.head_dim, c.torch_dtype,
+                          device=device)
 
 
 def aligned_total(n: int, multiple: int = 128) -> int:

@@ -42,11 +42,13 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def int8_matmul_ref(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def int8_matmul_ref(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+                    out_dtype=None) -> torch.Tensor:
     """Plain version: bf16(x) @ widen(w_q) with exact products and fp32
-    sums, times the per-column scale, cast to x's dtype."""
+    sums, times the per-column scale, cast to ``out_dtype`` (x's dtype by
+    default)."""
     y = x.to(torch.bfloat16).float() @ w_q.float()
-    return (y * scale.float()[None, :]).to(x.dtype)
+    return (y * scale.float()[None, :]).to(out_dtype or x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,7 +97,7 @@ def _launch(x2: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, out_dtype,
     if w_q.dtype != torch.int8:
         raise NotImplementedError(f"the CUDA W8A16 kernel takes int8 weights, got {w_q.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"x must be bfloat16 or float32, got {out_dtype}")
+        raise TypeError(f"the output must be bfloat16 or float32, got {out_dtype}")
     if k % 8 or n % 16:
         raise ValueError(f"kernel needs K % 8 == 0 and N % 16 == 0, got K={k} N={n}")
     dev = x2.device
@@ -136,18 +138,20 @@ def _lib():
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
-                batch_invariant: bool = False) -> torch.Tensor:
-    """``x [..., K] @ dequant(w_q [K, N], scale [N]) -> [..., N]`` in x's
-    dtype. CPU tensors take the plain version; CUDA tensors the kernel,
-    planned with ``batch_invariant`` (see :func:`plan`), which raises under
-    grad mode when ``x`` requires grad (the kernel has no backward pass)."""
+                batch_invariant: bool = False, out_dtype=None) -> torch.Tensor:
+    """``x [..., K] @ dequant(w_q [K, N], scale [N]) -> [..., N]`` in
+    ``out_dtype`` (x's dtype by default; float32 keeps the sums unrounded,
+    as a row-parallel projection's partials must be before their reduce).
+    CPU tensors take the plain version; CUDA tensors the kernel, planned
+    with ``batch_invariant`` (see :func:`plan`), which raises under grad
+    mode when ``x`` requires grad (the kernel has no backward pass)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cpu":
-        out = int8_matmul_ref(x2, w_q, scale)
+        out = int8_matmul_ref(x2, w_q, scale, out_dtype)
     elif x.device.type == "cuda":
         _build.refuse_grad("int8_matmul", x, scale)
-        out = _launch(x2, w_q, scale, x.dtype, batch_invariant)
+        out = _launch(x2, w_q, scale, out_dtype or x.dtype, batch_invariant)
     else:
         raise ValueError(f"unsupported device {x.device}")
     return out.reshape(*lead, w_q.shape[1])

@@ -29,32 +29,41 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
-def fp8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``x [..., K] @ dequant(w_q [K, N] fp8 e4m3, scale [N])`` in x's dtype:
-    ``bf16(x) @ bf16(w_q)`` (e4m3 widens exactly) with fp32 sums, times the
-    scale, as the JAX package's ``int8_matmul_ref``."""
+def fp8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+               out_dtype=None) -> torch.Tensor:
+    """``x [..., K] @ dequant(w_q [K, N] fp8 e4m3, scale [N])`` in
+    ``out_dtype`` (x's dtype by default): ``bf16(x) @ bf16(w_q)`` (e4m3
+    widens exactly) with fp32 sums, times the scale, as the JAX package's
+    ``int8_matmul_ref``."""
     lead = x.shape[:-1]
     y = matmul_f32(x.reshape(-1, x.shape[-1]).to(torch.bfloat16), w_q.to(torch.bfloat16))
-    return (y * scale.float()[None, :]).to(x.dtype).reshape(*lead, w_q.shape[-1])
+    return (y * scale.float()[None, :]).to(out_dtype or x.dtype).reshape(*lead, w_q.shape[-1])
 
 
-def quant_matmul(x: torch.Tensor, w: dict, batch_invariant: bool = False) -> torch.Tensor:
+def quant_matmul(x: torch.Tensor, w: dict, batch_invariant: bool = False,
+                 out_dtype=None) -> torch.Tensor:
     """A quantized leaf's product, dispatched on its dtype: int8 -> the
     W8A16 kernel (whose wrapper raises on any other dtype), fp8 e4m3 ->
     :func:`fp8_matmul`."""
     q, s = w[QUANT_LEAF_Q], w[QUANT_LEAF_S]
     if q.dtype == torch.float8_e4m3fn:
-        return fp8_matmul(x, q, s)
-    return int8_matmul(x, q, s, batch_invariant)
+        return fp8_matmul(x, q, s, out_dtype)
+    if out_dtype is None:
+        return int8_matmul(x, q, s, batch_invariant)
+    return int8_matmul(x, q, s, batch_invariant, out_dtype=out_dtype)
 
 
 def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
-           batch_invariant: bool = False) -> torch.Tensor:
+           batch_invariant: bool = False, out_dtype=None) -> torch.Tensor:
     """``x @ w (+ bias)``; ``batch_invariant`` plans the W8A16 kernel so a
     row's output does not depend on the rows beside it
-    (``kernels/int8_matmul.py::plan``)."""
+    (``kernels/int8_matmul.py::plan``). ``out_dtype=torch.float32`` returns
+    the unrounded fp32 sums (a row-parallel projection's partials, summed
+    over tp before the cast)."""
     if is_quantized_leaf(w):
-        y = quant_matmul(x, w, batch_invariant)
+        y = quant_matmul(x, w, batch_invariant, out_dtype)
+    elif out_dtype == torch.float32:
+        y = matmul_f32(x.reshape(-1, x.shape[-1]), w).reshape(*x.shape[:-1], w.shape[-1])
     else:
         y = x @ w
     if bias is not None:

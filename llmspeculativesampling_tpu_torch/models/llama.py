@@ -43,6 +43,8 @@ from ..cache.kvcache import (
 from ..core.config import LlamaConfig, resolve_device
 from ..kernels import flash_decode
 from ..kernels.paged_flash_decode import paged_flash_decode_attention
+from ..parallel.comm import all_reduce, logits_over, row_parallel
+from ..parallel.sharding import local_heads, mesh_of
 from .linear import linear, lm_head_logits
 
 _MASK_VALUE = -1e30
@@ -282,6 +284,21 @@ def layer_attention(plan: AttentionPlan, cache, li: int, q, k, v, scale: float,
     return ctx.transpose(1, 2).reshape(b, s, n_heads * head_dim)
 
 
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor, mesh, dtype) -> torch.Tensor:
+    """Embedding rows of ``tokens`` in ``dtype``. On a vocab-parallel shard
+    (``mesh``), this rank's rows ``[V/tp]`` give the ids in its range and
+    zeros elsewhere, summed over tp in fp32: each sum has one nonzero term,
+    so it is exact."""
+    if mesh is None:
+        return embed[tokens].to(dtype)
+    n = embed.shape[0]
+    local = tokens - mesh.tp_rank * n
+    hit = (local >= 0) & (local < n)
+    rows = embed[local.clamp(0, n - 1)].float()
+    rows = torch.where(hit[..., None], rows, torch.zeros((), device=rows.device))
+    return all_reduce(rows, mesh).to(dtype)
+
+
 def advance(plan: AttentionPlan, cache, s: int):
     """The cache after a forward of ``s`` tokens: length (or every row's
     device length) += s."""
@@ -299,6 +316,7 @@ def forward(
     tree_mask: Optional[torch.Tensor] = None,
     paged_prefill: bool = False,
     batch_invariant: bool = False,
+    tp_mesh=None,
 ) -> Tuple[torch.Tensor, object]:
     """Run the decoder over ``tokens`` [B, S] given ``cache``.
 
@@ -313,39 +331,51 @@ def forward(
     W8A16 calls are planned batch-invariant, so a request's prefill gives
     the same bits whatever requests are admitted with it.
     ``batch_invariant=True`` plans B1, the dense head and the paged kernel
-    batch-invariant on any block (the prefix cache's extend windows)."""
+    batch-invariant on any block (the prefix cache's extend windows).
+
+    A tree sharded over a tensor-parallel mesh (``parallel/sharding.py``)
+    runs this rank's heads, MLP columns and vocab rows against a cache at
+    its kv heads: the embedding and the row-parallel ``wo``/``w_down``
+    (fp32 partials) are summed over tp. The logits are the full vocab
+    (gathered), or with ``tp_mesh`` this rank's vocab slice, as
+    ``ops/sampling.py::norm_logits_topk_tp`` takes them
+    (``parallel/comm.py::logits_over``)."""
     b, s = tokens.shape
     dev = tokens.device
     dtype = cfg.torch_dtype
+    mesh = mesh_of(params)
+    n_heads, n_kv = local_heads(cfg, mesh)
     layers = unstack_layers(params)["layers"]
     plan = attention_plan(cache, s, b, dev, cfg.flash, tree_mask, paged_prefill, batch_invariant)
     if positions is None:
         positions = (plan.offset + torch.arange(s, device=dev)[None]).expand(b, s)
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, cfg.max_position)
 
-    h = params["embed"][tokens].to(dtype)
+    h = embed_tokens(params["embed"], tokens, mesh, dtype)
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
     lin = functools.partial(linear, batch_invariant=plan.batch_invariant)
+    row = lin if mesh is None else (
+        lambda x, w: row_parallel(lin(x, w, out_dtype=torch.float32), mesh, dtype))
     for li, lp in enumerate(layers):
         r = rms_norm(h, lp["ln_attn"], cfg.rms_norm_eps)
-        q = lin(r, lp["wq"], lp.get("bq")).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = lin(r, lp["wk"], lp.get("bk")).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = lin(r, lp["wv"], lp.get("bv")).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = lin(r, lp["wq"], lp.get("bq")).reshape(b, s, n_heads, cfg.head_dim)
+        k = lin(r, lp["wk"], lp.get("bk")).reshape(b, s, n_kv, cfg.head_dim)
+        v = lin(r, lp["wv"], lp.get("bv")).reshape(b, s, n_kv, cfg.head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         ctx = layer_attention(plan, cache, li, q, k, v, scale, dtype)
-        h = h + lin(ctx, lp["wo"])
+        h = h + row(ctx, lp["wo"])
 
         r = rms_norm(h, lp["ln_mlp"], cfg.rms_norm_eps)
         gate = torch.nn.functional.silu(lin(r, lp["w_gate"]).float()).to(dtype)
         up = lin(r, lp["w_up"])
-        h = h + lin(gate * up, lp["w_down"])
+        h = h + row(gate * up, lp["w_down"])
 
     h = rms_norm(h, params["ln_final"], cfg.rms_norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = lm_head_logits(h, head, batch_invariant=plan.batch_invariant)
-    return logits, advance(plan, cache, s)
+    return logits_over(logits, mesh, tp_mesh), advance(plan, cache, s)
 
 
 def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None, device=None) -> dict:

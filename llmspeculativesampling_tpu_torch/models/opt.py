@@ -25,8 +25,10 @@ import torch
 import torch.nn.functional as F
 
 from ..core.config import OPTConfig, resolve_device
+from ..parallel.comm import logits_over, row_parallel
+from ..parallel.sharding import local_heads, mesh_of
 from .linear import linear, lm_head_logits
-from .llama import advance, attention_plan, layer_attention, unstack_layers
+from .llama import advance, attention_plan, embed_tokens, layer_attention, unstack_layers
 
 POS_OFFSET = 2  # OPT's positional table reserves rows 0 and 1
 
@@ -48,10 +50,13 @@ def forward(
     tree_mask: Optional[torch.Tensor] = None,
     paged_prefill: bool = False,
     batch_invariant: bool = False,
+    tp_mesh=None,
 ) -> Tuple[torch.Tensor, object]:
     """Decode ``tokens`` [B, S] -> (logits [B, S, V] float32, cache + S),
     over a contiguous or a paged cache, as ``models/llama.py::forward``
-    (``paged_prefill`` and ``batch_invariant`` alike).
+    (``paged_prefill``, ``batch_invariant``, a tensor-parallel shard and
+    ``tp_mesh`` alike; the row-parallel ``bo``/``fc2_b`` are added once,
+    after the sum over tp).
 
     Positions index ``embed_pos`` at ``positions + 2``; the table has
     ``max_position + 2`` rows. A position outside it raises and is never
@@ -63,6 +68,8 @@ def forward(
     b, s = tokens.shape
     dev = tokens.device
     dtype = cfg.torch_dtype
+    mesh = mesh_of(params)
+    n_heads, _ = local_heads(cfg, mesh)
     layers = unstack_layers(params)["layers"]
     plan = attention_plan(cache, s, b, dev, cfg.flash, tree_mask, paged_prefill, batch_invariant)
     if plan.length is not None and plan.length + s > cfg.max_position:
@@ -72,12 +79,14 @@ def forward(
         positions = (plan.offset + torch.arange(s, device=dev)[None]).expand(b, s)
 
     lin = functools.partial(linear, batch_invariant=plan.batch_invariant)
-    h = params["embed"][tokens].to(dtype)
+    row = lin if mesh is None else (
+        lambda x, w, bias: row_parallel(lin(x, w, out_dtype=torch.float32), mesh, dtype, bias))
+    h = embed_tokens(params["embed"], tokens, mesh, dtype)
     if "project_in" in params:
         h = lin(h, params["project_in"])
     h = h + F.embedding(positions + POS_OFFSET, params["embed_pos"]).to(dtype)
 
-    n_heads, head_dim = cfg.num_heads, cfg.head_dim
+    head_dim = cfg.head_dim
     scale = 1.0 / math.sqrt(head_dim)
     eps, pre = cfg.layer_norm_eps, cfg.do_layer_norm_before
     for li, lp in enumerate(layers):
@@ -86,13 +95,13 @@ def forward(
         k = lin(r, lp["wk"], lp["bk"]).reshape(b, s, n_heads, head_dim)
         v = lin(r, lp["wv"], lp["bv"]).reshape(b, s, n_heads, head_dim)
         ctx = layer_attention(plan, cache, li, q, k, v, scale, dtype)
-        h = h + lin(ctx, lp["wo"], lp["bo"])
+        h = h + row(ctx, lp["wo"], lp["bo"])
         if not pre:
             h = layer_norm(h, lp["ln_attn_w"], lp["ln_attn_b"], eps)
 
         r = layer_norm(h, lp["ln_mlp_w"], lp["ln_mlp_b"], eps) if pre else h
         r = torch.relu(lin(r, lp["fc1_w"], lp["fc1_b"]))
-        h = h + lin(r, lp["fc2_w"], lp["fc2_b"])
+        h = h + row(r, lp["fc2_w"], lp["fc2_b"])
         if not pre:
             h = layer_norm(h, lp["ln_mlp_w"], lp["ln_mlp_b"], eps)
 
@@ -102,7 +111,7 @@ def forward(
         h = lin(h, params["project_out"])
     head = params.get("lm_head", params["embed"])
     logits = lm_head_logits(h, head, batch_invariant=plan.batch_invariant)
-    return logits, advance(plan, cache, s)
+    return logits_over(logits, mesh, tp_mesh), advance(plan, cache, s)
 
 
 def init_params(cfg: OPTConfig, generator: Optional[torch.Generator] = None, device=None) -> dict:

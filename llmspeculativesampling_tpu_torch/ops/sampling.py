@@ -29,16 +29,27 @@ _NEG_INF = float("-inf")
 
 @dataclasses.dataclass(frozen=True)
 class SamplingConfig:
-    """Static sampling knobs (temperature, top_k, top_p)."""
+    """Static sampling knobs (temperature, top_k, top_p).
+
+    ``tp_mesh`` (a ``parallel.sharding.Mesh``) declares that the logits fed
+    to :func:`dist_norm` are this rank's vocab slice over that mesh's tp
+    axis: the sparse path then runs :func:`norm_logits_topk_tp`, whose one
+    collective moves ``tp * k`` candidates a row instead of the vocab. It
+    needs ``top_k > 0``, as in JAX: the dense path has no distributed form."""
 
     temperature: float = 1.0
     top_k: int = 0
     top_p: float = 0.0
+    tp_mesh: Optional[object] = None
 
     def __post_init__(self):
         object.__setattr__(self, "temperature", float(self.temperature))
         object.__setattr__(self, "top_k", int(self.top_k))
         object.__setattr__(self, "top_p", float(self.top_p))
+        if self.tp_mesh is not None and self.top_k <= 0:
+            raise ValueError(
+                "tp_mesh sampling requires top_k > 0: the dense (top_k=0) path has no "
+                "distributed implementation and would gather full-vocab logits every step")
 
 
 def apply_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
@@ -177,19 +188,55 @@ class TopKDist(NamedTuple):
     probs: torch.Tensor
 
 
-def norm_logits_topk(logits: torch.Tensor, cfg: SamplingConfig) -> TopKDist:
-    """Sparse :func:`norm_logits`; requires ``cfg.top_k > 0``."""
-    if cfg.top_k <= 0:
-        raise ValueError("the sparse path requires top-k filtering")
-    k = min(cfg.top_k, logits.shape[-1])
-    x = logits.float()
-    if cfg.temperature != 1.0:
-        x = x / cfg.temperature
-    vals, idx = torch.topk(x, k, dim=-1)
+def topk_lowest_id(x: torch.Tensor, k: int):
+    """The ``k`` largest values along the last axis and their ids, in
+    descending order, the lowest id first among equal values (the order of
+    JAX's ``lax.top_k``; ``torch.topk`` leaves ties unordered)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _sparse_dist(vals: torch.Tensor, idx: torch.Tensor, cfg: SamplingConfig) -> TopKDist:
     probs = torch.softmax(vals, dim=-1)
     if cfg.top_p > 0.0:
         probs = _nucleus(probs, cfg.top_p)
     return TopKDist(idx, probs)
+
+
+def _tempered(logits: torch.Tensor, cfg: SamplingConfig) -> torch.Tensor:
+    x = logits.float()
+    return x / cfg.temperature if cfg.temperature != 1.0 else x
+
+
+def norm_logits_topk(logits: torch.Tensor, cfg: SamplingConfig) -> TopKDist:
+    """Sparse :func:`norm_logits`; requires ``cfg.top_k > 0``."""
+    if cfg.top_k <= 0:
+        raise ValueError("the sparse path requires top-k filtering")
+    vals, idx = topk_lowest_id(_tempered(logits, cfg), min(cfg.top_k, logits.shape[-1]))
+    return _sparse_dist(vals, idx, cfg)
+
+
+def norm_logits_topk_tp(logits: torch.Tensor, cfg: SamplingConfig) -> TopKDist:
+    """:func:`norm_logits_topk` of vocab-sharded logits: ``logits`` [..., V/tp]
+    is this rank's contiguous slice of ``cfg.tp_mesh``'s vocab. Each rank
+    takes its local top-k (global ids), one gather moves the ``tp * k``
+    candidates of every row, and a top-k of those merges them: the global
+    top-k is the top-k of the per-shard top-ks. The candidates stand in
+    shard order, so among equal values the lowest id wins, as in
+    :func:`norm_logits_topk`, and the result is the same bits."""
+    from ..parallel.comm import gather_last
+
+    mesh, k = cfg.tp_mesh, cfg.top_k
+    n = logits.shape[-1]
+    if k <= 0 or k > n:
+        raise ValueError(f"tp sampling needs 0 < top_k <= V/tp, got top_k={k}, V/tp={n}")
+    vals, idx = topk_lowest_id(_tempered(logits, cfg), k)
+    idx = idx + mesh.tp_rank * n
+    # one collective for both: fp64 holds the fp32 values and the ids exactly
+    cand = gather_last(torch.stack([vals.double(), idx.double()], dim=-2), mesh)  # [..., 2, tp*k]
+    mvals, pos = topk_lowest_id(cand[..., 0, :].float(), k)
+    midx = torch.gather(cand[..., 1, :], -1, pos).long()
+    return _sparse_dist(mvals, midx, cfg)
 
 
 def sample_topk_u(dist: TopKDist, u: torch.Tensor) -> torch.Tensor:
@@ -384,7 +431,11 @@ def use_sparse(cfg: SamplingConfig) -> bool:
 
 
 def dist_norm(logits: torch.Tensor, cfg: SamplingConfig):
-    return norm_logits_topk(logits, cfg) if use_sparse(cfg) else norm_logits(logits, cfg)
+    if use_sparse(cfg):
+        if cfg.tp_mesh is not None:
+            return norm_logits_topk_tp(logits, cfg)
+        return norm_logits_topk(logits, cfg)
+    return norm_logits(logits, cfg)
 
 
 def dist_sample(generator, dist) -> torch.Tensor:

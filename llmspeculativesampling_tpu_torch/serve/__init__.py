@@ -1,7 +1,9 @@
 """Serving (counterpart of ``llmspeculativesampling_tpu/serve``): the HTTP
-front ends, the slotted continuous-batching engine and the paged engine
-(``serve/paged.py``)."""
+front ends, the slotted continuous-batching engine, the paged engine
+(``serve/paged.py``) and the lockstep drivers across ranks
+(``serve/multihost.py``)."""
 
+from .multihost import MultiHostDriver, PagedMultiHostDriver, WorkerLostError
 from .scheduler import Completion, ContinuousBatchingEngine, Request
 from .server import (
     BatchedInferenceServer,
@@ -15,7 +17,10 @@ __all__ = [
     "Completion",
     "ContinuousBatchingEngine",
     "InferenceServer",
+    "MultiHostDriver",
+    "PagedMultiHostDriver",
     "Request",
     "ServerConfig",
+    "WorkerLostError",
     "make_http_server",
 ]

@@ -43,8 +43,13 @@ one packed metadata read per chunk, and harvested (pages freed) when done.
   (``adaptive_gamma_mode="epoch"``, the default) or per chunk
   (``"chunk"``). Pages are sized for the deepest arm.
 
-The data-parallel ``mesh`` is not ported yet and raises
-``NotImplementedError``.
+``mesh`` (a ``parallel.sharding.Mesh``, every rank of it running the
+engine in lockstep, as ``serve/multihost.py`` drives it) shards the params
+Megatron-style over tp and the pools' kv heads with them; the forwards sum
+over tp and give every rank the full vocab, so every host decision is
+replicated. A data-parallel axis above 1 raises ``NotImplementedError``
+(ROADMAP A16 step 2), and so does adaptive gamma across ranks: its
+controller decides from each host's own clock.
 
 Differences from the JAX engine that do not change what it computes:
   * the host loop runs eagerly: a chunk ends early when no row is live by
@@ -88,6 +93,7 @@ from ..core.config import resolve_device, synchronize
 from ..engine.types import ModelBundle, first_eos_truncate, pad_prompt
 from ..models.llama import unstack_layers
 from ..ops.sampling import SamplingConfig, dist_map, row_keys
+from ..parallel.sharding import require_dp1, shard_for, shard_paged_state
 from .batched import (
     BatchState,
     accept_rows,
@@ -352,14 +358,18 @@ class PagedEngine:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
+        require_dp1(mesh, "PagedEngine(mesh=...)")
+        if mesh is not None and mesh.size > 1 and adaptive_gamma:
             raise NotImplementedError(
-                "PagedEngine(mesh=...) is not ported yet: ROADMAP A16 (data-parallel mesh)")
+                "PagedEngine(mesh=..., adaptive_gamma=...): the controller picks gamma from "
+                "each rank's own clock, so ranks in lockstep would diverge")
         if adaptive_gamma_mode not in ("epoch", "chunk"):
             raise ValueError(f"adaptive_gamma_mode={adaptive_gamma_mode!r}")
         self.device = resolve_device(device)
-        self.bundle_d, self.params_d = bundle_d, unstack_layers(params_d)
-        self.bundle_t, self.params_t = bundle_t, unstack_layers(params_t)
+        self.mesh = mesh
+        params_d, params_t = shard_for(bundle_d, params_d, mesh), shard_for(bundle_t, params_t, mesh)
+        self.bundle_d, self.params_d = bundle_d.for_params(params_d), unstack_layers(params_d)
+        self.bundle_t, self.params_t = bundle_t.for_params(params_t), unstack_layers(params_t)
         self.batch_rows = batch_rows
         self.page = page
         self.eos_token_id = eos_token_id
@@ -442,6 +452,8 @@ class PagedEngine:
             acc_rate_sum=zeros(b, dtype=torch.float32),
             acc_len_hist=zeros(b, max_new_cap),
         )
+        if mesh is not None:
+            self.state = shard_paged_state(self.state, mesh)
         self._next_rid = 0
         self._pending: collections.deque[Request] = collections.deque()
         self._row_req: list[Optional[Request]] = [None] * b

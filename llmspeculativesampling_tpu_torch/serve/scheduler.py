@@ -30,7 +30,12 @@ Differences from the JAX engine that do not change what it computes:
     the counterpart of ``fold_in(admit_key, rid)``;
   * TTFT is stamped once the admission prefill has finished on the device.
 
-The multi-host ``mesh`` is not ported yet and raises ``NotImplementedError``.
+``mesh`` (a ``parallel.sharding.Mesh``, every rank of it running the
+engine in lockstep, as ``serve/multihost.py`` drives it) shards the params
+Megatron-style over tp and the caches' kv heads with them; the forwards sum
+over tp and give every rank the full vocab, so each host read is
+replicated. A data-parallel axis above 1 raises ``NotImplementedError``
+(ROADMAP A16 step 2).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from ..core.config import resolve_device, synchronize
 from ..engine.types import ModelBundle, first_eos_truncate, pad_prompt
 from ..models.llama import unstack_layers
 from ..ops.sampling import SamplingConfig, row_keys
+from ..parallel.sharding import require_dp1, shard_for, shard_serving_state
 from .batched import (
     BatchState,
     accept_rows,
@@ -192,10 +198,7 @@ class ContinuousBatchingEngine:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ContinuousBatchingEngine(mesh=...) is not ported yet: ROADMAP A16 "
-                "(multi-host serving)")
+        require_dp1(mesh, "ContinuousBatchingEngine(mesh=...)")
         for b in (bundle_d, bundle_t):
             # frozen slots compute up to gamma positions past max_total_len
             # (the cache clamps their writes); a learned position table
@@ -205,8 +208,10 @@ class ContinuousBatchingEngine:
                     f"max_total_len {max_total_len} + gamma {gamma} exceeds the "
                     f"{b.cfg.max_position} learned positions of the {b.family} model")
         self.device = resolve_device(device)
-        self.bundle_d, self.params_d = bundle_d, unstack_layers(params_d)
-        self.bundle_t, self.params_t = bundle_t, unstack_layers(params_t)
+        self.mesh = mesh
+        params_d, params_t = shard_for(bundle_d, params_d, mesh), shard_for(bundle_t, params_t, mesh)
+        self.bundle_d, self.params_d = bundle_d.for_params(params_d), unstack_layers(params_d)
+        self.bundle_t, self.params_t = bundle_t.for_params(params_t), unstack_layers(params_t)
         self.num_slots = num_slots
         self.max_total_len = max_total_len
         self.max_new_cap = max_new_cap
@@ -239,6 +244,8 @@ class ContinuousBatchingEngine:
             acc_rate_sum=zeros(s, dtype=torch.float32),
             acc_len_hist=zeros(s, max_new_cap),
         )
+        if mesh is not None:
+            self.state = shard_serving_state(self.state, mesh)
         self._next_rid = 0
         self._pending: collections.deque[Request] = collections.deque()
         self._slot_req: list[Optional[Request]] = [None] * s
@@ -296,18 +303,28 @@ class ContinuousBatchingEngine:
         (the weights are read once for the run), K rounded up to a power of
         two with the padding rows dropped."""
         free = [i for i, r in enumerate(self._slot_req) if r is None]
+        pairs = []
         while free and self._pending:
+            pairs.append((free.pop(0), self._pending.popleft()))
+        self._admit_pairs(pairs)
+
+    def _admit_pairs(self, pairs) -> None:
+        """Prefill ``pairs`` [(slot, request)] into their slots, in order:
+        runs of up to ``ADMIT_CAP`` sharing one prompt bucket, one prefill
+        a run."""
+        i = 0
+        while i < len(pairs):
             batch = []
             bucket = None
-            while free and self._pending and len(batch) < ADMIT_CAP:
-                nxt = self._pending[0]
-                padded, p_len = pad_prompt(nxt.prompt, self.prompt_bucket)
+            while i < len(pairs) and len(batch) < ADMIT_CAP:
+                slot, req = pairs[i]
+                padded, p_len = pad_prompt(req.prompt, self.prompt_bucket)
                 if bucket is None:
                     bucket = padded.shape[-1]
                 elif padded.shape[-1] != bucket:
                     break
-                self._pending.popleft()
-                batch.append((free.pop(0), nxt, padded.reshape(-1), p_len))
+                batch.append((slot, req, padded.reshape(-1), p_len))
+                i += 1
             self._dispatch_prefill(batch, bucket)
             now = time.perf_counter()
             for slot, req, _, _ in batch:

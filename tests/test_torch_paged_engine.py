@@ -34,6 +34,7 @@ from llmspeculativesampling_tpu_torch.engine import speculative as tspec
 from llmspeculativesampling_tpu_torch.engine.types import ModelBundle as TBundle
 from llmspeculativesampling_tpu_torch.models import llama as tl
 from llmspeculativesampling_tpu_torch.ops import sampling as ts
+from llmspeculativesampling_tpu_torch.parallel.sharding import Mesh
 from llmspeculativesampling_tpu_torch.serve.paged import PagedEngine
 
 from _torch_port import to_port
@@ -203,10 +204,10 @@ def test_partial_result_and_submit_checks(pair):
 
 @pytest.mark.parametrize("option,value", [
     ("chunked_prefill", True), ("prefill_extra", 2), ("adaptive_gamma", (4, 8)),
-    ("mesh", object()),
+    ("mesh", Mesh(np.arange(2).reshape(2, 1), 0)),  # a data-parallel axis of 2
 ])
 def test_later_options_raise(pair, option, value):
-    """Only the data-parallel mesh is left to a later slice; the options
+    """Only a data-parallel mesh axis above 1 is left to a later slice; the options
     ported since (chunked prefill, prefill_extra, adaptive gamma) build and
     are kept."""
     if option == "mesh":

@@ -371,13 +371,16 @@ def test_warmup_keeps_the_rid_sequence(pair):
 
 
 def test_mesh_and_device():
-    """``mesh=`` waits for A16; the engine runs on the card unless the
-    caller asks for the CPU."""
+    """A data-parallel ``mesh=`` axis above 1 waits for A16 step 2; the
+    engine runs on the card unless the caller asks for the CPU."""
+    from llmspeculativesampling_tpu_torch.parallel.sharding import Mesh
+
     bd, bt = _bundles()
     cfg = bt.cfg
     p = tl.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError, match="A16"):
-        ContinuousBatchingEngine(bd, p, bt, p, mesh=object(), device="cpu")
+        ContinuousBatchingEngine(bd, p, bt, p, mesh=Mesh(np.arange(2).reshape(2, 1), 0),
+                                 device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ContinuousBatchingEngine(bd, p, bt, p)
@@ -389,7 +392,7 @@ def test_mesh_and_device():
 # ------------------------------------------------------------------ exports
 
 @pytest.mark.parametrize("sub", ["ops", "cache", "quant", "kernels", "engine", "serve",
-                                 "evalx", "train", "utils"])
+                                 "evalx", "train", "utils", "parallel"])
 def test_subpackage_exports_match_jax(sub):
     """Every name the JAX subpackage exports imports from the port's."""
     jmod = importlib.import_module(f"llmspeculativesampling_tpu.{sub}")
