@@ -49,7 +49,11 @@ Phases, each printing lines before the last:
      columns, o and down with half their rows and fp32 output (the
      row-parallel partials), the 16000-row head (M 1, 25, 144; draft M 1, 2,
      16); B2 at Hkv 20 x 25 and 1, the draft's Hkv 3 x 1 / 2 and the slotted
-     16 x Hkv 20 x 9 (int8 KV); B3 at 16 x Hkv 20 x 9 (int8 pool) and Hkv 3;
+     16 x Hkv 20 x 9 (int8 KV); B3 at 16 x Hkv 20 x 9 (int8 pool) and Hkv 3.
+     At one dp=2 rank's shapes: B1 at the target's projections and head at
+     M = 8 x 9 = 72 and the draft's at M = 8; B2 at 8 slots x Hkv 40 x 9
+     (int8 KV, S_max 256); B3 at B=8 x Hkv 40 x 9 over a 16-block int8 pool
+     with tables of P = 16;
   3. forward: logits of a 2-layer, full-width (5120) int8 Llama slice on the
      card with the kernels vs the same weights on the CPU with the plain
      versions, through a contiguous cache and through a paged int8 pool
@@ -140,7 +144,19 @@ Phases, each printing lines before the last:
      on 16 x (64, 64): tokens and completions identical on both ranks,
      acc_rate >= 0.6, B1, B2 and B3 launched. Its tok/s are one card's
      work split over two processes plus gloo's host transport, not TP
-     speed;
+     speed. Then the data-parallel path: two ranks at dp=2 x tp=1 (each
+     holding the whole pair, params being replicated over dp) and four at
+     dp=2 x tp=2 on the card over gloo: a rank's 8 rows' paged verify
+     logits within 3e-2 of the dp=1 forward over all 16;
+     ``PagedMultiHostDriver`` over ``PagedEngine(mesh=)`` (8 rows and 16
+     int8 blocks a rank) on the uniform mix, ``MultiHostDriver`` over
+     ``ContinuousBatchingEngine(mesh=)`` (8 slots a rank) on 25 x (64,
+     64), and at dp=2 x tp=2 the paged driver on 16 x (64, 32): every
+     rank's completions and gathered token rows identical, every block id
+     a rank's tables hold within its 16-block half, every shard's pool
+     ending free, acc_rate >= 0.6, B1 and B3 launched on the paged runs
+     (B2 not), B1 and B2 on the slotted run (B3 not). Not dp speed
+     either;
   9. the evaluation harness, through ``evalx.harness.main`` at its own
      full-width synthetic pair (Llama 2048 x 16, vocab 32000, bf16): every
      method over 2 prompts of 64 tokens with 64 new tokens and the score,
@@ -161,7 +177,8 @@ Phases, each printing lines before the last:
      B1 and B2 at the slotted verify, under "slotted", B2 at the harness
      verify, under "harness", and B1 and B2 at the trained pair's verify,
      under "trained_pair", and all three at one tp=2 rank's shapes, under
-     "tp"), the card line again, and as the last
+     "tp", and at one dp=2 rank's, under "dp"), the card line again, and as
+     the last
      line ``{"ok": true, "device": {...}}``. Each phase prints its seconds.
 Any failed check raises: the script exits non-zero and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -277,6 +294,20 @@ TP_TARGET_M = (1, GAMMA + 1, ROWS * (SERVE_GAMMA + 1))  # AR decode, single veri
 TP_DRAFT_M = (1, 2, ROWS)                               # draft decode, re-feed, serving draft step
 TP_AR_NEW, TP_SLOT_N = 32, 16  # AR tokens; slotted requests of (64, 64)
 TP_LIMIT_S = 480.0  # each rank's time limit
+# data parallelism: one dp=2 rank's shard of the serving state at the paged
+# and slotted settings above: 8 of the 16 rows over 16 of the 32 int8 blocks
+# of 128 (max_pages_per_req 16, the table width P, at most a shard's pool),
+# 8 of the 16 slots of 256; params replicated. Its verify: B1 at M = 8 x 9,
+# B3 at B = 8 (paged), B2 at 8 slots (slotted); its draft step: B1 at M = 8.
+# The dp=2 x tp=2 run takes the uniform mix cut to 16 x (64, 32). Admission
+# fills shard 0's free rows first (JAX's row order), so the drivers release
+# up to 16 requests a round: at 8 a round (the tp phase's), each round's 8
+# land on shard 0 and finish within its chunk, and shard 1 idles
+DP = 2
+DP_ROWS, DP_BLOCKS, DP_PAGES = ROWS // DP, BLOCKS // DP, BLOCKS // DP
+DP_TARGET_M, DP_DRAFT_M = DP_ROWS * (SERVE_GAMMA + 1), DP_ROWS
+DP_SLOT_N, DP_TP_REQS = 25, [(64, 32)] * 16
+DP_LIMIT_S = 300.0  # each rank's time limit
 
 
 def log(*a):
@@ -844,17 +875,18 @@ def phase_flash_slotted(results):
 
 
 def _paged_inputs(gen, lens, hq, hkv, s_new, d, page, p_max, quant, tree=False,
-                  dtype=torch.bfloat16):
+                  dtype=torch.bfloat16, n_blocks=None):
     """Inputs of one paged attention call in the forward's layouts: q/k_new/
     v_new are [B, H, S_new, D] views of [B, S_new, H, D] projections; pools
-    [N+1, Hkv, page, D] with the trash block last; each row's pages are
-    shuffled blocks from the allocator, unused table slots (and a row of
-    length 0) hold the sentinel N. bf16 q comes pre-scaled (scale 1.0, as
-    in the B2 phase); fp32 q is raw."""
+    [N+1, Hkv, page, D] with the trash block last (N: the rows' pages, or
+    ``n_blocks`` when larger); each row's pages are shuffled blocks from the
+    allocator, unused table slots (and a row of length 0) hold the sentinel
+    N. bf16 q comes pre-scaled (scale 1.0, as in the B2 phase); fp32 q is
+    raw."""
     from llmspeculativesampling_tpu_torch.cache.kvcache import _quantize_kv
 
     b = len(lens)
-    n_blk = max(sum(-(-ln // page) for ln in lens), 1)
+    n_blk = max(sum(-(-ln // page) for ln in lens), n_blocks or 1)
     q = torch.randn((b, s_new, hq, d), generator=gen, device="cuda")
     q = (q / math.sqrt(d) if dtype == torch.bfloat16 else q).to(dtype).transpose(1, 2)
     kn = torch.randn((b, s_new, hkv, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
@@ -933,12 +965,13 @@ def _time_paged_sets(make, s_new, quant, **kernel_kw):
     return t_k, t_p, t_l, n
 
 
-def _time_paged(gen, lens, p_max, hkv, s_new, quant, **kernel_kw):
+def _time_paged(gen, lens, p_max, hkv, s_new, quant, n_blocks=None, **kernel_kw):
     """Kernel, plain and SDPA times and the bound of B3 at B=len(lens),
-    Hq=Hkv, D=128, page 128, each row on pages of its own."""
+    Hq=Hkv, D=128, page 128, each row on pages of its own (of a pool of
+    ``n_blocks``, when given)."""
     t_k, t_p, t_l, n = _time_paged_sets(
-        lambda: _paged_inputs(gen, lens, hkv, hkv, s_new, 128, PAGE, p_max, quant), s_new, quant,
-        **kernel_kw)
+        lambda: _paged_inputs(gen, lens, hkv, hkv, s_new, 128, PAGE, p_max, quant,
+                              n_blocks=n_blocks), s_new, quant, **kernel_kw)
     b_ms, b_by = _flash_bound(hkv, s_new, sum(lens), quant, rows=len(lens),
                               extra_bytes=len(lens) * p_max * 4)
     return t_k, t_p, t_l, b_ms, b_by, n
@@ -1632,6 +1665,100 @@ def phase_tp_kernels(results):
             f"share {b_ms / t_k:.3f}; {n_sets} input sets rotated ({card})")
     log(f"[tp B2/B3] worst max_abs_err B2 {worst_b2:.3e} B3 {worst_b3:.3e}")
     results["tp_kernels"] = dict(b1=fwd, b1_max_abs_err=worst_b1, per_call=per_call,
+                                 b2_max_abs_err=worst_b2, b3_max_abs_err=worst_b3)
+
+
+def phase_dp_kernels(results):
+    """B1, B2 and B3 through their public wrappers at one dp=2 rank's
+    shapes, against their plain versions on the card: B1 at the target's
+    projections and head at M = 8 x 9 = 72 (a rank's verify; the plan
+    takes its K split from M) and the draft's at M = 8 (its draft step);
+    B2 at the slotted verify (8 slots x Hkv 40 x S_new 9 over S_max 256,
+    int8 KV, per-slot lengths); B3 at the paged verify (B=8 x Hkv 40 x 9,
+    a 16-block int8 pool, tables of P = 16). Times, bounds, plain and
+    library times, and B2/B3's block counts."""
+    from llmspeculativesampling_tpu_torch.kernels.flash_decode import (
+        flash_decode_attention, flash_decode_ref, plan as flash_plan)
+    from llmspeculativesampling_tpu_torch.kernels.int8_matmul import int8_matmul, int8_matmul_ref, plan
+    from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
+        paged_flash_decode_attention, paged_flash_decode_ref)
+
+    card = card_line()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rtol, atol_rel = 2.0 ** -7, 1e-3
+    log(f"[dp B1] tolerance as [int8_matmul]: {rtol:.2e}*|plain| + {atol_rel:.0e}*max|plain|")
+    fwd = {(model, m): dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+           for model, m in (("target", DP_TARGET_M), ("draft", DP_DRAFT_M))}
+    worst_b1 = 0.0
+    cases = [("target", DP_TARGET_M, k, n, c) for k, n, c in TARGET_SHAPES + [(5120, VOCAB, 0)]]
+    cases += [("draft", DP_DRAFT_M, k, n, c) for k, n, c in DRAFT_SHAPES + [(768, VOCAB, 0)]]
+    for model, m, k, n, per_layer in cases:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        ws = _rotated(lambda: torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8,
+                                            device="cuda"))
+        s = (0.8 + 0.4 * torch.rand((n,), generator=gen, device="cuda")) / (73.0 * math.sqrt(k))
+        got = int8_matmul(x[None], ws[0], s)[0]
+        ref = int8_matmul_ref(x, ws[0], s)
+        top = float(ref.float().abs().max())
+        max_abs, rel = check_close(f"dp int8_matmul {model} M={m} K={k} N={n}", got, ref, rtol,
+                                   atol_rel * top)
+        worst_b1 = max(worst_b1, max_abs)
+        w16 = [w.to(torch.bfloat16) for w in ws]
+        t_k = time_ms(lambda i: int8_matmul(x[None], ws[i % len(ws)], s), 20)
+        t_p = time_ms(lambda i: int8_matmul_ref(x, ws[i % len(ws)], s), 5)
+        t_l = time_ms(lambda i: torch.matmul(x, w16[i % len(w16)]), 20)
+        b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2, 2 * m * k * n)
+        log(f"[dp B1] {model} M={m:3d} K={k:5d} N={n:5d} plan {plan(m, k, n)}: max_abs_err "
+            f"{max_abs:.3e} (rel {rel:.1e}) kernel_ms {t_k:.4f} plain_ms {t_p:.4f} library_ms "
+            f"{t_l:.4f} (torch.matmul on pre-widened bf16) bound_us {b_ms * 1e3:.1f} ({b_by}) bound "
+            f"share {b_ms / t_k:.3f}")
+        calls = (40 if model == "target" else 2) * per_layer or 1
+        row = fwd[(model, m)]
+        for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l), ("bound_ms", b_ms)):
+            row[key] += calls * t
+        row["bound_by"] = b_by
+        del ws, w16
+    for (model, m), f in fwd.items():
+        calls = 281 if model == "target" else 15
+        log(f"[dp B1] one dp=2 rank's {model} forward ({calls} launches at M={m}): kernel_ms "
+            f"{f['ms']:.3f} plain_ms {f['plain_ms']:.3f} library_ms {f['library_ms']:.3f} bound_ms "
+            f"{f['bound_ms']:.3f} ({f['bound_by']}) bound share {f['bound_ms'] / f['ms']:.3f} ({card})")
+
+    rtol = atol = 2.0 ** -7
+    log(f"[dp B2/B3] tolerance as [flash_decode]: {atol:.2e} + {rtol:.2e}*|plain|, each case "
+        "bit-identical across a repeat and contiguous inputs, one launch a call, counters 0")
+    s9, per_call = SERVE_GAMMA + 1, {}
+    lens = _slot_lens(s9)[:DP_ROWS]
+    q, kn, vn, kc, vc, lengths, bias, ks, vs = _rows_inputs(gen, DP_ROWS, 40, s9, True, lens, False)
+    worst_b2, _ = _check_case("dp flash_decode slotted verify", flash_decode_attention,
+                              flash_decode_ref, (q, kn, vn, kc, vc, lengths, bias),
+                              dict(scale=1.0, k_scales=ks, v_scales=vs), rtol, atol)
+    t_k, t_p, t_l, b_ms, b_by, n_sets = _time_flash(gen, 40, s9, lens, True)
+    blocks = flash_plan(DP_ROWS, 40, s9, S_MAX).blocks(DP_ROWS, 40)
+    per_call["B2 slotted verify"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                                         bound_by=b_by, blocks=blocks)
+    log(f"[dp B2] slotted verify: int8-KV B={DP_ROWS} Hkv=40 S_new={s9} over S_max {S_MAX}, lens "
+        f"{lens} ({blocks} blocks): kernel_ms {t_k:.4f} plain_ms {t_p:.4f} library_ms {t_l:.4f} "
+        f"(SDPA over a dequantized view) bound_us {b_ms * 1e3:.2f} ({b_by}) bound share "
+        f"{b_ms / t_k:.3f}; {n_sets} input sets rotated ({card})")
+    uniform = _uniform_lens(gen, DP_ROWS)
+    q, kn, vn, kp, vp, tables, lengths, bias, ks, vs = _paged_inputs(
+        gen, uniform, 40, 40, s9, 128, PAGE, DP_PAGES, True, n_blocks=DP_BLOCKS)
+    worst_b3, _ = _check_case("dp paged_flash_decode paged verify", paged_flash_decode_attention,
+                              paged_flash_decode_ref, (q, kn, vn, kp, vp, tables, lengths, bias),
+                              dict(scale=1.0, k_scales=ks, v_scales=vs), rtol, atol)
+    t_k, t_p, t_l, b_ms, b_by, n_sets = _time_paged(gen, uniform, DP_PAGES, 40, s9, True,
+                                                    n_blocks=DP_BLOCKS)
+    blocks = flash_plan(DP_ROWS, 40, s9, PAGE, DP_PAGES).blocks(DP_ROWS, 40)
+    per_call["B3 paged verify"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                                       bound_by=b_by, blocks=blocks)
+    log(f"[dp B3] paged verify: int8 pool of {DP_BLOCKS} blocks, B={DP_ROWS} Hkv=40 S_new={s9}, "
+        f"{sum(uniform)} live positions, P={DP_PAGES} ({blocks} blocks): kernel_ms {t_k:.4f} "
+        f"plain_ms {t_p:.4f} library_ms {t_l:.4f} (SDPA over a pre-gathered view) bound_us "
+        f"{b_ms * 1e3:.2f} ({b_by}) bound share {b_ms / t_k:.3f}; {n_sets} input sets rotated "
+        f"({card})")
+    log(f"[dp B1/B2/B3] worst max_abs_err B1 {worst_b1:.3e} B2 {worst_b2:.3e} B3 {worst_b3:.3e}")
+    results["dp_kernels"] = dict(b1=fwd, b1_max_abs_err=worst_b1, per_call=per_call,
                                  b2_max_abs_err=worst_b2, b3_max_abs_err=worst_b3)
 
 
@@ -3550,6 +3677,242 @@ def phase_tp(results):
                          paged_tok_s=tokens / p0["wall_s"], slotted_tok_s=stokens / s0["wall_s"])
 
 
+def _dp_verify_logits(bt, pt, mesh) -> tuple:
+    """This dp rank's 8 rows through a paged int8 pool of 16 blocks, with
+    shard-local block ids (B1 at M = 72, B3 at B = 8): a 64-token prefill,
+    then a verify window of 9, whose logits it returns; rank 0 also all 16
+    rows at dp 1 over 32 blocks (M = 144). Returns (mine, whole or None)."""
+    import dataclasses
+
+    from llmspeculativesampling_tpu_torch.cache.paged import init_paged_cache
+
+    cfg = bt.cfg
+    rng = np.random.default_rng(5)
+    pre = torch.as_tensor(rng.integers(100, 31000, (ROWS, 64)), device="cuda")
+    ver = torch.as_tensor(rng.integers(100, 31000, (ROWS, SERVE_GAMMA + 1)), device="cuda")
+
+    def run(rows, n_blocks):
+        cache = init_paged_cache(cfg.num_layers, n_blocks, cfg.num_kv_heads, PAGE, cfg.head_dim,
+                                 len(rows), DP_PAGES, quant=True, device="cuda")
+        # a page a row, counted down from the pool's last block
+        cache.block_tables[:, 0] = torch.arange(n_blocks - 1, n_blocks - 1 - len(rows), -1)
+        _, cache = bt.forward(pt, cfg, pre[rows], cache, paged_prefill=True)
+        cache = dataclasses.replace(cache, lengths=torch.full((len(rows),), 64, dtype=torch.int32,
+                                                              device="cuda"))
+        logits, _ = bt.forward(pt, cfg, ver[rows], cache)
+        return logits.float().cpu()
+
+    d = mesh.dp_rank
+    mine = run(list(range(d * DP_ROWS, (d + 1) * DP_ROWS)), DP_BLOCKS)
+    return mine, run(list(range(ROWS)), BLOCKS) if mesh.rank == 0 else None
+
+
+def dp_rank(mode: str) -> dict:
+    """One rank of the data-parallel path (run by ``phase_dp`` through
+    ``parallel/launch.py``, ranks on cuda:0 over gloo). ``"dp"``: a dp=2 x
+    tp=1 mesh of two ranks, each building the whole 13B-int8 pair from seed
+    0 (params are replicated over dp), one after the other; its 8 rows'
+    paged verify logits (rank 0 also all 16 at dp 1); then, each after
+    ``warmup()`` and with launches counted from here,
+    ``PagedMultiHostDriver`` over ``PagedEngine(mesh=)`` (16 rows, 32 int8
+    blocks of 128: 8 rows and 16 blocks a rank) on the uniform mix and
+    ``MultiHostDriver`` over ``ContinuousBatchingEngine(mesh=)`` (16 slots
+    x 256: 8 a rank) on 25 x (64, 64). ``"dp_tp"``: dp=2 x tp=2 on four
+    ranks, each keeping its tp shard, the paged driver on 16 x (64, 32).
+    Before every chunk the rank reads its device tables: the largest block
+    id it holds must lie in its 16-block half. Returns numpy, CPU tensors
+    and numbers."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from llmspeculativesampling_tpu_torch.core.config import synchronize
+    from llmspeculativesampling_tpu_torch.core.synthetic import synthetic_pair_int8_small_draft
+    from llmspeculativesampling_tpu_torch.parallel.distributed import host_fetch
+    from llmspeculativesampling_tpu_torch.parallel.sharding import make_mesh, param_specs, shard_params
+    from llmspeculativesampling_tpu_torch.serve.multihost import MultiHostDriver, PagedMultiHostDriver
+    from llmspeculativesampling_tpu_torch.serve.paged import PagedEngine
+    from llmspeculativesampling_tpu_torch.serve.scheduler import ContinuousBatchingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = "cuda"
+    mesh = make_mesh(DP, TP if mode == "dp_tp" else 1)
+    rank = dist.get_rank()
+    out = {"rank": rank, "coords": mesh.coords, "seconds": {}}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        synchronize(torch.device(device))
+        now = time.perf_counter()
+        out["seconds"][name] = now - clock[0]
+        clock[0] = now
+        if rank == 0:
+            log(f"[{mode} rank 0] {name} {out['seconds'][name]:.1f} s")
+    for r in range(mesh.size):  # one whole pair (13.3 GB) built at a time
+        if r == rank:
+            bd, pd, bt, pt = synthetic_pair_int8_small_draft(device=device)
+            if mesh.tp > 1:
+                pd = shard_params(pd, param_specs("llama", bd.cfg), mesh)
+                pt = shard_params(pt, param_specs("llama", bt.cfg), mesh)
+                gc.collect()
+                torch.cuda.empty_cache()
+            out["gib"] = torch.cuda.memory_allocated() / 2 ** 30
+        dist.barrier()
+    lap("build, one rank after the other")
+    if mode == "dp":
+        out["logits"] = _dp_verify_logits(bt, pt, mesh)
+        lap("verify logits")
+
+    reqs, prompts = _mix_prompts("uniform")
+    if mode == "dp_tp":
+        reqs, prompts = DP_TP_REQS, [p[:pl] for p, (pl, _) in zip(prompts, DP_TP_REQS)]
+    paged = PagedEngine(bd, pd, bt, pt, batch_rows=ROWS, num_blocks=BLOCKS, page=PAGE,
+                        max_pages_per_req=DP_PAGES, max_new_cap=max(mn for _, mn in reqs),
+                        gamma=SERVE_GAMMA, eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9,
+                        prompt_bucket=64, steps_per_sync=SYNC, kv_quant=True, mesh=mesh,
+                        device=device)
+    held = []
+    dispatch = paged._dispatch_chunk
+
+    def checked():  # the block ids this rank's device tables hold
+        for c in (paged.state.draft_cache, paged.state.target_cache):
+            t = c.block_tables
+            held.append(int(torch.where(t == c.num_blocks, -1, t).max()))
+        return dispatch()
+
+    paged._dispatch_chunk = checked
+    paged.warmup(prompt_lens=(64,))
+    if mode == "dp":
+        slots = ContinuousBatchingEngine(
+            bd, pd, dataclasses.replace(bt, kv_quant=True), pt, num_slots=SLOTS,
+            max_total_len=SLOT_LEN, max_new_cap=SLOT_NEW, gamma=SERVE_GAMMA, eos_token_id=2,
+            temperature=1.0, top_k=20, top_p=0.9, steps_per_sync=SYNC, mesh=mesh, device=device)
+        slots.warmup(prompt_len=64)
+    lap("engines built and warmed up")
+
+    reset_launches()
+    drv = PagedMultiHostDriver(paged, prompt_cap=64, batch_cap=ROWS)
+    if drv.is_primary:
+        for p, (_, mn) in zip(prompts, reqs):
+            drv.submit(p, mn)
+    t0 = time.perf_counter()
+    drv.run_until_idle()
+    wall = time.perf_counter() - t0
+    comps = [drv.result(i) for i in range(len(reqs))]
+    segments = {"paged": read_launches()}
+    lap("paged driver")
+    out["paged"] = dict(
+        wall_s=wall, outs=[c.output_ids for c in comps], prompts=prompts, reqs=reqs,
+        acc_rate=float(np.mean([c.details["acc_rate"] for c in comps])),
+        ttft_p50=_pct([c.details["ttft_s"] for c in comps], 50),
+        free=[a.available_blocks == a.num_blocks == DP_BLOCKS for a in paged._allocs],
+        pool_blocks=paged.state.target_cache.num_blocks, max_block=max(held),
+        rows=host_fetch(paged.state.tokens))
+    if mode == "dp":
+        reset_launches()
+        srng = np.random.default_rng(0)
+        sprompts = [srng.integers(100, 31000, 64).astype(np.int32) for _ in range(DP_SLOT_N)]
+        drv2 = MultiHostDriver(slots, prompt_cap=64)
+        if drv2.is_primary:
+            for p in sprompts:
+                drv2.submit(p, SLOT_NEW)
+        t0 = time.perf_counter()
+        drv2.run_until_idle()
+        wall = time.perf_counter() - t0
+        rids = sorted(slots.completions)
+        comps = [drv2.result(i) for i in rids]
+        segments["slotted"] = read_launches()
+        lap("slotted driver")
+        out["slotted"] = dict(
+            wall_s=wall, rids=rids, outs=[c.output_ids for c in comps], prompts=sprompts,
+            acc_rate=float(np.mean([c.details["acc_rate"] for c in comps])),
+            ttft_p50=_pct([c.details["ttft_s"] for c in comps], 50),
+            slots_local=slots.state.tokens.shape[0], rows=host_fetch(slots.state.tokens))
+    out["segments"] = segments
+    return out
+
+
+def _dp_check_run(tag: str, runs: list, reqs, prompts, card: str) -> int:
+    """The checks on one dp run across its ranks: identical completions and
+    gathered token rows, well-formed outputs, acc_rate >= 0.6; returns the
+    generated tokens and prints tok/s, TTFT p50 and the wall."""
+    r0 = runs[0]
+    for r in runs[1:]:
+        if not all(np.array_equal(a, b) for a, b in zip(r0["outs"], r["outs"])):
+            raise AssertionError(f"[{tag}] the ranks' completions differ")
+        if not np.array_equal(r0["rows"], r["rows"]):
+            raise AssertionError(f"[{tag}] the ranks' gathered token rows differ")
+    tokens = _check_outputs(tag, reqs, prompts, r0["outs"], VOCAB)
+    if r0["acc_rate"] < 0.6:
+        raise AssertionError(f"[{tag}] acceptance {r0['acc_rate']:.3f} < 0.6: a kernel is likely wrong")
+    log(f"[{tag}] {tokens} generated tokens in {r0['wall_s']:.2f} s: {tokens / r0['wall_s']:.2f} tok/s "
+        f"aggregate, TTFT p50 {r0['ttft_p50']:.4f} s, acc_rate {r0['acc_rate']:.4f}, wall "
+        f"{r0['wall_s']:.2f} s: {len(runs)} ranks sharing one card over gloo, not dp speed ({card})")
+    return tokens
+
+
+def phase_dp(results):
+    """Data parallelism above 1 on the 13B-int8 pair, driven through
+    ``parallel/launch.py`` (``dp_rank``): two ranks at dp=2 x tp=1 and then
+    four at dp=2 x tp=2, all on cuda:0 over gloo, so every number here is
+    one card's work split over processes plus gloo's host transport, not dp
+    speed, which needs a card a replica. Checks: each rank's 8 rows' verify
+    logits within 3e-2 of the dp=1 forward over all 16 (``_hold_logits``;
+    B1's plan takes its K split from M, so M = 72 and 144 sum in other
+    orders); every rank's completions and gathered token rows identical;
+    every output well formed; acc_rate >= 0.6; every block id a rank's
+    tables hold lies in its 16-block half, whose pool ends fully free; B1
+    and B3 launched on every rank's paged run (B2 not), B1 and B2 on the
+    slotted run (B3 not)."""
+    from llmspeculativesampling_tpu_torch.parallel.launch import launch
+
+    card = card_line()
+    t0 = time.perf_counter()
+    ranks = launch("chip_smoke:dp_rank", DP, ("dp",), device="cuda", timeout_s=DP_LIMIT_S)
+    log(f"[dp] two ranks (dp=2 x tp=1) on cuda:0 over gloo ran in {time.perf_counter() - t0:.1f} s, "
+        f"{ranks[0]['gib']:.2f} / {ranks[1]['gib']:.2f} GiB allocated after a rank's pair ({card})")
+    whole = ranks[0]["logits"][1]
+    for r in ranks:
+        d = r["coords"][0]
+        _hold_logits(f"[dp] rank {r['rank']}'s 8 rows (M=72, its 16-block pool) vs dp=1 over 16 "
+                     f"(M=144, 32 blocks), verify 9", r["logits"][0],
+                     whole[d * DP_ROWS:(d + 1) * DP_ROWS])
+    t1 = time.perf_counter()
+    ranks4 = launch("chip_smoke:dp_rank", DP * TP, ("dp_tp",), device="cuda", timeout_s=DP_LIMIT_S)
+    log(f"[dp] four ranks (dp=2 x tp=2) on cuda:0 over gloo ran in {time.perf_counter() - t1:.1f} s "
+        f"({card})")
+    runs = {"dp paged": [r["paged"] for r in ranks], "dp slotted": [r["slotted"] for r in ranks],
+            "dp x tp paged": [r["paged"] for r in ranks4]}
+    tok_s = {}
+    for tag, rr in runs.items():
+        tokens = _dp_check_run(tag, rr, rr[0].get("reqs") or [(64, SLOT_NEW)] * DP_SLOT_N,
+                               rr[0]["prompts"], card)
+        tok_s[tag] = dict(tok_s=tokens / rr[0]["wall_s"], ttft_p50=rr[0]["ttft_p50"],
+                          wall_s=rr[0]["wall_s"], acc_rate=rr[0]["acc_rate"])
+    for tag in ("dp paged", "dp x tp paged"):
+        for r in runs[tag]:
+            if not (all(r["free"]) and r["pool_blocks"] == DP_BLOCKS and r["max_block"] < DP_BLOCKS):
+                raise AssertionError(f"[{tag}] a rank's pool: {r['pool_blocks']} blocks, largest id "
+                                     f"held {r['max_block']}, shards free {r['free']}")
+    log(f"[dp] every rank's tables held block ids below its {DP_BLOCKS}-block half (largest "
+        f"{max(r['paged']['max_block'] for r in ranks + ranks4)}), every shard's pool ended free; "
+        f"slots a rank {ranks[0]['slotted']['slots_local']}")
+    for r in ranks + ranks4:
+        seg = r["segments"]
+        log(f"[dp] rank {r['rank']} {r['coords']} launches: {seg}")
+        p = seg["paged"]
+        if not (p["int8_matmul"] > 0 and p["paged_flash_decode"] > 0 and p["flash_decode"] == 0):
+            raise AssertionError(f"[dp] rank {r['rank']}'s paged run: B1 and B3 must run, B2 not: {p}")
+        if "slotted" in seg:
+            q = seg["slotted"]
+            if not (q["int8_matmul"] > 0 and q["flash_decode"] > 0 and q["paged_flash_decode"] == 0):
+                raise AssertionError(f"[dp] rank {r['rank']}'s slotted run: B1 and B2 must run, B3 "
+                                     f"not: {q}")
+    seg = ranks[0]["segments"]
+    results["launches"]["dp"] = {k: seg["paged"][k] + seg["slotted"][k] for k in seg["paged"]}
+    results["dp"] = dict(runs=tok_s, seconds=[r["seconds"] for r in ranks + ranks4])
+
+
 def phase_opt_path(results, reps: int):
     """The OPT path at full width: ``synthetic_opt_pair_int8_small_draft``
     (OPT-13B int8 target, 640-wide 2-layer draft, tied bf16 heads) born on
@@ -3840,7 +4203,8 @@ def main() -> int:
     for phase in (phase_int8_matmul, phase_flash_decode, phase_flash_tree, phase_flash_algorithms,
                   phase_flash_slotted, phase_paged_flash_decode, phase_paged_extend,
                   phase_paged_sarathi, phase_opt_int8_matmul, phase_opt_attention,
-                  phase_flash_harness, phase_trained_int8_matmul, phase_tp_kernels):
+                  phase_flash_harness, phase_trained_int8_matmul, phase_tp_kernels,
+                  phase_dp_kernels):
         timed(phase, results)
     for phase in (phase_forward, phase_paged_forward, phase_prefix_forward, phase_sarathi_forward,
                   phase_tree_forward, phase_opt_forward, phase_fp8_forward, phase_loader):
@@ -3857,6 +4221,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()  # the Llama pair's 13.3 GB go before the tp ranks' and the OPT pair's
     timed(phase_tp, results)
+    timed(phase_dp, results)
     timed(phase_opt_path, results, REPS)
     for phase in (phase_harness, phase_trained_pair):
         timed(phase, results)
@@ -3988,6 +4353,22 @@ def main() -> int:
         ("paged_flash_decode", "tp"): ("one tp=2 rank's serving verify forward: 40 calls, B=16, "
                                        "Hkv=20, S_new=9, int8 pool, uniform lengths",
                                        pc["B3 serving verify"], 40, tpk["b3_max_abs_err"]),
+    })
+    # the same numbers at one dp=2 rank's shapes, under "dp"; "launches"
+    # there: rank 0's on the dp=2 x tp=1 paged and slotted runs
+    dpk = results["dp_kernels"]
+    pc = dpk["per_call"]
+    new_rows.update({
+        ("int8_matmul", "dp"): (f"one dp=2 rank's paged or slotted target verify forward: 281 "
+                                f"calls at M={DP_TARGET_M} (8 rows x 9)",
+                                dpk["b1"][("target", DP_TARGET_M)], 1, dpk["b1_max_abs_err"]),
+        ("flash_decode", "dp"): ("one dp=2 rank's slotted target verify forward: 40 calls, 8 "
+                                 "slots, Hkv=40, S_new=9 over S_max 256, per-slot lengths, int8 KV",
+                                 pc["B2 slotted verify"], 40, dpk["b2_max_abs_err"]),
+        ("paged_flash_decode", "dp"): ("one dp=2 rank's paged target verify forward: 40 calls, "
+                                       "B=8, Hkv=40, S_new=9, a 16-block int8 pool, P=16, "
+                                       "uniform lengths", pc["B3 paged verify"], 40,
+                                       dpk["b3_max_abs_err"]),
     })
     for k in kernels:
         for (name, path), (at, row, calls, err) in new_rows.items():

@@ -1,5 +1,6 @@
-"""The tensor-parallel collectives (no JAX counterpart: GSPMD inserts these
-for the JAX package from the sharding annotations).
+"""The mesh's collectives (no JAX counterpart: GSPMD inserts these for the
+JAX package from the sharding annotations, and ``process_allgather`` reads
+dp-sharded values on the host).
 
 Two primitives only, ``all_reduce`` and ``broadcast``, so that the same
 code runs under NCCL (one card a rank) and under gloo, which takes CUDA
@@ -65,6 +66,20 @@ def gather_last(x: torch.Tensor, mesh) -> torch.Tensor:
     buf = x.new_zeros(x.shape[:-1] + (mesh.tp, x.shape[-1]))
     buf[..., mesh.tp_rank, :] = x
     return all_reduce(buf, mesh).reshape(*x.shape[:-1], -1)
+
+
+def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Concatenate every dp rank's ``x`` [n, ...] along the first axis in dp
+    order -> [dp * n, ...] on every rank of this rank's dp column (the dp
+    counterpart of :func:`gather_last`). Bool tensors travel as int32."""
+    if mesh is None or mesh.dp == 1:
+        return x
+    src = x.to(torch.int32) if x.dtype == torch.bool else x
+    buf = src.new_zeros((mesh.dp,) + tuple(src.shape))
+    buf[mesh.dp_rank] = src
+    _run("gather_rows", dist.all_reduce, buf, mesh.dp_group)
+    buf = buf.reshape((-1,) + tuple(src.shape[1:]))
+    return buf.bool() if x.dtype == torch.bool else buf
 
 
 def vocab_slice(logits: torch.Tensor, mesh) -> torch.Tensor:

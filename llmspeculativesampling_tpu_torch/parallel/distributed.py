@@ -4,7 +4,8 @@
 One process per rank over ``torch.distributed``: :func:`initialize_cluster`
 joins the process group, :func:`global_mesh` lays the ranks out as a
 ``(dp, tp)`` mesh, :func:`host_fetch` brings a tree of tensors to host
-numpy. The backend is NCCL when every local rank has a card of its own and
+numpy (gathered across dp), :func:`rank0_clock` gives every rank rank 0's
+clock. The backend is NCCL when every local rank has a card of its own and
 gloo otherwise: on the CPU, and when ranks share one card (NCCL refuses
 two ranks on a device; gloo takes CUDA tensors for the collectives the
 port uses, ``parallel/comm.py``).
@@ -13,13 +14,15 @@ port uses, ``parallel/comm.py``).
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from .sharding import Mesh, make_mesh
+from .comm import broadcast, gather_rows
+from .sharding import DP_AXIS, Mesh, make_mesh
 
 _HOST_GROUP = []
 
@@ -72,16 +75,41 @@ def host_group():
     return _HOST_GROUP[0]
 
 
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """``x`` gathered across dp on the dimension its ``.sharding`` spec
+    names ``DP_AXIS`` (as is otherwise; a tp split stays this rank's)."""
+    sh = getattr(x, "sharding", None)
+    if sh is None or sh.mesh.dp == 1 or DP_AXIS not in sh.spec:
+        return x
+    d = sh.spec.index(DP_AXIS)
+    return gather_rows(x.movedim(d, 0).contiguous(), sh.mesh).movedim(0, d)
+
+
 def host_fetch(tree):
-    """A tree (dicts, lists, tuples) of tensors as host numpy. At dp 1
-    every rank already holds each replicated value."""
+    """A tree (dicts, lists, tuples) of tensors as host numpy (JAX
+    ``host_fetch``). A tensor split over dp (its ``.sharding`` spec names
+    ``DP_AXIS``) is gathered across dp and returned whole on every rank:
+    a collective, which every rank of the mesh calls at the same point, as
+    the lockstep serving loop guarantees. Replicated values are local."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        return _whole(tree).detach().cpu().numpy()
     if isinstance(tree, dict):
         return {k: host_fetch(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(host_fetch(v) for v in tree)
     return np.asarray(tree) if isinstance(tree, (int, float)) else tree
+
+
+def rank0_clock(mesh: Optional[Mesh], device: torch.device) -> float:
+    """Global rank 0's ``time.perf_counter()`` on every rank of ``mesh``
+    (one broadcast over the whole mesh; the local clock without a mesh or
+    on one rank), so that host decisions taken from a clock, as the
+    adaptive-gamma controller's are, agree across ranks in lockstep."""
+    now = time.perf_counter()
+    if mesh is None or mesh.size == 1:
+        return now
+    t = torch.tensor([now if process_index() == 0 else 0.0], dtype=torch.float64, device=device)
+    return float(broadcast(t).item())
 
 
 def global_mesh(dp: int = 1, tp: Optional[int] = None) -> Mesh:

@@ -4,11 +4,12 @@ its workers with ``scripts/multihost_worker.py``).
 :func:`launch` spawns ``nprocs`` processes with ``torch.multiprocessing``,
 joins them in a gloo process group on a free loopback port, runs the case
 ``"module:function"`` on each with the same arguments and returns the
-ranks' results in rank order. Gloo serves both settings it is for: ranks on
-the CPU, and ranks that share one card (``device="cuda"``: every rank on
-``cuda:0``). Each rank has the same time limit, so a hang fails instead of
-stalling; a rank that raises fails the launch; a rank that exits without a
-result (a kill drill) is a :class:`RankExit` where ``allow_exit`` says so.
+ranks' results in rank order. Gloo serves both settings it is for: ranks
+that share one card (the default: every rank on ``cuda:0``; raises without
+a card), and ranks on the CPU (``device="cpu"``, which must be asked for).
+Each rank has the same time limit, so a hang fails instead of stalling; a
+rank that raises fails the launch; a rank that exits without a result (a
+kill drill) is a :class:`RankExit` where ``allow_exit`` says so.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from ..core.config import resolve_device
 
 # the process group's own timeout: above any heartbeat a case sets, so the
 # case's watchdog, not the transport, is what notices a lost peer
@@ -85,10 +88,12 @@ def _stop(procs) -> None:
 
 
 def launch(case: str, nprocs: int = 2, args: tuple = (), *, timeout_s: float = 300.0,
-           device: str = "cpu", allow_exit: bool = False) -> list:
+           device=None, allow_exit: bool = False) -> list:
     """Run ``case`` ("module:function", importable) on ``nprocs`` ranks and
     return each rank's return value (picklable) in rank order. Every rank
-    gets ``timeout_s``."""
+    gets ``timeout_s``. The ranks run on the card (``cuda:0``) unless
+    ``device="cpu"``."""
+    device = resolve_device(device).type
     ctx = mp.get_context("spawn")
     queue = ctx.SimpleQueue()
     port = free_port()

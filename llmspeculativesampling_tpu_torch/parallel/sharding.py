@@ -2,8 +2,8 @@
 ``llmspeculativesampling_tpu/parallel/sharding.py``).
 
 A :class:`Mesh` is a ``(dp, tp)`` grid of ``torch.distributed`` ranks, TP
-innermost, with this rank's coordinates and its tensor-parallel process
-group. The spec tables are JAX's, leaf for leaf: Megatron column-parallel
+innermost, with this rank's coordinates and its tensor- and data-parallel
+process groups. The spec tables are JAX's, leaf for leaf: Megatron column-parallel
 qkv/gate/up/fc1 (and Qwen2's qkv biases), row-parallel o/down/fc2,
 vocab-parallel ``embed``/``lm_head``, everything else replicated. A spec
 is a tuple of axis names or ``None``, one per dimension, as ``P(...)``.
@@ -15,9 +15,12 @@ its own slice of every leaf, and the forward issues the collectives itself
 carries ``.sharding`` (a :class:`NamedSharding`), as a JAX array does; the
 forward learns its mesh from the embedding's (:func:`mesh_of`).
 
-Only the tensor-parallel axis is ported: a mesh with ``dp > 1`` builds,
-but the state placements and both serving engines raise for it (ROADMAP
-A16 step 2).
+The data-parallel axis splits the serving state, never the params (which
+are replicated over dp): a rank's rows, slots and its ``N/dp``-block half
+of each pool (JAX's ``shard_paged_state`` and ``shard_serving_state``).
+A serving engine builds each rank's state at its local size and tags it
+(``local=True``), so peak memory is one shard's; the whole-state form
+narrows a global state, as JAX's placements cut a global array.
 """
 
 from __future__ import annotations
@@ -36,18 +39,19 @@ TP_AXIS = "tp"
 
 Spec = Tuple[Optional[str], ...]
 
-DP_UNPORTED = "a data-parallel axis above 1 is not ported yet: ROADMAP A16 step 2"
-
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
     """A ``(dp, tp)`` grid of ranks. ``ranks[d, t]`` is the global rank at
     (dp index d, tp index t); ``coords`` are this rank's; ``tp_group`` is
-    the process group of this rank's tp row (None when tp is 1)."""
+    the process group of this rank's tp row, ``ranks[d, :]`` (None when tp
+    is 1), and ``dp_group`` that of its tp column, ``ranks[:, t]`` (None
+    when dp is 1)."""
 
     ranks: np.ndarray
     rank: int
     tp_group: object = None
+    dp_group: object = None
 
     axis_names = (DP_AXIS, TP_AXIS)
 
@@ -76,6 +80,10 @@ class Mesh:
     def tp_rank(self) -> int:
         return self.coords[1]
 
+    @property
+    def dp_rank(self) -> int:
+        return self.coords[0]
+
 
 class NamedSharding(NamedTuple):
     """Where a leaf lives: the mesh and its spec (JAX's ``NamedSharding``)."""
@@ -87,8 +95,8 @@ class NamedSharding(NamedTuple):
 def make_mesh(dp: int = 1, tp: Optional[int] = None) -> Mesh:
     """A ``(dp, tp)`` mesh over every rank of the default process group (one
     rank without one), TP innermost. A collective: every rank calls it, in
-    the same order, since each tp row's group is built with
-    ``dist.new_group`` by all ranks."""
+    the same order, since each tp row's and each dp column's group is built
+    with ``dist.new_group`` by all ranks, rows first."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     if tp is None:
@@ -96,13 +104,16 @@ def make_mesh(dp: int = 1, tp: Optional[int] = None) -> Mesh:
     if dp * tp != world:
         raise ValueError(f"dp*tp={dp * tp} != {world} ranks")
     ranks = np.arange(world).reshape(dp, tp)
-    mine = None
-    if tp > 1:
-        for row in ranks:
-            group = dist.new_group([int(r) for r in row])
-            if rank in row:
+
+    def groups(lines):
+        mine = None
+        for line in lines:
+            group = dist.new_group([int(r) for r in line])
+            if rank in line:
                 mine = group
-    return Mesh(ranks, rank, mine)
+        return mine
+
+    return Mesh(ranks, rank, groups(ranks) if tp > 1 else None, groups(ranks.T) if dp > 1 else None)
 
 
 def llama_param_specs(cfg) -> dict:
@@ -170,12 +181,17 @@ def cache_scale_spec() -> Spec:
     return (None, DP_AXIS, TP_AXIS, None)
 
 
-def place(x: torch.Tensor, spec: Spec, mesh: Mesh, name: str = "") -> torch.Tensor:
+def place(x: torch.Tensor, spec: Spec, mesh: Mesh, name: str = "",
+          local: bool = False) -> torch.Tensor:
     """This rank's slice of ``x`` under ``spec``: a contiguous copy when a
     dimension is split (the full tensor is not kept alive), else a new
     tensor object on the same storage. Tags it with ``.sharding``. A
-    dimension that its axis does not divide raises, naming the leaf."""
+    dimension that its axis does not divide raises, naming the leaf.
+    ``local``: ``x`` already is this rank's slice, and is only tagged."""
     spec = tuple(spec) + (None,) * (x.dim() - len(spec))
+    if local:
+        x.sharding = NamedSharding(mesh, spec)
+        return x
     coords = dict(zip(Mesh.axis_names, mesh.coords))
     out = x
     for d, axis in enumerate(spec):
@@ -244,42 +260,96 @@ def local_heads(cfg, mesh: Optional[Mesh]) -> Tuple[int, int]:
     return cfg.num_heads // tp, n_kv // tp
 
 
-def require_dp1(mesh: Optional[Mesh], what: str) -> None:
-    if mesh is not None and mesh.dp > 1:
-        raise NotImplementedError(f"{what}: {DP_UNPORTED}")
-
-
-def _shard_fields(obj, specs_by_ndim: dict, mesh: Mesh):
+def _shard_fields(obj, specs_by_ndim: dict, mesh: Mesh, local: bool):
     """A dataclass with every tensor field placed by its rank (dims)."""
     changes = {}
     for f in dataclasses.fields(obj):
         x = getattr(obj, f.name)
         if isinstance(x, torch.Tensor) and x.dim() in specs_by_ndim:
-            changes[f.name] = place(x, specs_by_ndim[x.dim()], mesh, f.name)
+            changes[f.name] = place(x, specs_by_ndim[x.dim()], mesh, f.name, local)
     return dataclasses.replace(obj, **changes)
 
 
-def shard_cache(cache, mesh: Mesh):
-    """A (dense or int8) contiguous KV cache at this rank's kv heads (batch
-    over dp); lengths stay replicated."""
-    require_dp1(mesh, "shard_cache")
-    return _shard_fields(cache, {5: cache_spec(), 4: cache_scale_spec()}, mesh)
+def _rows_spec(x: torch.Tensor) -> Spec:
+    return (DP_AXIS,) + (None,) * (x.dim() - 1)
 
 
-def shard_serving_state(state, mesh: Mesh):
-    """The slot engine's ``BatchState`` on the mesh: cache kv heads over tp
-    (JAX also puts the slot axis over dp; here dp must be 1)."""
-    require_dp1(mesh, "shard_serving_state")
-    return dataclasses.replace(state, draft_cache=shard_cache(state.draft_cache, mesh),
-                               target_cache=shard_cache(state.target_cache, mesh))
+def require_divides(n: int, mesh: Optional[Mesh], what: str) -> int:
+    """``n // dp``; raises unless dp divides ``n`` (JAX asserts it)."""
+    dp = mesh.dp if mesh is not None else 1
+    if n % dp:
+        raise ValueError(f"{what}={n} must divide over dp={dp}")
+    return n // dp
 
 
-def shard_paged_state(state, mesh: Mesh):
-    """The paged engine's state on the mesh: pools ``[L, N, H_kv, page, D]``
-    (int8 scales drop D) at this rank's kv heads; tables, lengths and row
-    lanes replicated (JAX also splits rows and blocks over dp; here dp
-    must be 1)."""
-    require_dp1(mesh, "shard_paged_state")
-    pool = {5: (None, DP_AXIS, TP_AXIS, None, None), 4: (None, DP_AXIS, TP_AXIS, None)}
-    return dataclasses.replace(state, draft_cache=_shard_fields(state.draft_cache, pool, mesh),
-                               target_cache=_shard_fields(state.target_cache, pool, mesh))
+def shard_cache(cache, mesh: Mesh, local: bool = False):
+    """A (dense or int8) contiguous KV cache ``[L, B, H_kv, S_max, D]`` at
+    this rank's rows (batch over dp) and kv heads (over tp); per-row
+    lengths ``[B]`` follow their rows over dp (JAX's ``slot_cache_place``)."""
+    specs = {5: cache_spec(), 4: cache_scale_spec(), 1: (DP_AXIS,)}
+    return _shard_fields(cache, specs, mesh, local)
+
+
+def _shard_rows(state, mesh: Mesh, local: bool, **caches):
+    """Every row lane of a serving state over dp on its first axis, and the
+    given caches as placed."""
+    changes = dict(caches)
+    for f in dataclasses.fields(state):
+        x = getattr(state, f.name)
+        if f.name not in caches and isinstance(x, torch.Tensor):
+            changes[f.name] = place(x, _rows_spec(x), mesh, f.name, local)
+    return dataclasses.replace(state, **changes)
+
+
+def shard_serving_state(state, mesh: Mesh, local: bool = False):
+    """The slot engine's ``BatchState`` on the mesh (JAX
+    ``shard_serving_state``): the slot axis of every lane and cache over
+    dp, cache kv heads over tp. ``num_slots % dp`` must be 0."""
+    if not local:
+        require_divides(state.cur_len.shape[0], mesh, "num_slots")
+    return _shard_rows(state, mesh, local,
+                       draft_cache=shard_cache(state.draft_cache, mesh, local),
+                       target_cache=shard_cache(state.target_cache, mesh, local))
+
+
+POOL_SPEC = (None, DP_AXIS, TP_AXIS, None, None)  # [L, N+1, H_kv, page, D]
+POOL_SCALE_SPEC = (None, DP_AXIS, TP_AXIS, None)  # [L, N+1, H_kv, page]
+
+
+def _shard_pool(cache, mesh: Mesh, local: bool):
+    """A paged cache on the mesh (JAX ``shard_paged_state``'s ``place_pool``):
+    pool blocks over dp and kv heads over tp, tables ``[B, P]`` and
+    lengths over dp on rows. A whole pool ``[L, N+1, ...]`` gives each dp
+    rank its ``N/dp`` blocks plus a trash block of its own, so the sentinel
+    is ``N/dp`` there; table values are not rewritten (a whole state's
+    are the sentinel's, or shard-local ids)."""
+    if not local and mesh.dp > 1:
+        fields = {}
+        for f in dataclasses.fields(cache):
+            x = getattr(cache, f.name)
+            if x.dim() >= 4:
+                n = require_divides(x.shape[1] - 1, mesh, "num_blocks")
+                fields[f.name] = torch.cat([x.narrow(1, mesh.dp_rank * n, n), x[:, n * mesh.dp:]], 1)
+        cache = dataclasses.replace(cache, **fields)
+        specs = {5: (None, None, TP_AXIS, None, None), 4: (None, None, TP_AXIS, None),
+                 2: (DP_AXIS, None), 1: (DP_AXIS,)}
+        out = _shard_fields(cache, specs, mesh, False)
+        for f in dataclasses.fields(out):  # the blocks are this rank's now
+            x = getattr(out, f.name)
+            if x.dim() >= 4:
+                x.sharding = NamedSharding(mesh, POOL_SPEC if x.dim() == 5 else POOL_SCALE_SPEC)
+        return out
+    return _shard_fields(cache, {5: POOL_SPEC, 4: POOL_SCALE_SPEC, 2: (DP_AXIS, None),
+                                 1: (DP_AXIS,)}, mesh, local)
+
+
+def shard_paged_state(state, mesh: Mesh, local: bool = False):
+    """The paged engine's state on the mesh (JAX ``shard_paged_state``):
+    pools ``[L, N+1, H_kv, page, D]`` (int8 scales drop D) at this rank's
+    blocks (over dp) and kv heads (over tp); block tables, lengths and
+    every row lane over dp on rows."""
+    if not local:
+        require_divides(state.cur_len.shape[0], mesh, "batch_rows")
+    return _shard_rows(state, mesh, local,
+                       draft_cache=_shard_pool(state.draft_cache, mesh, local),
+                       target_cache=_shard_pool(state.target_cache, mesh, local))

@@ -15,7 +15,9 @@ here every phase runs batch-level on one ``[B, ...]`` state:
   nothing), as the JAX engines' ``keep`` gate does.
 
 The engines differ only in their caches, and in what the paged engine adds
-around the step (sentinel gates, rows still prefilling).
+around the step (sentinel gates, rows still prefilling). Under a mesh the
+state is a rank's own rows (its dp shard's; ``parallel/sharding.py``): the
+step runs over them alone, with only the tp collectives of their forwards.
 """
 
 from __future__ import annotations
@@ -155,7 +157,10 @@ def commit_rows(state, tokens, new_len, n, all_acc, acc_step, keys, eos_token_id
 def run_steps(state, n_steps: int, step):
     """Up to ``n_steps`` calls of ``step(state)``; the chunk ends early once
     no row is live, read with one small device read (``live.any()``)
-    before each step, where JAX exits its ``while_loop`` on the device."""
+    before each step, where JAX exits its ``while_loop`` on the device.
+    The read is a rank's own: the tp ranks of a dp shard hold the same
+    rows, so their exits agree, while shards may run different step
+    counts, since no collective crosses dp inside a chunk."""
     for _ in range(n_steps):
         if not bool((state.active & ~state.done).any()):
             break

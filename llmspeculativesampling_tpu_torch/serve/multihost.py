@@ -3,7 +3,10 @@
 
 Every rank runs the same engine, and a mesh-sharded engine issues the same
 collectives on every rank in the same order, so every rank must take the
-same host decisions. Requests arrive at rank 0 only: each round, rank 0
+same host decisions. Over a ``(dp, tp)`` mesh each rank's device holds its
+dp shard (rows or slots, and its pool half), while its host runs the whole
+plan: every chunk's metadata is gathered across dp, so completions, frees
+and admissions come from the same merged view on every rank. Requests arrive at rank 0 only: each round, rank 0
 broadcasts its plan (fixed-shape integer arrays, one ``torch.distributed``
 broadcast over a gloo group), every rank applies it and runs the same
 steps, and rank 0 answers. The per-round broadcast is the heartbeat: a
@@ -85,9 +88,11 @@ class MultiHostDriver:
 
     Only rank 0 may :meth:`submit`. Every rank calls :meth:`round` at the
     same cadence. The plan names each admission's slot and rid, so every
-    rank prefills the same slots and derives the same stream keys
+    rank plans the same slots and derives the same stream keys
     (``row_keys(seed, rid)``): the keys advance in lockstep, and a driver's
-    outputs equal a one-process engine's."""
+    outputs equal a one-process engine's. Above dp 1 a slot's prefill runs
+    on the rank that owns it, and the completions come from the gathered
+    chunk metadata."""
 
     def __init__(self, engine: ContinuousBatchingEngine, prompt_cap: int = 512):
         self.engine = engine
@@ -181,10 +186,11 @@ def _is_transport_error(e: BaseException) -> bool:
 class PagedMultiHostDriver:
     """Lockstep wrapper around a :class:`~.paged.PagedEngine`.
 
-    The paged engine's whole host loop (admission order, allocators, the
-    prefix cache, per-rid streams, chunk exits, harvests) is a
-    deterministic function of its request stream and its replicated device
-    state, so lockstep needs only the stream replicated: rank 0 owns the
+    The paged engine's whole host loop (admission order, every dp shard's
+    allocator, the prefix cache, per-rid streams, harvests, the
+    adaptive-gamma arm on rank 0's clock) is a deterministic function of
+    its request stream and of each chunk's metadata, gathered across dp,
+    so lockstep needs only the stream replicated: rank 0 owns the
     queue, each round broadcasts up to ``batch_cap`` (rid, prompt, max_new)
     releases, and every rank injects them with ``submit_with_rid`` and calls
     the same ``step()``. Rank 0 answers; the others hold the same
@@ -270,8 +276,8 @@ class PagedMultiHostDriver:
 
     def recover_requests(self) -> list:
         """Rank 0, after :class:`WorkerLostError`: every outstanding request
-        in resumable form, with no device access: the running rows
-        preempted into resume requests (committed tokens and evolved stream
+        in resumable form, with no device access: the running rows of
+        every dp shard preempted into resume requests (committed tokens and evolved stream
         keys from the last harvested chunk), the engine's queue, and this
         driver's unreleased queue with the original submit times. Feed them
         to a fresh engine with ``submit_request``."""
@@ -286,8 +292,8 @@ class PagedMultiHostDriver:
     def run_until_idle(self, max_rounds: int = 10_000) -> int:
         """Drain. Do-while: every rank enters the first round (the other
         ranks see an empty queue and an idle engine before it); after each
-        round all ranks agree on the condition (replicated engine state,
-        and the queued flag rode the broadcast)."""
+        round all ranks agree on the condition (the same host state, and
+        the queued flag rode the broadcast)."""
         rounds = 0
         while rounds < max_rounds:
             self.round()

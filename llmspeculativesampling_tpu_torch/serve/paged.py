@@ -46,10 +46,20 @@ one packed metadata read per chunk, and harvested (pages freed) when done.
 ``mesh`` (a ``parallel.sharding.Mesh``, every rank of it running the
 engine in lockstep, as ``serve/multihost.py`` drives it) shards the params
 Megatron-style over tp and the pools' kv heads with them; the forwards sum
-over tp and give every rank the full vocab, so every host decision is
-replicated. A data-parallel axis above 1 raises ``NotImplementedError``
-(ROADMAP A16 step 2), and so does adaptive gamma across ranks: its
-controller decides from each host's own clock.
+over tp and give every rank the full vocab. Over dp the rows and the block
+pool split statically (JAX ``serve/paged.py``'s dp design): row r lives on
+dp shard ``r // (B/dp)``, over that shard's own ``N/dp``-block pool, whose
+host allocator hands out shard-local block ids; params are replicated.
+Every rank runs the whole host plan (every shard's allocator, JAX's single
+controller), and its device holds only its shard: it dispatches its own
+segment of each admission and runs the chunk over its own rows, with no
+cross-dp collective inside a chunk, a prefill or an extend window. The
+only exchange across dp is the gather of each chunk's packed metadata
+(``parallel/distributed.py::host_fetch``), merged shard by shard, so every
+host decision is the same on every rank. A shard's rows share prefix
+pages only with that shard's rows, and a preempted row is its own
+shard's youngest. Adaptive gamma reads rank 0's clock on every rank
+(``rank0_clock``: one broadcast a chunk), so the ranks pick the same arm.
 
 Differences from the JAX engine that do not change what it computes:
   * the host loop runs eagerly: a chunk ends early when no row is live by
@@ -93,7 +103,15 @@ from ..core.config import resolve_device, synchronize
 from ..engine.types import ModelBundle, first_eos_truncate, pad_prompt
 from ..models.llama import unstack_layers
 from ..ops.sampling import SamplingConfig, dist_map, row_keys
-from ..parallel.sharding import require_dp1, shard_for, shard_paged_state
+from ..parallel.distributed import host_fetch, rank0_clock
+from ..parallel.sharding import (
+    DP_AXIS,
+    local_heads,
+    place,
+    require_divides,
+    shard_for,
+    shard_paged_state,
+)
 from .batched import (
     BatchState,
     accept_rows,
@@ -325,7 +343,9 @@ class PagedEngine:
     exhaustion), runs one chunk of ``steps_per_sync`` speculative steps over
     every row and harvests finished requests (their pages return to the
     pool); ``run_until_idle`` repeats until the queue drains. Runs on the
-    card unless ``device="cpu"``; the params must lie on that device."""
+    card unless ``device="cpu"``; the params must lie on that device.
+    ``mesh`` above dp 1 needs ``batch_rows`` and ``num_blocks`` divisible
+    by dp and ``max_pages_per_req`` within a shard's ``num_blocks/dp``."""
 
     def __init__(
         self,
@@ -358,11 +378,6 @@ class PagedEngine:
         mesh=None,
         device=None,
     ):
-        require_dp1(mesh, "PagedEngine(mesh=...)")
-        if mesh is not None and mesh.size > 1 and adaptive_gamma:
-            raise NotImplementedError(
-                "PagedEngine(mesh=..., adaptive_gamma=...): the controller picks gamma from "
-                "each rank's own clock, so ranks in lockstep would diverge")
         if adaptive_gamma_mode not in ("epoch", "chunk"):
             raise ValueError(f"adaptive_gamma_mode={adaptive_gamma_mode!r}")
         self.device = resolve_device(device)
@@ -386,11 +401,20 @@ class PagedEngine:
         self.chunked_prefill = bool(chunked_prefill)
         self.prefill_extra = int(prefill_extra)
         self.interleaved_chunks = 0  # chunks that carried a row still prefilling
+        # dp (JAX serve/paged.py:896-923): rows [s*B/dp, (s+1)*B/dp) live on
+        # shard s over its own N/dp-block pool; this rank's device holds
+        # shard ``_shard``, its host every shard's allocator
+        self.dp = mesh.dp if mesh is not None else 1
+        self._shard = mesh.dp_rank if mesh is not None else 0
+        self._rows_local = require_divides(batch_rows, mesh, "batch_rows")
+        blocks_local = require_divides(num_blocks, mesh, "num_blocks")
         max_pages = max_pages_per_req or num_blocks
-        if max_pages > num_blocks:
-            raise ValueError(f"max_pages_per_req={max_pages} exceeds the {num_blocks}-block pool")
+        if max_pages > blocks_local:
+            raise ValueError(f"max_pages_per_req={max_pages} exceeds the {blocks_local}-block pool"
+                             + (f" of a dp={self.dp} shard" if self.dp > 1 else ""))
         alloc_cls = SharedPageAllocator if self.prefix_cache else PageAllocator
-        self.allocator = alloc_cls(num_blocks, page, max_pages)
+        self._allocs = [alloc_cls(blocks_local, page, max_pages) for _ in range(self.dp)]
+        self.allocator = self._allocs[0]  # the pool's (dp shard 0's above dp 1)
         self.t_max = max_pages * page
 
         # adaptive gamma (JAX serve/paged.py:774-874): the candidate depths,
@@ -428,32 +452,35 @@ class PagedEngine:
         # row's length can pass its last known value by the chunk's end
         self._chunk_runway = self.steps_per_sync * (self._gam_max + 1) + self._gam_max + 1
 
-        dev, b = self.device, batch_rows
+        # this rank's shard, built at its local size: its rows, its pool
+        # half (a trash block of its own, so the sentinel is blocks_local)
+        # and its kv heads
+        dev, bl = self.device, self._rows_local
 
         def pool(cfg):
-            return init_paged_cache(cfg.num_layers, num_blocks, cfg.num_kv_heads, page,
-                                    cfg.head_dim, b, max_pages, cfg.torch_dtype, quant=kv_quant,
+            return init_paged_cache(cfg.num_layers, blocks_local, local_heads(cfg, mesh)[1], page,
+                                    cfg.head_dim, bl, max_pages, cfg.torch_dtype, quant=kv_quant,
                                     device=dev)
 
         def zeros(*shape, dtype=torch.long):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         self.state = PagedBatchState(
-            tokens=zeros(b, self.t_max),
-            cur_len=torch.full((b,), 2, dtype=torch.long, device=dev),
+            tokens=zeros(bl, self.t_max),
+            cur_len=torch.full((bl,), 2, dtype=torch.long, device=dev),
             draft_cache=pool(bundle_d.cfg),
             target_cache=pool(bundle_t.cfg),
-            key=zeros(b, 2),
-            active=zeros(b, dtype=torch.bool),
-            done=torch.ones((b,), dtype=torch.bool, device=dev),
-            target_len=torch.full((b,), self.t_max, dtype=torch.long, device=dev),
-            prefill_to=zeros(b),
-            accepted=zeros(b), resamples=zeros(b), bonus=zeros(b), steps=zeros(b),
-            acc_rate_sum=zeros(b, dtype=torch.float32),
-            acc_len_hist=zeros(b, max_new_cap),
+            key=zeros(bl, 2),
+            active=zeros(bl, dtype=torch.bool),
+            done=torch.ones((bl,), dtype=torch.bool, device=dev),
+            target_len=torch.full((bl,), self.t_max, dtype=torch.long, device=dev),
+            prefill_to=zeros(bl),
+            accepted=zeros(bl), resamples=zeros(bl), bonus=zeros(bl), steps=zeros(bl),
+            acc_rate_sum=zeros(bl, dtype=torch.float32),
+            acc_len_hist=zeros(bl, max_new_cap),
         )
-        if mesh is not None:
-            self.state = shard_paged_state(self.state, mesh)
+        self._tag_state()
+        b = batch_rows  # the host's view: every shard's rows
         self._next_rid = 0
         self._pending: collections.deque[Request] = collections.deque()
         self._row_req: list[Optional[Request]] = [None] * b
@@ -465,7 +492,7 @@ class PagedEngine:
         # whether the device's tables are behind the host's
         self._row_len: list[int] = [0] * b
         self._row_commit: list[int] = [0] * b
-        self._commit_pages = 0
+        self._commit_pages = [0] * self.dp  # per shard
         self._unharvested: set = set()
         self._deact_rows: set = set()
         self._tables_dirty = False
@@ -482,6 +509,31 @@ class PagedEngine:
     def _first_arm(self) -> int:
         arms = self._gamma_choices
         return arms[0] if self._ag_mode == "epoch" else arms[len(arms) // 2]
+
+    def _clock(self) -> float:
+        """The controller's clock: with adaptive gamma, rank 0's on every
+        rank of a mesh (one broadcast); else the local one, which nothing
+        decides from."""
+        if not self._gamma_choices:
+            return time.perf_counter()
+        return rank0_clock(self.mesh, self.device)
+
+    def _tag_state(self) -> None:
+        """Tag this rank's state with its placement (``.sharding``), as the
+        shard of a ``(dp, tp)`` layout, so ``host_fetch`` reads it whole."""
+        if self.mesh is not None:
+            self.state = shard_paged_state(self.state, self.mesh, local=True)
+
+    def _shard_of(self, row: int) -> int:
+        return row // self._rows_local
+
+    def _alloc_of(self, row: int):
+        return self._allocs[self._shard_of(row)]
+
+    def _local_rows(self, rows) -> list:
+        """This rank's rows among ``rows``, as local row ids."""
+        lo = self._shard * self._rows_local
+        return [r - lo for r in rows if self._shard_of(r) == self._shard]
 
     # --------------------------------------------------------------- interface
     def warmup(self, prompt_lens=(8,)) -> None:
@@ -582,39 +634,41 @@ class PagedEngine:
     def num_active(self) -> int:
         return sum(r is not None for r in self._row_req)
 
-    def _reserve(self, req: Request, p_len: int):
-        """Pages to admit ``req``: its worst case, or on demand its prompt
-        plus a two-chunk runway, sharing the longest registered prefix
-        chain when the prefix cache is on. Returns (blocks, cached_len,
-        hashes, committed pages), or None (and holds nothing) while the pool
-        or, on demand, the commitment watermark cannot take it: the rows'
-        worst-case pages, this one's included, must stay within
-        ``overcommit`` times the pool. Shared pages are charged to their
-        first holder only."""
+    def _reserve(self, req: Request, p_len: int, hashes: List[bytes], shard: int):
+        """Pages to admit ``req`` in dp shard ``shard``: its worst case, or on
+        demand its prompt plus a two-chunk runway, sharing the longest
+        prefix chain registered in that shard when the prefix cache is on.
+        Returns (blocks, cached_len, committed pages), or None (and holds
+        nothing) while the shard's pool or, on demand, its commitment
+        watermark cannot take it: the shard's rows' worst-case pages, this
+        one's included, must stay within ``overcommit`` times its pool.
+        Shared pages are charged to their first holder only."""
+        alloc = self._allocs[shard]
         worst = p_len + req.max_new_tokens + self._gam_max + 1
         total = min(worst, p_len + 2 * self._chunk_runway) if self.on_demand else worst
-        hashes = prompt_page_hashes(req.prompt, self.page) if self.prefix_cache else []
         if self.prefix_cache:
-            got = self.allocator.alloc_shared(total, hashes)
+            got = alloc.alloc_shared(total, hashes)
             if got is None:
                 return None
             blocks, cached_len = got
         else:
-            blocks, cached_len = self.allocator.alloc(total), 0
+            blocks, cached_len = alloc.alloc(total), 0
             if blocks is None:
                 return None
         if not self.on_demand:
-            return blocks, cached_len, hashes, 0
-        commit = self.allocator.pages_needed(worst) - cached_len // self.page
-        if self._commit_pages + commit > self.allocator.num_blocks * self.overcommit:
-            self.allocator.free(blocks)
+            return blocks, cached_len, 0
+        commit = alloc.pages_needed(worst) - cached_len // self.page
+        if self._commit_pages[shard] + commit > alloc.num_blocks * self.overcommit:
+            alloc.free(blocks)
             return None
-        return blocks, cached_len, hashes, commit
+        return blocks, cached_len, commit
 
     def _admit(self) -> None:
         """Admit queued requests in FIFO order while a row and their pages
         are free: batches of up to 8 of one prompt bucket within the prefill
-        token budget. With chunked prefill, while some row decodes, a
+        token budget. A request tries each dp shard that has a free row, in
+        row order, with that shard's pages (JAX ``_admit``): one full shard
+        does not hold the queue while another has room. With chunked prefill, while some row decodes, a
         request whose uncached suffix exceeds ``extend_chunk`` is staged;
         the rest take one prefill (misses) or their extend windows (hits),
         and their prompt pages are registered at once. After an arm switch
@@ -640,14 +694,20 @@ class PagedEngine:
                     break
                 if batch and (len(batch) + 1) * bucket > self.prefill_token_budget:
                     break
-                got = self._reserve(nxt, p_len)
+                hashes = prompt_page_hashes(nxt.prompt, self.page) if self.prefix_cache else []
+                row = got = None
+                for shard in dict.fromkeys(self._shard_of(r) for r in free_rows):
+                    got = self._reserve(nxt, p_len, hashes, shard)
+                    if got is not None:
+                        row = next(r for r in free_rows if self._shard_of(r) == shard)
+                        break
                 if got is None:
-                    break  # the pool is short: keep it queued
-                blocks, cached_len, hashes, commit = got
+                    break  # every shard with a free row is short: keep it queued
+                blocks, cached_len, commit = got
                 self._pending.popleft()
-                row = free_rows.pop(0)
+                free_rows.remove(row)
                 self._row_commit[row] = commit
-                self._commit_pages += commit
+                self._commit_pages[self._shard_of(row)] += commit
                 batch.append(Admission(row, nxt, padded.reshape(-1), p_len, blocks, cached_len,
                                        hashes))
             if not batch:
@@ -674,8 +734,8 @@ class PagedEngine:
                 if e.req.prefill_time is None:  # a resumed request keeps its TTFT
                     e.req.prefill_time = now
                 self._install_row(e, e.p_len)
-                if e.hashes:
-                    self.allocator.register(e.hashes, e.blocks[:len(e.hashes)])
+                if e.hashes:  # in the row's shard: its pages live in that pool
+                    self._alloc_of(e.row).register(e.hashes, e.blocks[:len(e.hashes)])
 
     def _install_row(self, e: Admission, row_len: int) -> None:
         """The host's bookkeeping of an admitted row. The admission installed
@@ -699,14 +759,15 @@ class PagedEngine:
         shared pages) with ``prefill_to = p_len``, and the chunks' verify
         passes compute their target KV. TTFT is stamped, and the prompt
         pages registered, once ``_harvest`` sees the prefill complete."""
-        arrays, keys = self._admission_arrays(batch)
-        for j in range(self._extend_n_chunks(arrays)):
-            self._extend_window(arrays, j, draft_only=True)
-        _, _, _, p_lens, _, cached = arrays
-        cur0 = np.minimum(cached + 1, p_lens)
-        self._finalize_admission(arrays, keys, cur0)
-        for e, c0 in zip(batch, cur0):
-            self._install_row(e, int(c0))
+        seg = self._admission_arrays(batch)
+        if seg is not None:
+            arrays, keys = seg
+            for j in range(self._extend_n_chunks(arrays)):
+                self._extend_window(arrays, j, draft_only=True)
+            _, _, _, p_lens, _, cached = arrays
+            self._finalize_admission(arrays, keys, np.minimum(cached + 1, p_lens))
+        for e in batch:
+            self._install_row(e, min(e.cached_len + 1, e.p_len))
             if e.hashes:
                 self._pending_reg[e.row] = (e.req, e.hashes, list(e.blocks[:len(e.hashes)]))
 
@@ -720,7 +781,8 @@ class PagedEngine:
         """Grow each running row's table to cover two chunks past its last
         known length, capped at its worst case (the admission commitment's
         basis, so overcommit 1.0 never preempts) and at the table's width.
-        When the pool is empty, preempt the youngest row."""
+        When the row's shard pool is empty, preempt that shard's youngest
+        row."""
         if not self.on_demand:
             return
         for row in range(self.batch_rows):
@@ -731,21 +793,24 @@ class PagedEngine:
                        len(req.prompt) + req.max_new_tokens + self._gam_max + 1, self.t_max)
             while (self._row_req[row] is not None
                    and len(self._row_blocks[row]) * self.page < need):
-                blk = self.allocator.alloc_one()
+                alloc = self._alloc_of(row)
+                blk = alloc.alloc_one()
                 if blk is not None:
                     self._row_blocks[row].append(blk)
                     self._tables_dirty = True
                     continue
-                victim = self._pick_victim()
-                if victim == row and self.allocator.num_blocks * self.page < need:
+                victim = self._pick_victim(self._shard_of(row))
+                if victim == row and alloc.num_blocks * self.page < need:
                     raise RuntimeError(f"request {req.rid} needs {need} cache positions but the "
-                                       f"pool holds {self.allocator.num_blocks * self.page}")
+                                       f"pool holds {alloc.num_blocks * self.page}")
                 self._preempt_row(victim)  # the needy row itself exits the loop
 
-    def _pick_victim(self) -> int:
-        """The youngest (highest-rid) running row: first come, first served,
-        and a resumed request (an old rid) is protected."""
-        rows = [r for r in range(self.batch_rows) if self._row_req[r] is not None]
+    def _pick_victim(self, shard: int) -> int:
+        """The youngest (highest-rid) running row of dp shard ``shard``, the
+        one whose pool is short: first come, first served, and a resumed
+        request (an old rid) is protected."""
+        lo = shard * self._rows_local
+        rows = [r for r in range(lo, lo + self._rows_local) if self._row_req[r] is not None]
         return max(rows, key=lambda r: self._row_req[r].rid)
 
     def _preempt_row(self, row: int) -> None:
@@ -787,9 +852,9 @@ class PagedEngine:
                 max(carry["target_total"] - cur, 0), req.submit_time,
                 prefill_time=req.prefill_time, resume_key=hv["key"][row].copy(), carry=carry,
                 orig_prompt_len=orig_plen)
-        self.allocator.free(self._row_blocks[row])
+        self._alloc_of(row).free(self._row_blocks[row])
         self._pending_reg.pop(row, None)
-        self._commit_pages -= self._row_commit[row]
+        self._commit_pages[self._shard_of(row)] -= self._row_commit[row]
         self._row_commit[row] = 0
         self._row_req[row] = None
         self._row_blocks[row] = None
@@ -800,13 +865,16 @@ class PagedEngine:
         self.preemptions += 1
 
     def _flush_maintenance(self) -> None:
-        """Send the host's tables (one host-to-device copy) and the pending
-        deactivations to the device before the next chunk."""
+        """Send this rank's rows' tables (shard-local block ids; one
+        host-to-device copy) and their pending deactivations to the device
+        before the next chunk."""
         if not (self._tables_dirty or self._deact_rows):
             return
-        tables = np.stack([self.allocator.table_row(b or []) for b in self._row_blocks])
-        deact = np.zeros((self.batch_rows,), bool)
-        deact[list(self._deact_rows)] = True
+        alloc, lo = self._allocs[self._shard], self._shard * self._rows_local
+        tables = np.stack([alloc.table_row(b or [])
+                           for b in self._row_blocks[lo:lo + self._rows_local]])
+        deact = np.zeros((self._rows_local,), bool)
+        deact[self._local_rows(self._deact_rows)] = True
         self.state = _paged_maintain_body(
             self.state, torch.as_tensor(tables).to(self.device),
             torch.as_tensor(deact).to(self.device))
@@ -815,17 +883,24 @@ class PagedEngine:
 
     # ---------------------------------------------------------------- dispatch
     def _admission_arrays(self, batch: List[Admission]):
-        """Host arrays of an admission batch: rows [K], tables [K, P],
+        """Host arrays of this rank's segment of an admission batch (the
+        entries whose row lives in its dp shard; JAX's dp-segmented layout
+        without the padding): local rows [K], shard-local tables [K, P],
         prompts [K, bucket], p_lens [K], max_news [K], cached lengths [K];
         and the rows' stream keys [K, 2] on the device: (seed, rid)'s, or a
-        resumed request's evolved key."""
+        resumed request's evolved key. None when the segment is empty: the
+        rank then dispatches nothing."""
+        batch = [e for e in batch if self._shard_of(e.row) == self._shard]
+        if not batch:
+            return None
         keys = row_keys(self.seed, [e.req.rid for e in batch], device=self.device)
         for i, e in enumerate(batch):
             if e.req.resume_key is not None:
                 keys[i] = torch.as_tensor(e.req.resume_key, dtype=torch.long)
+        alloc = self._allocs[self._shard]
         arrays = (
-            np.asarray([e.row for e in batch]),
-            np.stack([self.allocator.table_row(e.blocks) for e in batch]),
+            np.asarray(self._local_rows([e.row for e in batch])),
+            np.stack([alloc.table_row(e.blocks) for e in batch]),
             np.stack([e.prompt for e in batch]),
             np.asarray([e.p_len for e in batch]),
             np.asarray([e.req.max_new_tokens for e in batch]),
@@ -843,9 +918,11 @@ class PagedEngine:
                 self._dev(p_lens), self._dev(max_news), keys)
 
     def _dispatch_prefill(self, batch: List[Admission]) -> None:
+        seg = self._admission_arrays(batch)
+        if seg is None:
+            return
         self.state = _paged_prefill_body(
-            self.params_d, self.params_t, self.state,
-            *self._install_args(*self._admission_arrays(batch)),
+            self.params_d, self.params_t, self.state, *self._install_args(*seg),
             bundle_d=self.bundle_d, bundle_t=self.bundle_t)
         synchronize(self.device)  # TTFT: the prompts' KV is on the device
 
@@ -868,7 +945,7 @@ class PagedEngine:
             s0 = int(lens_now[r])
             take = min(w, int(p_lens[r]) - s0)
             window[r, :take] = prompts[r, s0:s0 + take]
-        tabs = np.where(live[:, None], tables, self.allocator.num_blocks)
+        tabs = np.where(live[:, None], tables, self._allocs[self._shard].num_blocks)
         args = (self.state, self._dev(tabs, torch.int32),
                 self._dev(np.where(live, lens_now, 0), torch.int32), self._dev(window))
         if draft_only:
@@ -886,7 +963,10 @@ class PagedEngine:
         """Prefix-cache hits: the first ``cached_len`` positions' KV already
         sits in shared pages; compute the suffix in ``extend_chunk``-token
         windows, then install the rows."""
-        arrays, keys = self._admission_arrays(batch)
+        seg = self._admission_arrays(batch)
+        if seg is None:
+            return
+        arrays, keys = seg
         for j in range(self._extend_n_chunks(arrays)):
             self._extend_window(arrays, j)
         self._finalize_admission(arrays, keys)
@@ -899,7 +979,7 @@ class PagedEngine:
         cycles), then settles on the best per-chunk rate."""
         if self._gamma_choices and self._ag_mode == "epoch":
             if self._ep_start is None:
-                self._ep_start = time.perf_counter()
+                self._ep_start = self._clock()
             if self._ep_phase == "ramp":
                 arms = self._gamma_choices
                 k = self._ramp_chunks
@@ -914,20 +994,29 @@ class PagedEngine:
             bundle_t=self.bundle_t, gamma=self.gamma, scfg=self.scfg,
             eos_token_id=self.eos_token_id, n_steps=self.steps_per_sync,
             prefill_extra=self.prefill_extra)
+        self._tag_state()
+        if self.mesh is not None and pack is not None:  # this rank's segment of the rows
+            place(pack, (DP_AXIS,), self.mesh, local=True)
         return pack
 
     def _meta_np(self, pack: torch.Tensor) -> dict:
-        """Read a chunk's packed metadata (the one device-to-host copy) and
-        feed the gamma controller: the chunk's accepted and step deltas and
-        its wall, the gap since the previous read (None after an idle step)
-        times the live rows, as JAX normalises it."""
-        hv = _unpack_chunk_meta(pack.cpu().numpy(), self.batch_rows, self.max_new_cap,
-                                self.t_max)
+        """Read a chunk's packed metadata (the one device-to-host copy,
+        gathered across dp: every shard's segment, merged as JAX's
+        ``_meta_np`` does) and feed the gamma controller: the shards' summed
+        accepted and step deltas and the chunk's wall, the gap since the
+        previous read (None after an idle step) times the live rows, as JAX
+        normalises it, on rank 0's clock."""
+        bl, h, t = self._rows_local, self.max_new_cap, self.t_max
+        shards = [_unpack_chunk_meta(seg, bl, h, t)
+                  for seg in host_fetch(pack).reshape(self.dp, -1)]
+        hv = {k: np.concatenate([sh[k] for sh in shards]) for k in shards[0]
+              if k not in ("acc_delta", "step_delta")}
         g, live = self._chunk_arm
-        now = time.perf_counter()
+        now = self._clock()
         wall = None if self._last_fetch_t is None else max(now - self._last_fetch_t, 1e-9) * live
         self._last_fetch_t = now
-        self._update_gamma(float(hv["acc_delta"]), float(hv["step_delta"]), g, wall)
+        self._update_gamma(float(sum(sh["acc_delta"] for sh in shards)),
+                           float(sum(sh["step_delta"] for sh in shards)), g, wall)
         return hv
 
     def _harvest(self, hv: dict) -> None:
@@ -952,7 +1041,7 @@ class PagedEngine:
             if self._row_req[row] is not req:
                 del self._pending_reg[row]
             elif self._row_len[row] >= len(req.prompt):
-                self.allocator.register(hashes, blocks)
+                self._alloc_of(row).register(hashes, blocks)
                 del self._pending_reg[row]
         fin = [i for i, r in enumerate(self._row_req) if r is not None and hv["done"][i]]
         for row in fin:
@@ -986,13 +1075,14 @@ class PagedEngine:
                 # arm switch the drain belongs to no arm
                 self._ep_tokens += max(len(out) - p_len, 0)
                 self._ep_completions += 1
-            self.allocator.free(self._row_blocks[row])
-            self._commit_pages -= self._row_commit[row]
+            self._alloc_of(row).free(self._row_blocks[row])
+            self._commit_pages[self._shard_of(row)] -= self._row_commit[row]
             self._row_commit[row] = 0
             self._row_req[row] = None
             self._row_blocks[row] = None
-        if fin:
-            self.state.active[torch.as_tensor(fin, device=self.device)] = False
+        mine = self._local_rows(fin)
+        if mine:
+            self.state.active[torch.as_tensor(mine, device=self.device)] = False
 
     # ---------------------------------------------------------- adaptive gamma
     def _update_gamma(self, acc_delta: float, step_delta: float, used_gamma: int,
@@ -1039,7 +1129,7 @@ class PagedEngine:
         self._ep_completions = 0
         self._ep_start = None
 
-    def _epoch_tick(self) -> None:
+    def _epoch_tick(self, now: Optional[float] = None) -> None:
         """Epoch mode (JAX ``_epoch_tick``): close the epoch once a full row
         turnover has completed (or, exploring, once its wall passes
         ``_ep_wall_cap`` times the best pace), credit the arm with the
@@ -1048,10 +1138,12 @@ class PagedEngine:
         the best per-chunk rate first, then the incumbent (a challenger
         must beat it by ``_ep_hysteresis``), probing the others every
         ``_ep_reprobe_every`` epochs. An arm switch holds admission until a
-        full wave of rows is free."""
+        full wave of rows is free. ``now``: the chunk read's clock, else
+        read here (rank 0's)."""
         if not self._gamma_choices or self._ag_mode != "epoch" or self._resync:
             return
-        now = time.perf_counter()
+        if now is None:
+            now = self._clock()
         if self._ep_start is None:
             return  # no work dispatched yet (_dispatch_chunk opens it)
         wall = now - self._ep_start
@@ -1135,7 +1227,7 @@ class PagedEngine:
         if self._n_prefilling():
             self.interleaved_chunks += 1
         self._harvest(self._meta_np(self._dispatch_chunk()))
-        self._epoch_tick()
+        self._epoch_tick(self._last_fetch_t)
 
     def _idle(self) -> None:
         """Nothing runs: the open epoch and the chunk wall restart with the
@@ -1170,10 +1262,15 @@ class PagedEngine:
 
     def partial_result(self, rid: int) -> Optional[np.ndarray]:
         """Tokens committed so far (prompt + new, not yet EOS-truncated) of a
-        request still on a row; None otherwise. One small device read."""
+        request still on a row; None otherwise. From the last chunk's
+        merged metadata (the same on every rank, whichever dp shard holds
+        the row), or the row's prompt up to its installed length when it
+        has run no chunk since admission: what the device holds, since each
+        chunk's metadata is read before the next chunk runs."""
         for row, req in enumerate(self._row_req):
             if req is not None and req.rid == rid:
-                row_t = torch.cat([self.state.cur_len[row:row + 1], self.state.tokens[row]])
-                host = row_t.cpu().numpy()
-                return host[1:1 + int(host[0])].astype(np.int32)
+                hv = self._last_harvest
+                if hv is None or row in self._unharvested:
+                    return np.asarray(req.prompt[:self._row_len[row]], np.int32)
+                return hv["tokens"][row][:int(hv["cur_len"][row])].astype(np.int32)
         return None

@@ -33,9 +33,13 @@ Differences from the JAX engine that do not change what it computes:
 ``mesh`` (a ``parallel.sharding.Mesh``, every rank of it running the
 engine in lockstep, as ``serve/multihost.py`` drives it) shards the params
 Megatron-style over tp and the caches' kv heads with them; the forwards sum
-over tp and give every rank the full vocab, so each host read is
-replicated. A data-parallel axis above 1 raises ``NotImplementedError``
-(ROADMAP A16 step 2).
+over tp and give every rank the full vocab. The slot axis goes over dp
+(JAX's ``shard_serving_state``): each rank's caches and lanes hold its
+``num_slots/dp`` slots, a slot's prefill runs on the rank that owns it,
+with its local slot id, and each chunk's packed metadata is gathered
+across dp (``parallel/distributed.py::host_fetch``) before the harvest,
+so every rank keeps the same host view. No cross-dp collective lies
+inside a chunk or a prefill.
 """
 
 from __future__ import annotations
@@ -53,7 +57,8 @@ from ..core.config import resolve_device, synchronize
 from ..engine.types import ModelBundle, first_eos_truncate, pad_prompt
 from ..models.llama import unstack_layers
 from ..ops.sampling import SamplingConfig, row_keys
-from ..parallel.sharding import require_dp1, shard_for, shard_serving_state
+from ..parallel.distributed import host_fetch
+from ..parallel.sharding import DP_AXIS, place, require_divides, shard_for, shard_serving_state
 from .batched import (
     BatchState,
     accept_rows,
@@ -177,7 +182,8 @@ class ContinuousBatchingEngine:
     harvests finished requests; ``run_until_idle`` repeats until the queue
     drains. An int8 KV cache for the target comes from its bundle
     (``ModelBundle(kv_quant=True)``). Runs on the card unless
-    ``device="cpu"``; the params must lie on that device."""
+    ``device="cpu"``; the params must lie on that device. ``mesh`` above dp
+    1 needs ``num_slots`` divisible by dp."""
 
     def __init__(
         self,
@@ -198,7 +204,6 @@ class ContinuousBatchingEngine:
         mesh=None,
         device=None,
     ):
-        require_dp1(mesh, "ContinuousBatchingEngine(mesh=...)")
         for b in (bundle_d, bundle_t):
             # frozen slots compute up to gamma positions past max_total_len
             # (the cache clamps their writes); a learned position table
@@ -221,8 +226,14 @@ class ContinuousBatchingEngine:
         self.seed = seed
         self.prompt_bucket = prompt_bucket
         self.steps_per_sync = max(1, int(steps_per_sync))
+        # dp (JAX serve/scheduler.py:387-401): slot s lives on dp shard
+        # s // (S/dp); this rank's device holds shard ``_shard``, built at
+        # its local size, and its host every slot
+        self.dp = mesh.dp if mesh is not None else 1
+        self._shard = mesh.dp_rank if mesh is not None else 0
+        self._slots_local = require_divides(num_slots, mesh, "num_slots")
 
-        s, dev = num_slots, self.device
+        s, dev = self._slots_local, self.device
 
         def zeros(*shape, dtype=torch.long):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -234,8 +245,8 @@ class ContinuousBatchingEngine:
         self.state = BatchState(
             tokens=zeros(s, max_total_len),
             cur_len=torch.full((s,), 2, dtype=torch.long, device=dev),  # >= 2: idle slots are safe
-            draft_cache=cache(bundle_d),
-            target_cache=cache(bundle_t),
+            draft_cache=cache(self.bundle_d),
+            target_cache=cache(self.bundle_t),
             key=zeros(s, 2),
             active=zeros(s, dtype=torch.bool),
             done=torch.ones((s,), dtype=torch.bool, device=dev),
@@ -244,15 +255,15 @@ class ContinuousBatchingEngine:
             acc_rate_sum=zeros(s, dtype=torch.float32),
             acc_len_hist=zeros(s, max_new_cap),
         )
-        if mesh is not None:
-            self.state = shard_serving_state(self.state, mesh)
+        self._tag_state()
         self._next_rid = 0
         self._pending: collections.deque[Request] = collections.deque()
-        self._slot_req: list[Optional[Request]] = [None] * s
+        self._slot_req: list[Optional[Request]] = [None] * num_slots
         # occupancy generation per slot: metadata recorded under a previous
         # occupant must never harvest the current one
-        self._slot_gen: list[int] = [0] * s
+        self._slot_gen: list[int] = [0] * num_slots
         self._last_harvest: Optional[dict] = None
+        self._last_gens: tuple = ()  # the generations the last harvest read
         self.completions: dict[int, Completion] = {}
 
     # --------------------------------------------------------------- interface
@@ -294,6 +305,17 @@ class ContinuousBatchingEngine:
     def num_active(self) -> int:
         return sum(r is not None for r in self._slot_req)
 
+    def _tag_state(self) -> None:
+        """Tag this rank's state with its placement (``.sharding``), so
+        ``host_fetch`` reads it whole."""
+        if self.mesh is not None:
+            self.state = shard_serving_state(self.state, self.mesh, local=True)
+
+    def _local_slots(self, slots) -> list:
+        """This rank's slots among ``slots``, as local slot ids."""
+        lo = self._shard * self._slots_local
+        return [s - lo for s in slots if s // self._slots_local == self._shard]
+
     def _dev(self, x, dtype=torch.long) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
 
@@ -333,13 +355,18 @@ class ContinuousBatchingEngine:
                 self._slot_gen[slot] += 1
 
     def _dispatch_prefill(self, batch, bucket: int) -> None:
+        """Prefill this rank's slots of ``batch`` (its dp shard's, at their
+        local ids); nothing when it owns none of them."""
+        batch = [e for e in batch if e[0] // self._slots_local == self._shard]
+        if not batch:
+            return
         k = len(batch)
         prompts = np.zeros((1 << (k - 1).bit_length(), bucket), np.int64)
         for j, (_, _, padded, _) in enumerate(batch):
             prompts[j] = padded
         self.state = _prefill_slots(
             self.params_d, self.params_t, self.state,
-            self._dev([slot for slot, _, _, _ in batch]), self._dev(prompts),
+            self._dev(self._local_slots([slot for slot, _, _, _ in batch])), self._dev(prompts),
             self._dev([p_len for _, _, _, p_len in batch]),
             self._dev([req.max_new_tokens for _, req, _, _ in batch]),
             row_keys(self.seed, [req.rid for _, req, _, _ in batch], device=self.device),
@@ -351,14 +378,18 @@ class ContinuousBatchingEngine:
             self.params_d, self.params_t, self.state, bundle_d=self.bundle_d,
             bundle_t=self.bundle_t, gamma=self.gamma, scfg=self.scfg,
             eos_token_id=self.eos_token_id, n_steps=self.steps_per_sync)
+        self._tag_state()
+        if self.mesh is not None:  # this rank's segment of the slots
+            place(pack, (DP_AXIS,), self.mesh, local=True)
         return pack
 
     def _collect(self, pack: torch.Tensor, gens: tuple) -> None:
-        """One device-to-host copy of the chunk's packed metadata, then the
-        harvest."""
-        m = _unpack_slot_meta(pack.cpu().numpy(), self.num_slots, self.max_new_cap,
-                              self.max_total_len)
-        self._last_harvest = m
+        """One device-to-host copy of the chunk's packed metadata, gathered
+        across dp and merged shard by shard, then the harvest."""
+        shards = [_unpack_slot_meta(seg, self._slots_local, self.max_new_cap, self.max_total_len)
+                  for seg in host_fetch(pack).reshape(self.dp, -1)]
+        m = {k: np.concatenate([sh[k] for sh in shards]) for k in shards[0]}
+        self._last_harvest, self._last_gens = m, gens
         self._harvest(m["done"], m["cur_len"], gens)
 
     def _harvest(self, done: np.ndarray, cur_len: np.ndarray, gens: tuple) -> None:
@@ -392,7 +423,9 @@ class ContinuousBatchingEngine:
             }
             self.completions[req.rid] = Completion(req.rid, out, p_len, details)
             self._slot_req[slot] = None
-        self.state.active[self._dev(fin)] = False
+        mine = self._local_slots(fin)
+        if mine:
+            self.state.active[self._dev(mine)] = False
 
     def step(self) -> int:
         """Admit, run one chunk, harvest. Returns the slots still busy."""
@@ -417,11 +450,15 @@ class ContinuousBatchingEngine:
 
     def partial_result(self, rid: int) -> Optional[np.ndarray]:
         """Tokens committed so far (prompt + new, not yet EOS-truncated) of a
-        request still on a slot, monotone across chunks; None otherwise. One
-        small device read."""
+        request still on a slot, monotone across chunks; None otherwise.
+        From the last chunk's merged metadata (the same on every rank,
+        whichever dp shard holds the slot), or the prompt when the slot has
+        run no chunk since its prefill: what the device holds, since each
+        chunk's metadata is read before the next chunk runs."""
         for slot, req in enumerate(self._slot_req):
             if req is not None and req.rid == rid:
-                row = torch.cat([self.state.cur_len[slot:slot + 1], self.state.tokens[slot]])
-                host = row.cpu().numpy()
-                return host[1:1 + int(host[0])].astype(np.int32)
+                hv = self._last_harvest
+                if hv is None or self._last_gens[slot] != self._slot_gen[slot]:
+                    return np.asarray(req.prompt, np.int32)
+                return hv["tokens"][slot][:int(hv["cur_len"][slot])].astype(np.int32)
         return None

@@ -45,7 +45,7 @@ def _one_process_paged(prompts, new_tokens):
 
 @pytest.mark.parametrize("mode", ["slots", "slots_tp"])
 def test_slot_driver_lockstep(mode):
-    ranks = launch("_torch_tp_cases:lockstep_case", 2, (mode,), timeout_s=RANK_LIMIT_S)
+    ranks = launch("_torch_tp_cases:lockstep_case", 2, (mode,), timeout_s=RANK_LIMIT_S, device="cpu")
     np.testing.assert_array_equal(ranks[0]["rows"], ranks[1]["rows"])
     want = _one_process_slots()
     assert sorted(ranks[0]["completions"]) == sorted(want)
@@ -55,7 +55,7 @@ def test_slot_driver_lockstep(mode):
 
 
 def test_paged_driver_lockstep_tp():
-    ranks = launch("_torch_tp_cases:lockstep_case", 2, ("paged_tp",), timeout_s=RANK_LIMIT_S)
+    ranks = launch("_torch_tp_cases:lockstep_case", 2, ("paged_tp",), timeout_s=RANK_LIMIT_S, device="cpu")
     assert ranks[0]["rounds"] == ranks[1]["rounds"]
     want = _one_process_paged(C.SERVE_PROMPTS, 6)
     for r in ranks:
@@ -65,7 +65,8 @@ def test_paged_driver_lockstep_tp():
 
 
 def test_worker_death_recovery():
-    ranks = launch("_torch_tp_cases:kill_case", 2, timeout_s=RANK_LIMIT_S, allow_exit=True)
+    ranks = launch("_torch_tp_cases:kill_case", 2, timeout_s=RANK_LIMIT_S, device="cpu",
+                   allow_exit=True)
     assert ranks[1] == RankExit(1, 17)
     res = ranks[0]
     assert res["rounds"] == C.KILL_AFTER_ROUNDS

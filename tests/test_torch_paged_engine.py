@@ -207,12 +207,18 @@ def test_partial_result_and_submit_checks(pair):
     ("mesh", Mesh(np.arange(2).reshape(2, 1), 0)),  # a data-parallel axis of 2
 ])
 def test_later_options_raise(pair, option, value):
-    """Only a data-parallel mesh axis above 1 is left to a later slice; the options
-    ported since (chunked prefill, prefill_extra, adaptive gamma) build and
-    are kept."""
+    """The options ported in later slices (chunked prefill, prefill_extra,
+    adaptive gamma, a data-parallel mesh axis of 2) build and are kept; a
+    dp axis that does not divide the rows, or a shard's pool smaller than
+    max_pages_per_req, raises (JAX asserts both)."""
     if option == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine(pair, **{option: value})
+        with pytest.raises(ValueError, match="batch_rows=3 must divide over dp=2"):
+            _engine(pair, mesh=value)
+        with pytest.raises(ValueError, match="exceeds the 12-block pool of a dp=2 shard"):
+            _engine(pair, mesh=value, batch_rows=4, max_pages_per_req=16)
+        eng = _engine(pair, mesh=value, batch_rows=4)
+        assert (eng.dp, eng._rows_local, len(eng._allocs)) == (2, 2, 2)
+        assert eng.state.tokens.shape[0] == 2 and eng.state.target_cache.num_blocks == 12
         return
     eng = _engine(pair, **{option: value})
     kept = {"chunked_prefill": eng.chunked_prefill, "prefill_extra": eng.prefill_extra,

@@ -21,6 +21,7 @@ dp=1 x tp=2. The port runs on two gloo ranks on loopback
 * Every entry point gives the same ids on the whole tree, on the shards
   with ``tp_mesh=None`` and with ``tp_mesh``; greedy spec and AR ids equal
   JAX's; both serving engines with ``mesh=`` give the one-process ids.
+  (The data-parallel axis: tests/test_torch_dp.py.)
 """
 
 import numpy as np
@@ -46,8 +47,6 @@ from llmspeculativesampling_tpu_torch.core.config import OPTConfig as TOCfg
 from llmspeculativesampling_tpu_torch.parallel import distributed as tdist
 from llmspeculativesampling_tpu_torch.parallel import sharding as ts
 from llmspeculativesampling_tpu_torch.parallel.launch import launch
-from llmspeculativesampling_tpu_torch.serve.paged import PagedEngine
-from llmspeculativesampling_tpu_torch.serve.scheduler import ContinuousBatchingEngine
 
 import _torch_tp_cases as C
 from _torch_port import one_thread, rel_err, to_port  # noqa: F401 (fixture)
@@ -194,7 +193,7 @@ def fwd():
     cases = _fwd_cases()
     ranks = launch("_torch_tp_cases:forward_case", TP, (
         {k: (f, kw, _np_tree(p), t, q, DECODE_STEPS) for k, (f, kw, p, t, q) in cases.items()},),
-        timeout_s=RANK_LIMIT_S)
+        timeout_s=RANK_LIMIT_S, device="cpu")
     return ({k: _jax_sharded_forward(*c) for k, c in cases.items()},
             {k: _port_whole_forward(*c) for k, c in cases.items()}, ranks)
 
@@ -237,7 +236,8 @@ def test_tp_forward_matches_jax_sharded_forward(fwd, case):
 def topk():
     x = np.random.default_rng(0).normal(size=(3, 4096)).astype(np.float32) * 4.0
     x = np.round(x * 2.0) / 2.0  # many exact ties, at the k-th value too
-    return x, launch("_torch_tp_cases:topk_case", TP, (x, 20, 0.9, 0.8), timeout_s=RANK_LIMIT_S)
+    return x, launch("_torch_tp_cases:topk_case", TP, (x, 20, 0.9, 0.8), timeout_s=RANK_LIMIT_S,
+                     device="cpu")
 
 
 def test_tp_topk_equals_dense_sparse_path_with_ties(topk):
@@ -276,7 +276,7 @@ GREEDY_TOKENS = 10
 def engines():
     pt = _jax_params("llama", C.LLAMA)
     return pt, launch("_torch_tp_cases:engines_case", TP, (_np_tree(pt), GREEDY_TOKENS),
-                      timeout_s=RANK_LIMIT_S)
+                      timeout_s=RANK_LIMIT_S, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["speculative", "autoregressive", "speculative_v2", "multi",
@@ -313,7 +313,7 @@ def test_greedy_tp_ids_equal_jax(engines):
 
 @pytest.fixture(scope="module")
 def serving():
-    return launch("_torch_tp_cases:serving_case", TP, timeout_s=RANK_LIMIT_S)
+    return launch("_torch_tp_cases:serving_case", TP, timeout_s=RANK_LIMIT_S, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["slots", "paged"])
@@ -327,12 +327,3 @@ def test_serving_engine_mesh_gives_unsharded_ids(serving, kind, family):
     for r in serving:
         for got, w in zip(r[(kind, family)], want):
             np.testing.assert_array_equal(got, w)
-
-
-@pytest.mark.parametrize("engine", [ContinuousBatchingEngine, PagedEngine])
-def test_dp_above_one_raises(engine):
-    bd, pd, bt, pt = C.tiny_pair()
-    with pytest.raises(NotImplementedError, match="A16 step 2"):
-        engine(bd, pd, bt, pt, mesh=_port_mesh(0, dp=2, tp=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="A16 step 2"):
-        ts.shard_cache(bt.make_cache(1, 8, device="cpu"), _port_mesh(0, dp=2, tp=1))

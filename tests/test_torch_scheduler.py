@@ -371,16 +371,20 @@ def test_warmup_keeps_the_rid_sequence(pair):
 
 
 def test_mesh_and_device():
-    """A data-parallel ``mesh=`` axis above 1 waits for A16 step 2; the
-    engine runs on the card unless the caller asks for the CPU."""
+    """A data-parallel ``mesh=`` axis must divide the slots (JAX asserts
+    it), and then each rank holds its share; the engine runs on the card
+    unless the caller asks for the CPU."""
     from llmspeculativesampling_tpu_torch.parallel.sharding import Mesh
 
     bd, bt = _bundles()
     cfg = bt.cfg
     p = tl.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
-        ContinuousBatchingEngine(bd, p, bt, p, mesh=Mesh(np.arange(2).reshape(2, 1), 0),
-                                 device="cpu")
+    dp2 = Mesh(np.arange(2).reshape(2, 1), 0)
+    with pytest.raises(ValueError, match="num_slots=3 must divide over dp=2"):
+        ContinuousBatchingEngine(bd, p, bt, p, num_slots=3, mesh=dp2, device="cpu")
+    eng = ContinuousBatchingEngine(bd, p, bt, p, num_slots=4, max_total_len=64, mesh=dp2,
+                                   device="cpu")
+    assert eng.state.tokens.shape[0] == 2 and eng.state.target_cache.k.shape[1] == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ContinuousBatchingEngine(bd, p, bt, p)
