@@ -75,7 +75,12 @@ Phases, each printing lines before the last:
   4. single-stream path: the 13B-shaped int8 target + 768-wide int8 draft,
      born on the card from a seed; autoregressive and speculative decoding
      with bench.py's settings (64-token prompt, 128 new tokens, gamma=24,
-     top_k=20, top_p=0.9, eos=2);
+     top_k=20, top_p=0.9, eos=2), each step a replayed CUDA graph (the
+     device loop, ``engine/device_loop.py``); then the device loop itself:
+     a fresh capture of each step timed, and for 3 seeds the replayed
+     generation equal to an eager run of the same step function, ids and
+     details, spec and AR; B1 and B2 inside both graphs (the replay
+     accounting), B3 not; spec acc_rate >= 0.6;
   5. paged serving path: the same pair through ``PagedEngine`` behind
      ``BatchedInferenceServer`` with the settings of ``scripts/bench_paged.py
      --config 13b --kv_int8 --steps_per_sync 8`` (16 rows, 32 int8 blocks of
@@ -177,7 +182,8 @@ Phases, each printing lines before the last:
      B1 and B2 at the slotted verify, under "slotted", B2 at the harness
      verify, under "harness", and B1 and B2 at the trained pair's verify,
      under "trained_pair", and all three at one tp=2 rank's shapes, under
-     "tp", and at one dp=2 rank's, under "dp"), the card line again, and as
+     "tp", and at one dp=2 rank's, under "dp"; ``launches_by_path`` has the
+     device loop's replayed runs under "device_loop"), the card line again, and as
      the last
      line ``{"ok": true, "device": {...}}``. Each phase prints its seconds.
 Any failed check raises: the script exits non-zero and prints no result.
@@ -2317,6 +2323,12 @@ def _counters():
             "paged_flash_decode": paged_flash_decode_attention}
 
 
+def release_graphs():
+    from llmspeculativesampling_tpu_torch.engine import device_loop
+
+    device_loop.release_graphs()
+
+
 def reset_launches():
     for fn in _counters().values():
         fn.launches = 0
@@ -2393,6 +2405,95 @@ def phase_main_path(results, reps: int, pair):
     results["launches"] = {"single_stream": launches}
     results["main"] = dict(ar_tok_s=float(np.median(ar_rates)), spec_tok_s=float(np.median(sp_rates)),
                            acc_rate=float(np.mean(acc)))
+
+
+def phase_device_loop(results, reps: int, pair):
+    """The main path's device loop (``engine/device_loop.py``): the step of
+    ``speculative_generate`` and ``autoregressive_generate`` captured once
+    into a CUDA graph and replayed until the state says stop, on the
+    13B-int8 pair with phase 4's settings (64-token prompt, 128 new tokens,
+    gamma 24, top_k 20, top_p 0.9). A fresh capture of each step is timed;
+    then, for each of ``reps`` seeds, the replayed generation's ids and
+    details must equal an eager run of the same step function
+    (``device_loop.eager_steps``) token for token, spec and AR; B1 and B2
+    must launch inside both graphs (the replay accounting) and B3 not;
+    spec's acc_rate must reach 0.6. Launches counted under "device_loop":
+    the replayed runs' (their prefills' B1 calls included), not the eager
+    runs'."""
+    from llmspeculativesampling_tpu_torch.engine import device_loop
+    from llmspeculativesampling_tpu_torch.engine.autoregressive import autoregressive_generate
+    from llmspeculativesampling_tpu_torch.engine.speculative import speculative_generate
+
+    card = card_line()
+    bd, pd, bt, pt = pair
+    prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
+    kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, details=True, device="cuda")
+    runs = {
+        "spec": lambda g: speculative_generate(bd, pd, bt, pt, prompt, 128, gamma=GAMMA,
+                                               generator=g, **kw),
+        "ar": lambda g: autoregressive_generate(bt, pt, prompt, 128, generator=g, **kw),
+    }
+    same_keys = {"spec": ("acc_len", "acc_rate", "accepted_count", "resample_count",
+                          "target_sample_count", "target_call_times", "tokens_generated"),
+                 "ar": ("tokens_generated",)}
+
+    def gen(k):
+        return torch.Generator(device="cuda").manual_seed(k)
+
+    def timed_run(name, k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, d = runs[name](gen(k))
+        return out, d, time.perf_counter() - t0
+
+    device_loop.release_graphs()
+    n_cap = len(device_loop.capture_seconds)
+    for name in runs:
+        timed_run(name, 0)  # the first step runs eagerly, then the capture
+    caps = device_loop.capture_seconds[n_cap:]
+    per_replay = dict(device_loop.graph_launches())
+    log(f"[device_loop] capture of one step: spec {caps[0] * 1e3:.1f} ms, AR {caps[1] * 1e3:.1f} ms; "
+        f"launches a replay: spec {per_replay['spec']}, AR {per_replay['ar']} ({card})")
+    for name, counts in per_replay.items():
+        if counts["int8_matmul"] <= 0 or counts["flash_decode_attention"] <= 0 \
+                or counts["paged_flash_decode_attention"] != 0:
+            raise AssertionError(f"device loop {name}: B1/B2 not inside the graph, or B3: {counts}")
+    totals = dict.fromkeys(_counters(), 0)
+    rows = {name: [] for name in runs}
+    for k in range(1, reps + 1):
+        for name in runs:
+            reset_launches()
+            out, d, wall = timed_run(name, k)
+            for kname, v in read_launches().items():
+                totals[kname] += v
+            with device_loop.eager_steps():
+                out_e, d_e, wall_e = timed_run(name, k)
+            diff = [x for x in same_keys[name] if d[x] != d_e[x]]
+            if not np.array_equal(out, out_e) or diff:
+                first = int(np.argmax(out[:min(len(out), len(out_e))] != out_e[:min(len(out), len(out_e))]))
+                raise AssertionError(f"device loop {name} seed {k}: replay != eager (lengths "
+                                     f"{len(out)} / {len(out_e)}, first differing position "
+                                     f"{first}, details {diff})")
+            gen_ids = out[64:]
+            if not (np.array_equal(out[:64], np.asarray(prompt)) and len(gen_ids) >= 1
+                    and gen_ids.min() >= 0 and gen_ids.max() < VOCAB):
+                raise AssertionError(f"device loop {name}: bad output of length {len(out)}")
+            steps = d.get("target_call_times", len(gen_ids))
+            rows[name].append(dict(tokens=len(gen_ids), steps=steps, replay_ms=wall * 1e3,
+                                   eager_ms=wall_e * 1e3, acc_rate=d.get("acc_rate")))
+            log(f"[device_loop] {name} seed {k}: {len(gen_ids)} tokens in {steps} steps, replay "
+                f"{wall * 1e3:.1f} ms ({wall * 1e3 / steps:.2f} ms a step) vs eager "
+                f"{wall_e * 1e3:.1f} ms ({wall_e * 1e3 / steps:.2f} ms a step), ids and details "
+                f"equal ({card})")
+    acc = [r["acc_rate"] for r in rows["spec"]]
+    if np.mean(acc) < 0.6:
+        raise AssertionError(f"device loop: acceptance {np.mean(acc):.3f} < 0.6")
+    if totals["int8_matmul"] <= 0 or totals["flash_decode"] <= 0 or totals["paged_flash_decode"]:
+        raise AssertionError(f"device loop: launches {totals}")
+    log(f"[device_loop] launches of the replayed runs: {totals}; spec acc_rate {np.mean(acc):.4f}")
+    results["launches"]["device_loop"] = totals
+    results["device_loop"] = dict(capture_ms=[c * 1e3 for c in caps], per_replay=per_replay,
+                                  runs=rows)
 
 
 # ---------------------------------------------------------------- phase 6
@@ -3997,6 +4098,7 @@ def phase_opt_path(results, reps: int):
     out_res["serving_uniform"] = serve
     # the admission prefill's B1 calls and dense head are planned batch-invariant
     phase_burst_trickle(results, pair, tag="opt_burst_trickle")
+    release_graphs()
     del pair, bd, pd, bt, pt, engines
     gc.collect()
     torch.cuda.empty_cache()
@@ -4036,7 +4138,7 @@ def phase_harness(results):
     if not traces:
         raise AssertionError("harness: --profile_dir wrote no trace")
     n = 4
-    for _ in range(4):
+    for _ in range(6):
         long_block = harness.main(["--dataset", "synthetic", "--methods", "autoregressive",
                                    "--num_prompts", str(n), "--max_tokens", "128"])[0]
         if long_block["total_time_s"] > 2.0:
@@ -4210,13 +4312,14 @@ def main() -> int:
                   phase_tree_forward, phase_opt_forward, phase_fp8_forward, phase_loader):
         timed(phase)
     pair = timed(build_pair)
-    for phase in (phase_main_path, phase_tree_path, phase_algorithms):
+    for phase in (phase_main_path, phase_device_loop, phase_tree_path, phase_algorithms):
         timed(phase, results, REPS, pair)
     timed(phase_serving, results, pair)
     timed(phase_burst_trickle, results, pair)
     for phase in (phase_shared_prefix, phase_longgen, phase_hit_burst_trickle, phase_cold_mix,
                   phase_adaptive, phase_slotted):
         timed(phase, results, pair)
+    release_graphs()  # the captured steps hold the pair's params
     del pair
     gc.collect()
     torch.cuda.empty_cache()  # the Llama pair's 13.3 GB go before the tp ranks' and the OPT pair's

@@ -123,7 +123,7 @@ def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
     """cos/sin tables [B, S, D] for positions [B, S]; ``scaling`` is None or
     ("linear"|"dynamic", factor), as in the JAX module."""
     pos = positions.float()
-    base = torch.tensor(theta, dtype=torch.float32, device=positions.device)
+    base = torch.full((), theta, dtype=torch.float32, device=positions.device)  # no host copy
     if scaling is not None:
         kind, factor = scaling
         if kind == "linear":

@@ -6,7 +6,9 @@ here every phase runs batch-level on one ``[B, ...]`` state:
 
 * the draft re-feeds positions ``cur_len - 2, cur_len - 1`` of every row
   (the rollback is the per-row length reset) and drafts ``gamma`` tokens;
-* one target forward verifies each row's window of ``gamma + 1`` tokens;
+* one target forward verifies each row's window of ``gamma + 1`` tokens
+  (both phases are ``engine/speculative.py``'s, which the single-request
+  device loop runs at B = 1);
 * ``engine/speculative.py::accept_phase_rows`` accepts, resamples or
   takes the bonus per row, from each row's own random stream
   (``ops/sampling.py::row_uniform``);
@@ -26,16 +28,8 @@ import dataclasses
 
 import torch
 
-from ..cache.kvcache import rollback_rows
 from ..engine.speculative import accept_phase_rows
-from ..ops.sampling import (
-    dist_concat,
-    dist_map,
-    dist_norm,
-    dist_sample_u,
-    dist_width,
-    row_uniform,
-)
+from ..ops.sampling import dist_width, row_uniform
 
 
 @dataclasses.dataclass
@@ -57,56 +51,6 @@ class BatchState:
     steps: torch.Tensor
     acc_rate_sum: torch.Tensor  # [B] f32
     acc_len_hist: torch.Tensor  # [B, max_new_cap] int64
-
-
-def rows_window(tokens: torch.Tensor, starts: torch.Tensor, width: int) -> torch.Tensor:
-    """Per-row window tokens[b, starts[b] : starts[b]+width] -> [B, width]
-    (indices clamped into the buffer: only dead rows reach its end)."""
-    idx = starts[:, None] + torch.arange(width, device=tokens.device)[None, :]
-    return torch.gather(tokens, 1, idx.clamp(0, tokens.shape[1] - 1))
-
-
-def sample_rows(dist, keys):
-    """One draw per row from its own stream -> (ids [B], keys')."""
-    u, keys = row_uniform(keys, dist_width(dist))
-    return dist_sample_u(dist, u), keys
-
-
-def draft_phase_batched(bundle, params, scfg, gamma, tokens, cur_len, cache, keys):
-    """Batched draft: every row re-feeds positions cur_len-2, cur_len-1 (the
-    rollback is the per-row length reset), then gamma-1 single-token
-    steps. Returns (tokens' (a new tensor, drafts written at cur_len..),
-    cache', q_stack [B, gamma, ...], drafts [B, gamma], keys')."""
-    cfg = bundle.cfg
-    cache = rollback_rows(cache, cur_len - 2)
-    logits, cache = bundle.forward(params, cfg, rows_window(tokens, cur_len - 2, 2), cache)
-    q = dist_norm(logits[:, -1], scfg)
-    x, keys = sample_rows(q, keys)
-    qs, xs = [q], [x]
-    for _ in range(gamma - 1):
-        logits, cache = bundle.forward(params, cfg, x[:, None], cache)
-        q = dist_norm(logits[:, 0], scfg)
-        x, keys = sample_rows(q, keys)
-        qs.append(q)
-        xs.append(x)
-    drafts = torch.stack(xs, dim=1)
-    cols = cur_len[:, None] + torch.arange(gamma, device=tokens.device)[None, :]
-    tokens = tokens.scatter(1, cols.clamp(0, tokens.shape[1] - 1), drafts)
-    q_stack = dist_concat([dist_map(lambda a: a[:, None], d) for d in qs], axis=1)
-    return tokens, cache, q_stack, drafts, keys
-
-
-def verify_phase_batched(bundle, params, scfg, gamma, tokens, cur_len, cache, extra: int = 0):
-    """One batched target forward over per-row windows of gamma+1+extra
-    tokens -> (p_stack [B, gamma+1+extra, ...], cache'). ``extra`` (the
-    paged engine's prefill_extra) lets prefilling rows push gamma+extra
-    prompt tokens a step; a decode row's trailing ``extra`` positions carry
-    junk whose KV lands past its accepted length (rewritten before its
-    length reaches it) and whose distributions the caller drops."""
-    cache = rollback_rows(cache, cur_len - 1)
-    window = rows_window(tokens, cur_len - 1, gamma + 1 + extra)
-    logits, cache = bundle.forward(params, bundle.cfg, window, cache)
-    return dist_norm(logits, scfg), cache
 
 
 def accept_rows(gamma, tokens, cur_len, q_stack, drafts, p_stack, keys):

@@ -100,6 +100,7 @@ from ..cache.paged import (
     prompt_page_hashes,
 )
 from ..core.config import resolve_device, synchronize
+from ..engine.speculative import draft_phase_batched, verify_phase_batched
 from ..engine.types import ModelBundle, first_eos_truncate, pad_prompt
 from ..models.llama import unstack_layers
 from ..ops.sampling import SamplingConfig, dist_map, row_keys
@@ -112,15 +113,7 @@ from ..parallel.sharding import (
     shard_for,
     shard_paged_state,
 )
-from .batched import (
-    BatchState,
-    accept_rows,
-    admit_rows,
-    commit_rows,
-    draft_phase_batched,
-    run_steps,
-    verify_phase_batched,
-)
+from .batched import BatchState, accept_rows, admit_rows, commit_rows, run_steps
 from .scheduler import Completion, Request
 
 

@@ -54,20 +54,13 @@ import torch
 
 from ..cache.kvcache import install_rows, rollback_rows
 from ..core.config import resolve_device, synchronize
+from ..engine.speculative import draft_phase_batched, verify_phase_batched
 from ..engine.types import ModelBundle, first_eos_truncate, pad_prompt
 from ..models.llama import unstack_layers
 from ..ops.sampling import SamplingConfig, row_keys
 from ..parallel.distributed import host_fetch
 from ..parallel.sharding import DP_AXIS, place, require_divides, shard_for, shard_serving_state
-from .batched import (
-    BatchState,
-    accept_rows,
-    admit_rows,
-    commit_rows,
-    draft_phase_batched,
-    run_steps,
-    verify_phase_batched,
-)
+from .batched import BatchState, accept_rows, admit_rows, commit_rows, run_steps
 
 ADMIT_CAP = 8  # prompts a prefill at most: its activations must fit beside the weights
 

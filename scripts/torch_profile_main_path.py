@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the PyTorch/CUDA port's paths, on one GPU.
 
-    python3 scripts/torch_profile_main_path.py
+    python3 scripts/torch_profile_main_path.py [--loops]
 
 Builds the 13B-shaped int8 target and the 768-wide int8 draft on the card
 (seed 0) and prints, for the single-stream path with chip_smoke.py's
@@ -21,7 +21,14 @@ and for the paged serving path with its uniform mix (16 rows, int8 pools of
 * for one whole AR and one whole speculative generation, and one whole run
   of the serving mix through ``PagedEngine``: tok/s on the host clock
   (untraced, after a warm-up run), the device busy time from a traced run
-  of the same seed, and the device's idle share 1 - busy/wall.
+  of the same seed, and the device's idle share 1 - busy/wall;
+* the device loop beside the host loop (``--loops`` prints only this): the
+  same AR and speculative generations in the device loop (each step a
+  replayed CUDA graph, the default) and in the host loop (the same step
+  called eagerly with one read a step, ``device_loop.eager_steps``): ms per
+  spec step and per AR token, the median over 10 seeds (not tok/s, which
+  follows the sampled trajectory), and for the first seed the device-busy
+  ms per step from a trace and the idle share 1 - busy/wall.
 
 All host-clock numbers are taken before the first trace.
 
@@ -31,6 +38,7 @@ JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -126,6 +134,68 @@ def host_ms(run, reps=20):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def loop_rows(bd, pd, bt, pt, prompt, card, seeds=range(1, 11)) -> dict:
+    """The device loop beside the host loop at the single-stream settings:
+    per (loop, engine) the median ms per unit (a spec step, an AR token)
+    over ``seeds``, then the first seed's device-busy ms per unit and idle
+    share from a trace. Host-clock numbers first (see main)."""
+    from llmspeculativesampling_tpu_torch.engine import device_loop
+    from llmspeculativesampling_tpu_torch.engine.autoregressive import autoregressive_generate
+    from llmspeculativesampling_tpu_torch.engine.speculative import speculative_generate
+
+    kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, details=True, device="cuda")
+    runs = {
+        "spec": lambda k: speculative_generate(
+            bd, pd, bt, pt, prompt, 128, gamma=GAMMA,
+            generator=torch.Generator(device="cuda").manual_seed(k), **kw),
+        "ar": lambda k: autoregressive_generate(
+            bt, pt, prompt, 128, generator=torch.Generator(device="cuda").manual_seed(k), **kw),
+    }
+    loops = {"device": contextlib.nullcontext, "host": device_loop.eager_steps}
+
+    def units(name, out, d):
+        return d["target_call_times"] if name == "spec" else len(out) - len(prompt)
+
+    rows = {}
+    for loop, ctx in loops.items():
+        with ctx():
+            for name, run in runs.items():
+                run(0)  # warm-up: the capture, the phase-split calibration
+                per = []
+                for k in seeds:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out, d = run(k)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                    per.append(dict(seed=k, wall_ms=wall, units=units(name, out, d),
+                                    tokens=len(out) - len(prompt)))
+                ms = [r["wall_ms"] / r["units"] for r in per]
+                rows[f"{name}_{loop}"] = dict(ms_per_unit_median=float(np.median(ms)),
+                                              ms_per_unit_min=min(ms), ms_per_unit_max=max(ms),
+                                              runs=per)
+    for loop, ctx in loops.items():
+        with ctx():
+            for name, run in runs.items():
+                r = rows[f"{name}_{loop}"]
+                first = r["runs"][0]
+                busy, kinds, n, names = traced(lambda: run(first["seed"]))
+                r.update(busy_ms=busy, busy_ms_per_unit=busy / first["units"],
+                         idle_share=1 - busy / first["wall_ms"], kernels=n,
+                         kernels_per_unit=n / first["units"], by_kind=kinds)
+                unit = "step" if name == "spec" else "token"
+                log(f"[loop] {name} {loop} loop: median {r['ms_per_unit_median']:.3f} ms a {unit} "
+                    f"(min {r['ms_per_unit_min']:.3f}, max {r['ms_per_unit_max']:.3f}, "
+                    f"{len(r['runs'])} seeds); seed {first['seed']}: {first['units']} {unit}s, "
+                    f"{first['tokens']} tokens in {first['wall_ms']:.1f} ms host, device busy "
+                    f"{busy:.1f} ms = {r['busy_ms_per_unit']:.3f} ms a {unit} "
+                    f"({', '.join(f'{k} {v:.1f}' for k, v in sorted(kinds.items()))}), idle share "
+                    f"{r['idle_share']:.3f}, {n} kernels ({card})")
+                for kname, ms in sorted(names.items(), key=lambda kv: -kv[1])[:6]:
+                    log(f"[loop]   {ms:9.2f} ms  {kname[:110]}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_main_path: CUDA is not available", file=sys.stderr)
@@ -140,6 +210,10 @@ def main() -> int:
     log(f"[device] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     bd, pd, bt, pt = synthetic_pair_int8_small_draft(device="cuda")
     pd, pt = unstack_layers(pd), unstack_layers(pt)
+    prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
+    if "--loops" in sys.argv[1:]:
+        print(json.dumps({"card": card, "loops": loop_rows(bd, pd, bt, pt, prompt, card)}))
+        return 0
     forwards = {
         "target_verify": forward_setup(bt, pt, GAMMA + 1),
         "target_decode": forward_setup(bt, pt, 1),
@@ -147,7 +221,6 @@ def main() -> int:
         "serve_target_verify": paged_forward_setup(bt, pt, SERVE_GAMMA + 1),
         "serve_draft_decode": paged_forward_setup(bd, pd, 1),
     }
-    prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
     kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, device="cuda")
 
     def ar():
@@ -195,6 +268,8 @@ def main() -> int:
         out["generate"][name] = {"tokens": n_new, "wall_ms": wall * 1e3, "tok_s": n_new / wall}
         if name == "serve_uniform":
             out["generate"][name]["batched_steps"] = n_steps[0]
+
+    out["loops"] = loop_rows(bd, pd, bt, pt, prompt, card)  # its host clocks, then its traces
 
     for name, run in forwards.items():
         r = out["forward"][name]
