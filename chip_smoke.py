@@ -80,7 +80,15 @@ Phases, each printing lines before the last:
      a fresh capture of each step timed, and for 3 seeds the replayed
      generation equal to an eager run of the same step function, ids and
      details, spec and AR; B1 and B2 inside both graphs (the replay
-     accounting), B3 not; spec acc_rate >= 0.6;
+     accounting), B3 not; spec acc_rate >= 0.6; then the device loops of
+     multi iid, multi-beam, MJSD and random beam at the tree path's
+     settings (gamma 4, 4 candidates or beams, 64 new tokens): a capture
+     of each step timed with its launches a replay (B1, B2 > 0, B3 0) and
+     the memory its entry holds, and for 3 seeds the replayed run equal to
+     an eager one, ids and details; then a replaced ``lm_head`` must give
+     a new capture (ids equal to a fresh dict's), and a copy of the pair,
+     dropped after spec and multi runs, must free its memory and entries
+     without ``release_graphs()``;
   5. paged serving path: the same pair through ``PagedEngine`` behind
      ``BatchedInferenceServer`` with the settings of ``scripts/bench_paged.py
      --config 13b --kv_int8 --steps_per_sync 8`` (16 rows, 32 int8 blocks of
@@ -2496,22 +2504,205 @@ def phase_device_loop(results, reps: int, pair):
                                   runs=rows)
 
 
+def _clone_tree(t):
+    if isinstance(t, torch.Tensor):
+        return t.clone()
+    if isinstance(t, dict):
+        return {k: _clone_tree(v) for k, v in t.items()}
+    return t
+
+
+def _changed_head(head):
+    """The head with its vocab rolled by one: every logit moves to the next id."""
+    if isinstance(head, dict):  # the int8 re-layout {"q": [H, V], "s": [V]}
+        return {"q": head["q"].roll(1, dims=1), "s": head["s"].roll(1, dims=0)}
+    return head.roll(1, dims=0)  # dense [V, H]
+
+
+def _leaf_checks(pair, card: str) -> dict:
+    """The captured steps follow their params and free with them: a greedy
+    spec run, the same dict with ``lm_head`` replaced, then a fresh dict of
+    the new leaves (its ids must equal the replaced run's and differ from
+    the first's); then a copy of the pair on the card runs spec and multi,
+    is dropped, and ``memory_allocated`` must fall back with its entries
+    gone, without ``release_graphs()``."""
+    from llmspeculativesampling_tpu_torch import multi_speculative_generate, speculative_generate
+    from llmspeculativesampling_tpu_torch.engine import device_loop
+
+    bd, pd, bt, pt = pair
+    prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
+    kw = dict(eos_token_id=2, top_k=1, device="cuda")
+    params = dict(pt)
+    first = speculative_generate(bd, pd, bt, params, prompt, 32, gamma=TREE_GAMMA, **kw)
+    params["lm_head"] = _changed_head(pt["lm_head"])
+    replaced = speculative_generate(bd, pd, bt, params, prompt, 32, gamma=TREE_GAMMA, **kw)
+    fresh = speculative_generate(bd, pd, bt, dict(params), prompt, 32, gamma=TREE_GAMMA, **kw)
+    if not np.array_equal(replaced, fresh) or np.array_equal(replaced, first):
+        raise AssertionError("a replaced lm_head was not read by the next run: "
+                             f"replaced == fresh {np.array_equal(replaced, fresh)}, "
+                             f"replaced == first {np.array_equal(replaced, first)}")
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    n_entries, before = len(device_loop._ENTRIES), torch.cuda.memory_allocated()
+    copy = [_clone_tree(pd), _clone_tree(pt)]
+    speculative_generate(bd, copy[0], bt, copy[1], prompt, 32, gamma=TREE_GAMMA, **kw)
+    multi_speculative_generate(bd, copy[0], bt, copy[1], prompt, 32, gamma=TREE_GAMMA,
+                               width=TREE_BEAMS, **kw)
+    torch.cuda.synchronize()
+    held, with_copy = len(device_loop._ENTRIES), torch.cuda.memory_allocated()
+    del copy
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    log(f"[device_loop params] a replaced lm_head gave a new capture: its ids equal a fresh "
+        f"dict's and differ from the first run's; with a copy of the pair and its spec and multi "
+        f"entries {with_copy / 2**30:.2f} GiB allocated and {held} entries (at most "
+        f"{device_loop.MAX_ENTRIES} are kept), after dropping it {after / 2**30:.2f} GiB and "
+        f"{len(device_loop._ENTRIES)} entries ({before / 2**30:.2f} GiB and {n_entries} before "
+        f"the copy), without release_graphs() ({card})")
+    if len(device_loop._ENTRIES) > n_entries or after > before + 2**28:
+        raise AssertionError(f"a dropped pair was not freed: {after} bytes after, {before} before, "
+                             f"{len(device_loop._ENTRIES)} entries")
+    return dict(gib_with_copy=with_copy / 2**30, gib_after=after / 2**30,
+                gib_before=before / 2**30)
+
+
+def phase_winner_loops(results, reps: int, pair):
+    """The device loops of the winner-row engines (multi iid, multi-beam,
+    MJSD, random beam) on the 13B-int8 pair at the tree path's settings
+    (64-token prompt, 64 new tokens, gamma 4, 4 candidates or beams, top_k
+    20, top_p 0.9, eos 2; MJSD at accept_thres 0.1). For each, a fresh
+    capture is timed, with the launches one replay makes (B1 and B2 > 0, B3
+    0) and the device memory its entry holds; then, for ``reps`` seeds,
+    the replayed generation's ids and details must equal an eager run's
+    (``device_loop.eager_steps``) token for token. Then the param checks
+    (:func:`_leaf_checks`). The replayed runs' launches are added under
+    "device_loop"."""
+    from llmspeculativesampling_tpu_torch import (
+        mjsd_generate, multi_speculative_generate, random_width_beam_generate)
+    from llmspeculativesampling_tpu_torch.engine import device_loop
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    bd, pd, bt, pt = pair
+    prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
+    kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, details=True, device="cuda")
+    g, nb, new = TREE_GAMMA, TREE_BEAMS, TREE_NEW
+    runs = {  # kind (the entry's) -> run
+        "multi": lambda gen: multi_speculative_generate(
+            bd, pd, bt, pt, prompt, new, gamma=g, width=nb, generator=gen, **kw),
+        "beam": lambda gen: multi_speculative_generate(
+            bd, pd, bt, pt, prompt, new, gamma=g, width=nb, strategy="beam", generator=gen, **kw),
+        "mjsd": lambda gen: mjsd_generate(
+            bd, pd, bt, pt, prompt, new, gamma=g, width=nb, num_beams=nb, accept_thres=0.1,
+            generator=gen, **kw),
+        "random_beam": lambda gen: random_width_beam_generate(
+            bt, pt, prompt, new, max_num_beams=nb, generator=gen, **kw),
+    }
+    winner_keys = ("acc_len", "acc_rate", "accepted_count", "target_call_times",
+                   "tokens_generated")
+    same_keys = {k: winner_keys for k in ("multi", "beam", "mjsd")}
+    same_keys["random_beam"] = ("target_call_times", "tokens_generated")
+
+    def timed_run(kind, k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, d = runs[kind](torch.Generator(device="cuda").manual_seed(k))
+        return out, d, time.perf_counter() - t0
+
+    capture, held_gib = {}, {}
+    for kind in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved()
+        n_cap = len(device_loop.capture_seconds)
+        timed_run(kind, 0)  # the first step runs eagerly, then the capture
+        if len(device_loop.capture_seconds) != n_cap + 1:
+            raise AssertionError(f"winner loop {kind}: {len(device_loop.capture_seconds) - n_cap} "
+                                 "captures in its first run, not one")
+        capture[kind] = device_loop.capture_seconds[-1] * 1e3
+        torch.cuda.empty_cache()
+        held_gib[kind] = (torch.cuda.memory_reserved() - mem0) / 2**30
+    per_replay = {kind: counts for kind, counts in device_loop.graph_launches() if kind in runs}
+    for kind in runs:
+        counts = per_replay.get(kind)
+        if not counts or counts["int8_matmul"] <= 0 or counts["flash_decode_attention"] <= 0 \
+                or counts["paged_flash_decode_attention"] != 0:
+            raise AssertionError(f"winner loop {kind}: B1/B2 not inside the graph, or B3: {counts}")
+        log(f"[winner_loops {kind}] capture of one step {capture[kind]:.1f} ms; launches a "
+            f"replay {counts}; the entry holds {held_gib[kind]:.3f} GiB of device memory "
+            f"(reserved, state and graph pool) ({card})")
+    totals = dict.fromkeys(_counters(), 0)
+    rows = {kind: [] for kind in runs}
+    for k in range(1, reps + 1):
+        for kind in runs:
+            reset_launches()
+            out, d, wall = timed_run(kind, k)
+            for kname, v in read_launches().items():
+                totals[kname] += v
+            with device_loop.eager_steps():
+                out_e, d_e, wall_e = timed_run(kind, k)
+            diff = [x for x in same_keys[kind] if d[x] != d_e[x]]
+            if not np.array_equal(out, out_e) or diff:
+                n = min(len(out), len(out_e))
+                first = int(np.argmax(out[:n] != out_e[:n]))
+                raise AssertionError(f"winner loop {kind} seed {k}: replay != eager (lengths "
+                                     f"{len(out)} / {len(out_e)}, first differing position "
+                                     f"{first}, details {diff})")
+            gen_ids = out[64:]
+            if not (np.array_equal(out[:64], np.asarray(prompt)) and 1 <= len(gen_ids) <= new + g
+                    and gen_ids.min() >= 0 and gen_ids.max() < VOCAB):
+                raise AssertionError(f"winner loop {kind}: bad output of length {len(out)}")
+            steps = d["target_call_times"]
+            rows[kind].append(dict(tokens=len(gen_ids), steps=steps, replay_ms=wall * 1e3,
+                                   eager_ms=wall_e * 1e3, tok_s=d["tokens_per_s"],
+                                   acc_rate=d.get("acc_rate")))
+            log(f"[winner_loops {kind}] seed {k}: {len(gen_ids)} tokens in {steps} steps, replay "
+                f"{wall * 1e3:.1f} ms ({wall * 1e3 / steps:.2f} ms a step, "
+                f"{d['tokens_per_s']:.2f} tok/s) vs eager {wall_e * 1e3:.1f} ms "
+                f"({wall_e * 1e3 / steps:.2f} ms a step), ids and details equal ({card})")
+    if totals["int8_matmul"] <= 0 or totals["flash_decode"] <= 0 or totals["paged_flash_decode"]:
+        raise AssertionError(f"winner loops: launches {totals}")
+    acc = np.mean([r["acc_rate"] for r in rows["multi"]])
+    if acc < 0.6:
+        raise AssertionError(f"winner loops: multi acceptance {acc:.3f} < 0.6")
+    log(f"[winner_loops] launches of the replayed runs: {totals}; multi acc_rate {acc:.4f}")
+    leaves = _leaf_checks(pair, card)
+    for kname, v in totals.items():
+        results["launches"]["device_loop"][kname] += v
+    elapsed = time.perf_counter() - t_phase
+    log(f"[winner_loops] phase took {elapsed:.1f} s")
+    results["winner_loops"] = dict(capture_ms=capture, held_gib=held_gib, per_replay=per_replay,
+                                   runs=rows, params=leaves, seconds=elapsed)
+
+
 # ---------------------------------------------------------------- phase 6
-def _time_select_rows(cache, rows: int, reps: int = 20) -> float:
+def _time_select_rows(cache, rows: int, reps: int = 20, inplace: bool = False, start=None,
+                      size: int = 0) -> float:
     """Device ms of one ``select_rows`` of ``cache`` into ``rows`` rows (CUDA
-    events around eager calls: each allocates its copy)."""
-    from llmspeculativesampling_tpu_torch.cache.kvcache import select_rows
+    events around eager calls: each allocates its copy), or of the in-place
+    ``select_rows_`` (the whole rows, or the window ``[start, start+size)``
+    at a device position)."""
+    from llmspeculativesampling_tpu_torch.cache.kvcache import select_rows, select_rows_
 
     idx = torch.zeros((rows,), dtype=torch.long, device="cuda")
-    select_rows(cache, idx)
+
+    def one():
+        if inplace:
+            select_rows_(cache, idx, start, size)
+        else:
+            select_rows(cache, idx)
+
+    one()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
+    start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start_ev.record()
     for _ in range(reps):
-        select_rows(cache, idx)
-    end.record()
+        one()
+    end_ev.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start_ev.elapsed_time(end_ev) / reps
 
 
 def phase_tree_path(results, reps: int, pair):
@@ -2588,10 +2779,21 @@ def phase_tree_path(results, reps: int, pair):
     log(f"[tree select_rows] target 4 rows x 256 ({gb:.2f} GB bf16) {t4:.3f} ms, target 1 row "
         f"{t1:.3f} ms, draft 4 rows {d4:.4f} ms; a step's gathers: multi {per_step['multi']:.3f} ms, "
         f"v1 {per_step['beam_v1']:.3f} ms, v2 {per_step['beam_v2']:.3f} ms ({card})")
+    # the device loops' in-place forms: the whole rows (random beam's reorder,
+    # JAX's take) and the window a winner-row step writes (multi, multi-beam, MJSD)
+    pos = torch.full((), TREE_PREFIX, dtype=torch.long, device="cuda")
+    f4 = _time_select_rows(tc4, nb, inplace=True)
+    w4 = _time_select_rows(tc4, nb, inplace=True, start=pos - 1, size=g + 2)
+    wd4 = _time_select_rows(dc4, nb, inplace=True, start=pos - 2, size=g + 2)
+    log(f"[tree select_rows_] in place, target 4 rows x 256: whole rows {f4:.3f} ms, the "
+        f"{g + 2}-position window {w4:.4f} ms; draft window {wd4:.4f} ms; a multi step's "
+        f"re-broadcast {w4 + wd4:.4f} ms against {t4 + d4:.3f} for the whole-row takes ({card})")
     del tc4, tc1, dc4
     torch.cuda.empty_cache()
     results["tree"] = dict(engines=out_res, select_rows_ms=dict(target4=t4, target1=t1, draft4=d4),
-                           select_rows_per_step_ms=per_step)
+                           select_rows_per_step_ms=per_step,
+                           select_rows_inplace_ms=dict(target4_whole=f4, target4_window=w4,
+                                                       draft4_window=wd4))
     results["launches"]["tree_beam"] = total_launches
 
 
@@ -4312,14 +4514,15 @@ def main() -> int:
                   phase_tree_forward, phase_opt_forward, phase_fp8_forward, phase_loader):
         timed(phase)
     pair = timed(build_pair)
-    for phase in (phase_main_path, phase_device_loop, phase_tree_path, phase_algorithms):
+    for phase in (phase_main_path, phase_device_loop, phase_winner_loops, phase_tree_path,
+                  phase_algorithms):
         timed(phase, results, REPS, pair)
     timed(phase_serving, results, pair)
     timed(phase_burst_trickle, results, pair)
     for phase in (phase_shared_prefix, phase_longgen, phase_hit_burst_trickle, phase_cold_mix,
                   phase_adaptive, phase_slotted):
         timed(phase, results, pair)
-    release_graphs()  # the captured steps hold the pair's params
+    release_graphs()  # the entries free with the pair; this frees their caches first
     del pair
     gc.collect()
     torch.cuda.empty_cache()  # the Llama pair's 13.3 GB go before the tp ranks' and the OPT pair's

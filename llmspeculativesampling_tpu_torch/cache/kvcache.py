@@ -168,21 +168,45 @@ def compact_tree_paths(cache, path_idx: torch.Tensor, path_valid: torch.Tensor, 
     return rollback(cache, new_length)
 
 
-def _map_kv(cache, fn):
+def _map_kv(cache, fn, lengths_fn):
+    lengths = None if cache.lengths is None else lengths_fn(cache.lengths)
     if isinstance(cache, QuantKVCache):
-        return QuantKVCache(fn(cache.k_q), fn(cache.v_q), fn(cache.k_s), fn(cache.v_s), cache.length)
-    return KVCache(fn(cache.k), fn(cache.v), cache.length)
+        return QuantKVCache(fn(cache.k_q), fn(cache.v_q), fn(cache.k_s), fn(cache.v_s), cache.length,
+                            lengths)
+    return KVCache(fn(cache.k), fn(cache.v), cache.length, lengths)
 
 
 def select_rows(cache, row_idx: torch.Tensor):
-    """Gather/duplicate batch rows (a new cache; buffers are copied)."""
-    idx = row_idx.to(dtype=torch.long, device=(cache.k_q if isinstance(cache, QuantKVCache) else cache.k).device)
-    return _map_kv(cache, lambda x: x.index_select(1, idx))
+    """Gather/duplicate batch rows (a new cache; buffers are copied, per-row
+    lengths follow their rows)."""
+    idx = row_idx.to(dtype=torch.long, device=kv_buffers(cache)[0].device)
+    return _map_kv(cache, lambda x: x.index_select(1, idx), lambda n: n.index_select(0, idx))
+
+
+def select_rows_(cache, row_idx: torch.Tensor, start=None, size: int = 0) -> None:
+    """:func:`select_rows` in place: row b of every buffer (and of the
+    per-row lengths) takes row ``row_idx[b]``, in the cache's own buffers,
+    so a captured step's state keeps its addresses. With ``start`` (a host
+    int or a device scalar), only positions ``[start, start+size)`` move
+    (clamped into the buffer): below them the selected rows must already
+    agree, as they do where one winner was re-broadcast into every row."""
+    dev = kv_buffers(cache)[0].device
+    idx = row_idx.to(dtype=torch.long, device=dev)
+    for buf in kv_buffers(cache):
+        if start is None:
+            buf.copy_(buf.index_select(1, idx))
+        else:
+            pos = (torch.as_tensor(start, device=dev).long().reshape(())
+                   + torch.arange(size, device=dev)).clamp(0, buf.shape[3] - 1)
+            buf.index_copy_(3, pos, buf.index_select(3, pos).index_select(1, idx))
+    if cache.lengths is not None:
+        cache.lengths.copy_(cache.lengths.index_select(0, idx))
 
 
 def repeat_rows(cache, repeats: int):
     """Duplicate every row ``repeats`` times (a new cache)."""
-    return _map_kv(cache, lambda x: x.repeat_interleave(repeats, dim=1))
+    return _map_kv(cache, lambda x: x.repeat_interleave(repeats, dim=1),
+                   lambda n: n.repeat_interleave(repeats))
 
 
 def _start(start: int, s: int, s_max: int) -> int:

@@ -118,7 +118,7 @@ def autoregressive_generate(
     synchronize(dev)
     t0 = time.perf_counter()
     st = device_loop.run(
-        ("ar", id(params), bundle, max_total, scfg, eos_token_id), (params, pu),
+        ("ar", bundle, max_total, scfg, eos_token_id), (params,),
         functools.partial(_ar_state, bundle, max_total, vocab, dev),
         functools.partial(_ar_start, bundle, pu, prompt_t, p_len, total, key, tp_mesh),
         functools.partial(_ar_step, bundle, pu, scfg, eos_token_id), max_new_tokens,

@@ -17,9 +17,12 @@ root (input row) of each node.
 path's draft cache can be rebuilt by an ancestor gather instead of keeping
 a full cache per step.
 
-The JAX scan over the gamma steps is a host loop here; every shape is fixed
-(``num_beams`` rows, 2 tokens on the first forward, 1 after), and nothing
-is read back to the host. Random draws come from ``generator``.
+The JAX scan over the gamma steps is a Python loop here; every shape is
+fixed (``num_beams`` rows, 2 tokens on the first forward, 1 after), the
+committed length is a position on the device, and nothing is read back to
+the host, so the draft runs inside a captured step (``engine/beam_spec.py``).
+Random draws come from the counter stream of ``keys`` (``ops/sampling.py::
+row_uniform``), advanced and returned as JAX returns ``res.key``.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..cache.kvcache import read_positions, rollback, select_rows
+from ..cache.kvcache import read_positions, rollback_rows, select_rows, select_rows_
 from ..ops.sampling import (
     SamplingConfig,
     TopKDist,
@@ -36,10 +39,13 @@ from ..ops.sampling import (
     joint_rowwarp_dense,
     joint_rowwarp_topk,
     prob_of_topk,
-    sample_k,
-    sample_k_topk,
+    row_uniform,
+    sample_k_topk_u,
+    sample_k_u,
+    topk_draw_width,
     use_sparse,
 )
+from .speculative import rows_window
 
 _SCORE_CLAMP = -1e10
 
@@ -57,6 +63,7 @@ class BeamDraftResult(NamedTuple):
     perbeam_probs: torch.Tensor  # [B, gamma, V] per-beam normalized dist along each path
     step_root: torch.Tensor      # [gamma, B] root of each node (step arrangement)
     cache: object
+    key: Optional[torch.Tensor] = None  # [1, 2] the stream's key after the draft's draws
     # capture_kv=True (else None): the cache buffers' slices
     # (``cache.kvcache.kv_buffers`` order) at the 2-position anchor window
     # cur_len-2..cur_len-1, in the initial row arrangement, and per node
@@ -72,24 +79,38 @@ def beam_draft(
     gamma: int,
     num_beams: int,
     row_tokens: torch.Tensor,  # [num_beams, T] committed buffer per row
-    cur_len: int,
+    cur_len,
     cache,
-    generator: Optional[torch.Generator],
+    keys: torch.Tensor,
     init_beam_scores: Optional[torch.Tensor] = None,
     init_root: Optional[torch.Tensor] = None,
     capture_kv: bool = False,
+    shared_prefix: bool = False,
 ) -> BeamDraftResult:
     """gamma-step beam-sample draft over ``num_beams`` rows.
 
+    ``cur_len`` is the committed length, a host int or a device scalar;
+    the draft re-feeds positions cur_len-2, cur_len-1 of every row (the
+    cache's per-row lengths are reset there) and writes up to
+    cur_len+gamma-2. ``keys`` [1, 2] is the stream the draws come from.
     Rows may hold different committed prefixes; ``init_beam_scores`` marks
     padding rows with -inf. The joint is warped with top-k/top-p but not
-    temperature, as the reference's beam sampler's warper list."""
+    temperature, as the reference's beam sampler's warper list.
+
+    ``shared_prefix``: every row holds the same committed prefix (one
+    winner re-broadcast). Then a reorder by parent moves only the window the
+    draft writes, in place in ``cache``'s own buffers; otherwise every step
+    gathers whole rows into a new cache and ``cache`` keeps its rows.
+    ``capture_kv`` needs a host-int ``cur_len``."""
     cfg = bundle.cfg
     b = num_beams
     vocab = cfg.vocab_size
     dev = row_tokens.device
     joint_cfg = SamplingConfig(1.0, scfg.top_k, scfg.top_p)
     sparse = use_sparse(joint_cfg)
+    # a host int is filled in on the card, not copied (a copy would wait for it)
+    start = (cur_len.long().reshape(()) if isinstance(cur_len, torch.Tensor)
+             else torch.full((), cur_len, dtype=torch.long, device=dev)) - 2
 
     beam_scores = (init_beam_scores.float() if init_beam_scores is not None
                    else torch.zeros((b,), dtype=torch.float32, device=dev))
@@ -99,8 +120,9 @@ def beam_draft(
     probs_buf = torch.zeros((b, gamma, vocab), dtype=torch.float32, device=dev)
 
     # first forward: the 2-token re-derivation window (an idempotent rewrite)
-    cache = rollback(cache, cur_len - 2)
-    logits, cache = bundle.forward(params, cfg, row_tokens[:, cur_len - 2:cur_len], cache)
+    starts = start.expand(b)
+    logits, cache = bundle.forward(params, cfg, rows_window(row_tokens, starts, 2),
+                                   rollback_rows(cache, starts))
     logits_b = logits[:, -1]
     anchor_kv = read_positions(cache, cur_len - 2, 2) if capture_kv else None
     node_kv = [] if capture_kv else None
@@ -118,17 +140,22 @@ def beam_draft(
         # joint's support is the union of per-beam nuclei
         if sparse:
             q_dist = joint_rowwarp_topk(logp, beam_scores, joint_cfg)
-            t = sample_k_topk(generator, q_dist, b)  # [B] without replacement
+            u, keys = row_uniform(keys, topk_draw_width(q_dist, b))
+            t = sample_k_topk_u(q_dist, u[0], b)  # [B] without replacement
             chosen_q = prob_of_topk(q_dist, t)
         else:
             q_dist = joint_rowwarp_dense(logp, beam_scores, joint_cfg)  # [B*V]
-            t = sample_k(generator, q_dist[None], b)[0]
+            u, keys = row_uniform(keys, q_dist.shape[0])
+            t = sample_k_u(q_dist[None], u, b)[0]
             chosen_q = q_dist[t]
         parent = torch.div(t, vocab, rounding_mode="floor")
         next_tok = t % vocab
         beam_scores = torch.clamp(joint[parent, next_tok], min=_SCORE_CLAMP)
 
-        cache = select_rows(cache, parent)
+        if shared_prefix:
+            select_rows_(cache, parent, start, gamma + 1)
+        else:
+            cache = select_rows(cache, parent)
         tail = tail[parent]
         tail[:, step] = next_tok
         seq_q = seq_q[parent]
@@ -147,7 +174,7 @@ def beam_draft(
         tail=tail, beam_scores=beam_scores, seq_q=seq_q, root=root,
         step_beam_idx=torch.stack(parents), step_next_tok=torch.stack(toks),
         step_chosen_q=torch.stack(chosen), step_joint_q=dist_concat(joints, axis=0),
-        perbeam_probs=probs_buf, step_root=torch.stack(roots), cache=cache,
+        perbeam_probs=probs_buf, step_root=torch.stack(roots), cache=cache, key=keys,
         anchor_kv=anchor_kv, node_kv=node_kv,
     )
 

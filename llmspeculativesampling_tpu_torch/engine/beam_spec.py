@@ -15,25 +15,29 @@
   clears it; the longest wins; a reject samples ``max_fn(p)`` (the plain
   target distribution, as the reference does), full acceptance a bonus.
 
-A step is one beam draft, ONE target forward over ``width`` rows x
-(gamma+1) tokens under the causal mask, the accept rule, the residual or
-bonus sample, and the winner's row re-broadcast into both caches
-(``select_rows``). The JAX ``lax.while_loop`` is a host loop here with
-fixed shapes a step and ONE host read a step, after the accept: the
-winner's accept count, its tokens and the next token. Committed k/v need
-no snapshot: the winner's path is a cache row, and the next step's
-windows re-derive the boundary positions.
+A step (:func:`_beam_spec_step`) is one beam draft, ONE target forward
+over ``width`` rows x (gamma+1) tokens under the causal mask, the accept
+rule, the residual or bonus sample, a masked commit, and the winner's row
+re-broadcast into both caches. As in JAX (``_beam_spec_device``) the whole
+generation runs in the device loop (``engine/device_loop.py``): the state
+lives in static buffers with per-row device lengths, every draw comes from
+one counter stream, and on the card the step is captured once into a CUDA
+graph and replayed until the state says stop. Committed k/v need no
+snapshot: the winner's path is a cache row, and the next step's windows
+re-derive the boundary positions. Every row holds the committed prefix
+when a step starts, so the beam draft's reorders and the re-broadcast move
+only the window the step wrote (``beam_draft(shared_prefix=True)``).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
-import numpy as np
 import torch
 
-from ..cache.kvcache import rollback, select_rows
+from ..cache.kvcache import rollback_rows, select_rows_
 from ..core.config import resolve_device, synchronize
 from ..models.llama import unstack_layers
 from ..ops.sampling import (
@@ -42,18 +46,25 @@ from ..ops.sampling import (
     dist_map,
     dist_norm,
     dist_prob_of,
-    dist_sample,
+    dist_sample_u,
     dist_take,
+    dist_width,
     max_fn,
+    row_uniform,
 )
+from . import device_loop
 from .beam_draft import beam_draft, top_width
+from .device_loop import WinnerState, commit_winner, winner_start, winner_state
 from .phases import fill_phase_split
-from .types import ModelBundle, aligned_total, first_eos_truncate, pad_prompt
+from .speculative import rows_window
+from .types import ModelBundle, aligned_total, pad_prompt
 
 
 def leading_accept(generator, p_sel, q_sel, fixed_r=None):
     """The multi-beam rule: the leading run of r < min(1, p/q) per
-    candidate. ``p_sel``/``q_sel`` [w, gamma]; returns lengths [w]."""
+    candidate. ``p_sel``/``q_sel`` [w, gamma]; returns lengths [w]. The
+    accept uniforms are ``fixed_r`` [w, gamma] when given (the engine's
+    step passes its stream's), else drawn from ``generator``."""
     ratio = torch.clamp(p_sel / (q_sel + 1e-20), max=1.0)
     r = fixed_r if fixed_r is not None else torch.rand(
         p_sel.shape, generator=generator, device=p_sel.device)
@@ -93,6 +104,64 @@ def residual(mode: str, p_l, q_l):
     return torch.where(resid.sum() < 1e-6, p_l, resid)
 
 
+def _beam_spec_step(mode, bundle_d, params_d, bundle_t, params_t, scfg, gamma: int, width: int,
+                    num_beams: int, accept_thres: float, ref_row_compat: bool, eos_token_id: int,
+                    st: WinnerState) -> None:
+    """One beam-drafted step on ``st``, in place (JAX ``_beam_spec_device``'s
+    body). The windows sit at ``cw = min(cur_len, total - 1)``; a finished
+    state commits nothing (``device_loop.commit_winner``) while its forwards
+    stay inside the buffers."""
+    w, nb = width, num_beams
+    cur = st.cur_len.long()
+    active = ~st.done & (cur < st.total)
+    cw = torch.minimum(cur, st.total.long() - 1).reshape(1)
+    res = beam_draft(bundle_d, params_d, scfg, gamma, nb, st.tokens.expand(nb, -1), cw[0],
+                     st.draft_cache, st.key, shared_prefix=True)
+    cand, _, seq_q, perbeam_q, orig_rows = top_width(res, w)  # [w, gamma], ..., [w, gamma, V]
+    if ref_row_compat:
+        # The reference's bug, reproduced for differential runs: it sorts
+        # the candidates by joint score but hands the verify its q buffers
+        # in final-beam ROW order, the per-beam rows parent-gathered and the
+        # joint ones never gathered at all.
+        perbeam_q = res.perbeam_probs[:w]
+        seq_q = res.step_chosen_q.T[:w]
+
+    # verify: one batched target forward over the w candidates
+    vin = torch.cat([rows_window(st.tokens, cw - 1, 1).expand(w, 1), cand], dim=1)
+    logits, _ = bundle_t.forward(params_t, bundle_t.cfg, vin,
+                                 rollback_rows(st.target_cache, (cw - 1).expand(w)),
+                                 tp_mesh=scfg.tp_mesh)
+    p_stack = dist_norm(logits, scfg)  # [w, gamma+1, ...]
+    p_sel = dist_prob_of(dist_map(lambda x: x[:, :gamma], p_stack), cand)  # [w, gamma]
+    key = res.key
+    if mode == "beam":
+        q_sel = torch.gather(perbeam_q, 2, cand[..., None])[..., 0]
+        r = st.fixed_r
+        if r is None:
+            r, key = row_uniform(key, w * gamma)
+            r = r.reshape(w, gamma)
+        lens = leading_accept(None, p_sel, q_sel, r)
+        rate = torch.clamp(p_sel / (q_sel + 1e-20), max=1.0)
+    else:
+        lens = mjsd_accept(accept_thres, p_sel, seq_q)
+        rate = mjsd_rate(p_sel, seq_q)
+    choice = torch.argmax(lens)  # the first longest
+    max_l = dist_take(lens, choice)
+
+    p_choice = dist_take(p_stack, choice)
+    zero_row = torch.zeros((1, perbeam_q.shape[-1]), dtype=torch.float32, device=cw.device)
+    q_l = dist_take(torch.cat([dist_take(perbeam_q, choice), zero_row]), max_l)
+    u_t, key = row_uniform(key, dist_width(p_stack))
+    t_res = dist_sample_u(residual(mode, dist_take(p_choice, max_l), q_l), u_t[0])
+    t_bonus = dist_sample_u(dist_take(p_choice, gamma), u_t[0])
+    t = torch.where(max_l == gamma, t_bonus, t_res)
+    commit_winner(st, cur, cw[0], active, dist_take(cand, choice), max_l, t, rate.sum(), key,
+                  eos_token_id)
+    # the winner's row re-broadcast into every row of both caches (the written windows)
+    select_rows_(st.draft_cache, dist_take(orig_rows, choice).expand(nb), cw - 2, gamma + 2)
+    select_rows_(st.target_cache, choice.expand(w), cw - 1, gamma + 2)
+
+
 def _run(
     mode, bundle_d, params_d, bundle_t, params_t, prompt, max_new_tokens, *,
     gamma, width, num_beams, accept_thres, eos_token_id, temperature, top_k, top_p,
@@ -102,100 +171,47 @@ def _run(
     scfg = SamplingConfig(temperature, top_k, top_p, tp_mesh=tp_mesh)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
     bundle_d, bundle_t = bundle_d.for_params(params_d), bundle_t.for_params(params_t)
-    params_d, params_t = unstack_layers(params_d), unstack_layers(params_t)
-    cfg_t = bundle_t.cfg
+    pd, pt = unstack_layers(params_d), unstack_layers(params_t)
     nb, w = num_beams, width
     prompt_padded, p_len = pad_prompt(prompt)
     if p_len < 2:
         raise ValueError("prompt must have at least 2 tokens")
-    max_total = aligned_total(prompt_padded.shape[1] + max_new_tokens + gamma + 1)
+    p_bucket = prompt_padded.shape[1]
+    max_total = aligned_total(p_bucket + max_new_tokens + gamma + 1)
+    total = p_len + max_new_tokens
+    for bundle in (bundle_d, bundle_t):
+        device_loop.check_positions(bundle, max(p_bucket, total + gamma - 1))
     fixed_r = None
     if random_seed is not None and mode == "beam":
         # the reference reseeds before every accept draw: every r is one
         # fixed uniform. MJSD's accept uses r = accept_thres, so the seed
         # has no effect there, as in the reference.
         g0 = torch.Generator().manual_seed(int(random_seed))
-        fixed_r = torch.rand((), generator=g0).expand(w, gamma).to(dev)
+        fixed_r = torch.rand((), generator=g0).expand(w, gamma)
+    key = device_loop.stream_key(gen, dev)
+    prompt_t = torch.as_tensor(prompt_padded, dtype=torch.long).to(dev)
 
     synchronize(dev)
     t0 = time.perf_counter()
-    draft_cache = bundle_d.make_cache(nb, max_total, device=dev)
-    target_cache = bundle_t.make_cache(w, max_total, device=dev)
-    tokens = torch.zeros((1, max_total), dtype=torch.long, device=dev)
-    host = np.zeros(max_total, np.int64)
-    prompt_t = torch.as_tensor(prompt_padded, dtype=torch.long).to(dev)
-    tokens[:, :prompt_t.shape[1]] = prompt_t
-    host[:prompt_padded.shape[1]] = prompt_padded[0]
-    _, draft_cache = bundle_d.forward(params_d, bundle_d.cfg, prompt_t.expand(nb, -1), draft_cache)
-    _, target_cache = bundle_t.forward(params_t, cfg_t, prompt_t.expand(w, -1), target_cache,
-                                       tp_mesh=tp_mesh)
-    zero_row = torch.zeros((1, cfg_t.vocab_size), dtype=torch.float32, device=dev)
-
-    total = p_len + max_new_tokens
-    cur_len = p_len
-    acc_len = []
-    rate_sum = torch.zeros((), dtype=torch.float32, device=dev)
-    while cur_len < total:
-        res = beam_draft(bundle_d, params_d, scfg, gamma, nb, tokens.expand(nb, -1), cur_len,
-                         draft_cache, gen)
-        draft_cache = res.cache
-        cand, _, seq_q, perbeam_q, orig_rows = top_width(res, w)  # [w, gamma], ..., [w, gamma, V]
-        if ref_row_compat:
-            # The reference's bug, reproduced for differential runs: it
-            # sorts the candidates by joint score but hands the verify its
-            # q buffers in final-beam ROW order, the per-beam rows
-            # parent-gathered and the joint ones never gathered at all.
-            perbeam_q = res.perbeam_probs[:w]
-            seq_q = res.step_chosen_q.T[:w]
-
-        # verify: one batched target forward over the w candidates
-        target_cache = rollback(target_cache, cur_len - 1)
-        vin = torch.cat([tokens[:, cur_len - 1:cur_len].expand(w, 1), cand], dim=1)
-        logits, target_cache = bundle_t.forward(params_t, cfg_t, vin, target_cache, tp_mesh=tp_mesh)
-        p_stack = dist_norm(logits, scfg)  # [w, gamma+1, ...]
-        p_sel = dist_prob_of(dist_map(lambda x: x[:, :gamma], p_stack), cand)  # [w, gamma]
-        if mode == "beam":
-            q_sel = torch.gather(perbeam_q, 2, cand[..., None])[..., 0]
-            lens = leading_accept(gen, p_sel, q_sel, fixed_r)
-            rate = torch.clamp(p_sel / (q_sel + 1e-20), max=1.0)
-        else:
-            lens = mjsd_accept(accept_thres, p_sel, seq_q)
-            rate = mjsd_rate(p_sel, seq_q)
-        rate_sum += rate.sum()
-        choice = torch.argmax(lens)  # the first longest
-        max_l = lens[choice]
-        win = dist_take(cand, choice)
-        tokens[0, cur_len:cur_len + gamma] = win
-
-        p_choice = dist_take(p_stack, choice)
-        q_l = dist_take(torch.cat([dist_take(perbeam_q, choice), zero_row]), max_l)
-        t_res = dist_sample(gen, residual(mode, dist_take(p_choice, max_l), q_l))
-        t_bonus = dist_sample(gen, dist_take(p_choice, gamma))
-        t = torch.where(max_l == gamma, t_bonus, t_res)
-        tokens[0].scatter_(0, (cur_len + max_l).reshape(1), t.reshape(1))
-
-        # the winner's row re-broadcast into every row of both caches
-        draft_cache = select_rows(draft_cache, dist_take(orig_rows, choice).expand(nb))
-        target_cache = select_rows(target_cache, choice.expand(w))
-        # the one host read of the step: accept count, next token, winner
-        h = torch.cat([max_l.reshape(1), t.reshape(1), win]).tolist()
-        n_acc = int(h[0])
-        window = h[2:2 + n_acc] + [h[1]]
-        host[cur_len:cur_len + n_acc + 1] = window
-        acc_len.append(n_acc)
-        cur_len += n_acc + 1
-        if eos_token_id in window:
-            break
-    rate_total = float(rate_sum)
+    st = device_loop.run(
+        (mode, bundle_d, bundle_t, gamma, w, nb, max_total, max_new_tokens, scfg, eos_token_id,
+         float(accept_thres), ref_row_compat, fixed_r is not None),
+        (params_d, params_t),
+        functools.partial(winner_state, bundle_d, bundle_t, nb, w, gamma, 1, max_total,
+                          max_new_tokens, fixed_r is not None, dev),
+        functools.partial(winner_start, bundle_d, pd, bundle_t, pt, prompt_t, p_len, total, key,
+                          fixed_r, tp_mesh),
+        functools.partial(_beam_spec_step, mode, bundle_d, pd, bundle_t, pt, scfg, gamma, w, nb,
+                          float(accept_thres), ref_row_compat, eos_token_id),
+        max_new_tokens, replay=dev.type == "cuda" and tp_mesh is None)
+    out, steps, accepted, acc_len, rate_total = device_loop.winner_result(st, p_len, eos_token_id)
     wall = time.perf_counter() - t0
-    out = first_eos_truncate(host, p_len, cur_len, eos_token_id).astype("int32")
     if not details:
         return out
-    steps = len(acc_len)
     d = {
         "total_time": wall,
         "acc_len": acc_len,
-        "accepted_count": sum(acc_len),
+        "accepted_count": accepted,
         "acc_rate": rate_total / max(steps * w * gamma, 1),
         "target_call_times": steps,
         "approx_call_times": steps,
@@ -203,7 +219,7 @@ def _run(
         "tokens_per_s": (len(out) - p_len) / wall if wall > 0 else float("nan"),
     }
     fill_phase_split(
-        d, wall, steps, bundle_d, params_d, bundle_t, params_t,
+        d, wall, steps, bundle_d, pd, bundle_t, pt,
         draft_rows=nb, verify_rows=w, gamma=gamma, verify_tokens=gamma + 1,
         max_total=max_total, device=dev,
     )

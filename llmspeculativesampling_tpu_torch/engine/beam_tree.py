@@ -26,8 +26,9 @@ The JAX engine is one ``lax.while_loop``; here a host loop runs steps of
 fixed shapes (num_beams draft rows, r_slots x (N+1) tree tokens) and reads
 the device ONCE a step, after the walk: the accepted depth, the committed
 tokens of every row, their roots and scores, which the host keeps in a
-mirror of the rows for the EOS bookkeeping and the output. Random draws
-come from ``generator``.
+mirror of the rows for the EOS bookkeeping and the output. The walks draw
+from ``generator``; the beam draft from a counter stream seeded once from it
+(``device_loop.stream_key``).
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ from ..ops.sampling import (
     sample_topk,
     use_sparse,
 )
+from . import device_loop
 from .beam_draft import beam_draft
 from .phases import fill_phase_split
 from .types import ModelBundle, aligned_total, pad_prompt
@@ -142,6 +144,7 @@ class TreeState:
     scores_host: np.ndarray   # float32 [R]: beam_scores[:R] on the host
     alive: np.ndarray         # [R] row not yet EOS-finished
     best_tokens: np.ndarray   # best finished candidate (EOS bookkeeping)
+    key: torch.Tensor         # [1, 2] the beam draft's counter stream
     best_len: int = 0
     best_score: np.float32 = np.float32(_NEG)
     done: bool = False
@@ -528,8 +531,9 @@ def _tree_step(state: TreeState, mode, bundle_d, params_d, bundle_t, params_t, s
     slot = _slot_pattern(b, r_slots, dev)
     init_scores = torch.where(torch.arange(b, device=dev) < r_slots, 0.0, float("-inf"))
     res = beam_draft(bundle_d, params_d, scfg, gamma, b, state.row_tokens[slot], state.cur_len,
-                     state.draft_cache, generator, init_beam_scores=init_scores, init_root=slot,
+                     state.draft_cache, state.key, init_beam_scores=init_scores, init_root=slot,
                      capture_kv=True)
+    state.key = res.key
     anc = ancestor_matrix(res.step_beam_idx, gamma, b)
     p_root, p_nodes, target_cache = tree_verify(
         bundle_t, params_t, scfg, gamma, b, state.row_tokens, state.cur_len, state.target_cache,
@@ -620,7 +624,7 @@ def _run_tree(mode, bundle_d, params_d, bundle_t, params_t, prompt, max_new_toke
         row_tokens=row_tokens, rows_host=rows_host, cur_len=p_len, draft_cache=draft_cache,
         target_cache=target_cache, beam_scores=torch.zeros((b,), dtype=torch.float32, device=dev),
         scores_host=np.zeros((r_slots,), np.float32), alive=np.ones((r_slots,), bool),
-        best_tokens=np.zeros((max_total,), np.int64))
+        best_tokens=np.zeros((max_total,), np.int64), key=device_loop.stream_key(gen, dev))
     total = p_len + max_new_tokens
     while state.cur_len < total and not state.done:
         state = _tree_step(

@@ -1,37 +1,43 @@
-"""The device-resident generation loop of ``speculative_generate`` and
-``autoregressive_generate`` (counterpart of JAX's ``_spec_generate_device``
-and ``_ar_generate_device``, whose ``lax.while_loop`` runs the whole
-generation as one device program).
+"""The device-resident generation loop of ``speculative_generate``,
+``autoregressive_generate``, ``multi_speculative_generate`` (iid and beam),
+``mjsd_generate`` and ``random_width_beam_generate`` (counterpart of JAX's
+``_spec_generate_device``, ``_ar_generate_device``, ``_multi_device``,
+``_beam_spec_device`` and ``_random_beam_device``, whose
+``lax.while_loop`` runs the whole generation as one device program).
 
 A generation's state lives on the device (:class:`SpecState`,
-:class:`ARState`): every field is a static buffer that one step updates in
-place (``copy_``, ``scatter_``, ``add_``), so a step is a function of
-tensors only, with no host read. A step taken once the state is finished
-(``done``, or ``cur_len`` at its budget) changes nothing the caller reads:
-``lax.while_loop``'s ``cond``, written as masking, because a replayed graph
-cannot skip itself.
+:class:`ARState`, :class:`WinnerState`, random beam's): every field is a
+static buffer that one step updates in place (``copy_``, ``scatter_``,
+``add_``), so a step is a function of tensors only, with no host read. A
+step taken once the state is finished (``done``, or ``cur_len`` at its
+budget) changes nothing the caller reads: ``lax.while_loop``'s ``cond``,
+written as masking, because a replayed graph cannot skip itself.
 
 :func:`run` drives the steps:
 
 * on the CPU (the tests), and under a ``tp_mesh`` (a gloo collective cannot
   be captured), it calls the step eagerly and reads ``stop`` once a step;
 * on the card it captures the step once into a ``torch.cuda.CUDAGraph``
-  per static key (the params, gamma, the buffer length, the sampling
-  config, EOS, the dtypes) and replays it until ``stop``. The first step of
-  a new entry runs eagerly on a side stream (B2's ticket counters grow, B1's
-  library loads, the allocator settles): it is the generation's real first
-  step. The host reads ``stop`` one step behind: it enqueues replay k+1,
-  then waits on an event for step k's flag, copied into pinned memory, so at
-  most one masked step is spent a generation. A capture that fails raises;
-  nothing falls back to the eager loop.
+  per static key (the engine, the param leaves, gamma, the buffer length,
+  the sampling config, EOS, ...) and replays it until ``stop``. The first
+  step of a new entry runs eagerly on a side stream (B2's ticket counters
+  grow, B1's library loads, the allocator settles): it is the generation's
+  real first step. The host reads ``stop`` one step behind: it enqueues
+  replay k+1, then waits on an event for step k's flag, copied into pinned
+  memory, so at most one masked step is spent a generation. A capture that
+  fails raises; nothing falls back to the eager loop.
 
 The prompt's prefill stays eager (its length varies) and writes into the
-entry's static caches. An entry holds strong references to the params it
-captured (and to B2's ticket counters), so no tensor a graph points at is
-freed while the graph lives; :func:`release_graphs` drops every entry, and
-at most ``MAX_ENTRIES`` are kept, the least recently used going first.
-Replacing a tensor inside a param dict that a graph was captured on is not
-seen by that graph: pass a new dict.
+entry's static caches. An entry is keyed on the identities of the param
+leaves its graph reads (JAX's jit reads the leaves it is given), so a leaf
+replaced in a dict gets a new capture, while an in-place ``copy_`` into a
+leaf is read by the old graph. The entry holds those leaves by weak
+reference only: when one is collected, the entry and its graph go with it,
+so a pair the caller drops is freed and no graph outlives a tensor it
+points at. It holds B2's ticket counters strongly. :func:`release_graphs`
+drops every entry, and at most ``MAX_ENTRIES`` are kept, the least
+recently used going first (an evicted step is captured again when next
+run).
 
 The kernel wrappers count their launches in Python, so a replay would count
 nothing: :func:`run` records each counter's delta during the capture (which
@@ -42,15 +48,20 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
+import weakref
 from collections import OrderedDict
 from typing import Callable, Optional
 
 import torch
 
 from ..ops.sampling import row_keys
+from .types import first_eos_truncate
 
-MAX_ENTRIES = 4
+# spec, AR, multi, multi-beam, MJSD and random beam run in a row without
+# thrashing, with two to spare
+MAX_ENTRIES = 8
 _ENTRIES: "OrderedDict[tuple, _Entry]" = OrderedDict()
 _FORCE_EAGER = [0]
 # seconds of each capture, oldest first (chip_smoke.py and the profile read them)
@@ -94,9 +105,109 @@ class ARState:
 
 
 @dataclasses.dataclass
+class WinnerState:
+    """A multi-candidate generation on the device (the carry of JAX's
+    ``_multi_device`` and ``_beam_spec_device`` loops): candidates are
+    drafted in the caches' rows, one wins, and the winner's row is
+    re-broadcast into every row."""
+
+    tokens: torch.Tensor        # [1, T] int64
+    cur_len: torch.Tensor       # [] int32
+    total: torch.Tensor         # [] int32
+    draft_cache: object         # per-row device lengths: width (multi) or num_beams rows
+    target_cache: object        # width rows
+    key: torch.Tensor           # [R, 2]: one stream a draft row (multi), or [1, 2]
+    fixed_r: Optional[torch.Tensor]  # [width, gamma] f32 accept uniforms, or None
+    done: torch.Tensor          # [] bool
+    accepted: torch.Tensor      # [] int32
+    steps: torch.Tensor         # [] int32
+    rate_sum: torch.Tensor      # [] f32: the acc_rate numerator
+    acc_len_hist: torch.Tensor  # [max_new_tokens] int32
+    stop: torch.Tensor          # [] bool
+
+
+def winner_state(bundle_d, bundle_t, draft_rows: int, width: int, gamma: int, key_rows: int,
+                 max_total: int, max_new: int, fixed: bool, device) -> WinnerState:
+    """A zeroed :class:`WinnerState` of ``max_total`` positions."""
+    i32 = torch.int32
+
+    def cache(bundle, rows):
+        c = bundle.make_cache(rows, max_total, device=device)
+        return dataclasses.replace(c, lengths=torch.zeros((rows,), dtype=i32, device=device))
+
+    return WinnerState(
+        tokens=torch.zeros((1, max_total), dtype=torch.long, device=device),
+        cur_len=scalar(0, i32, device), total=scalar(0, i32, device),
+        draft_cache=cache(bundle_d, draft_rows), target_cache=cache(bundle_t, width),
+        key=torch.zeros((key_rows, 2), dtype=torch.long, device=device),
+        fixed_r=torch.zeros((width, gamma), dtype=torch.float32, device=device) if fixed else None,
+        done=scalar(False, torch.bool, device), accepted=scalar(0, i32, device),
+        steps=scalar(0, i32, device), rate_sum=scalar(0.0, torch.float32, device),
+        acc_len_hist=torch.zeros((max(max_new, 1),), dtype=i32, device=device),
+        stop=scalar(False, torch.bool, device),
+    )
+
+
+def winner_start(bundle_d, params_d, bundle_t, params_t, prompt_t, p_len: int, total: int, key,
+                 fixed_r, tp_mesh, st: WinnerState) -> None:
+    """Reset ``st`` and prefill the padded prompt ``prompt_t`` [1, P] into
+    every row of both caches (eager: the bucket varies)."""
+    st.tokens.zero_()
+    st.tokens[:, :prompt_t.shape[1]] = prompt_t
+    for bundle, params, cache in ((bundle_d, params_d, st.draft_cache),
+                                  (bundle_t, params_t, st.target_cache)):
+        cache.lengths.zero_()
+        bundle.forward(params, bundle.cfg, prompt_t.expand(cache.lengths.shape[0], -1), cache,
+                       tp_mesh=tp_mesh)
+    st.cur_len.fill_(p_len)
+    st.total.fill_(total)
+    st.key.copy_(key)
+    if fixed_r is not None:
+        st.fixed_r.copy_(fixed_r)
+    for t in (st.done, st.accepted, st.steps, st.rate_sum, st.acc_len_hist):
+        t.zero_()
+    st.stop.copy_(finished(st))
+
+
+def commit_winner(st: WinnerState, cur: torch.Tensor, cw: torch.Tensor, active: torch.Tensor,
+                  win: torch.Tensor, max_l: torch.Tensor, t: torch.Tensor, rate: torch.Tensor,
+                  key: torch.Tensor, eos_token_id: int) -> None:
+    """The masked commit of a winner-row step: the winner's ``max_l``
+    accepted drafts ``win`` [gamma] and the next token ``t`` at [cw, cw +
+    max_l], the counters, the histogram, the key and ``stop``. On a
+    finished state (``active`` false) nothing the caller reads changes."""
+    gamma = win.shape[0]
+    j = torch.arange(gamma + 1, device=cw.device)
+    window = torch.where(j < max_l, torch.cat([win, t.reshape(1)]), t)
+    write = active & (j <= max_l)
+    scatter_where_(st.tokens[0], cw + j, window, write)
+    eos_now = (write & (window == eos_token_id)).any()
+    col = st.steps.long().clamp(max=st.acc_len_hist.shape[0] - 1).reshape(1)
+    scatter_where_(st.acc_len_hist, col, max_l.reshape(1), active)
+    st.cur_len.copy_(torch.where(active, cw + max_l + 1, cur))
+    st.done.copy_(st.done | (active & eos_now))
+    st.accepted.add_(torch.where(active, max_l, torch.zeros_like(max_l)).to(torch.int32))
+    st.steps.add_(active.to(torch.int32))
+    st.rate_sum.copy_(torch.where(active, st.rate_sum + rate, st.rate_sum))
+    st.key.copy_(torch.where(active, key, st.key))
+    st.stop.copy_(finished(st))
+
+
+def winner_result(st: WinnerState, p_len: int, eos_token_id: int):
+    """What a finished :class:`WinnerState` returns, in one read: (ids
+    int32 [T] cut after the first generated EOS, steps, accepted drafts,
+    acc_len list, acc_rate numerator)."""
+    tokens = st.tokens.cpu().numpy()
+    cur_len, steps, accepted = torch.stack([st.cur_len, st.steps, st.accepted]).tolist()
+    out = first_eos_truncate(tokens, p_len, cur_len, eos_token_id).astype("int32")
+    return out, steps, accepted, st.acc_len_hist[:steps].tolist(), float(st.rate_sum)
+
+
+@dataclasses.dataclass
 class _Entry:
     state: object
-    refs: tuple                 # what the graph points into: params, counters
+    leaves: list                # weak references to the param leaves the graph reads
+    refs: tuple = ()            # what else the graph points into: B2's counters
     graph: Optional[torch.cuda.CUDAGraph] = None
     deltas: tuple = ()          # launches a replay makes, per counted wrapper
     flags: Optional[torch.Tensor] = None    # [2] pinned host copies of ``stop``
@@ -107,12 +218,25 @@ def scalar(value, dtype, device) -> torch.Tensor:
     return torch.full((), value, dtype=dtype, device=device)
 
 
-def stream_key(generator: torch.Generator, device) -> torch.Tensor:
-    """The key [1, 2] of a generation's counter-based stream
+def stream_key(generator: torch.Generator, device, rows: int = 1) -> torch.Tensor:
+    """The keys [rows, 2] of a generation's counter-based streams
     (``ops/sampling.py::row_keys``), seeded by one 32-bit draw from
     ``generator`` (read on the host, before the loop)."""
     seed = int(torch.randint(0, 1 << 32, (1,), generator=generator, device=generator.device))
-    return row_keys(seed, [0], device=device)
+    return row_keys(seed, range(rows), device=device)
+
+
+def param_leaves(*trees) -> list:
+    """The tensors of param trees (dicts, lists), depth first."""
+    out = []
+    for t in trees:
+        if isinstance(t, torch.Tensor):
+            out.append(t)
+        elif isinstance(t, dict):
+            out.extend(param_leaves(*t.values()))
+        elif isinstance(t, (list, tuple)):
+            out.extend(param_leaves(*t))
+    return out
 
 
 def check_positions(bundle, n: int) -> None:
@@ -146,15 +270,15 @@ def _counted():
 
 def graph_launches() -> list:
     """(kind, {wrapper: launches one replay makes}) of every captured step,
-    least recently used first; ``kind`` is "spec" or "ar"."""
+    least recently used first; ``kind`` is "spec", "ar", "multi", "beam",
+    "mjsd" or "random_beam"."""
     names = [f.__name__ for f in _counted()]
     return [(key[0], dict(zip(names, e.deltas))) for key, e in _ENTRIES.items()
             if e.graph is not None]
 
 
 def release_graphs() -> None:
-    """Drop every captured step and its state (and with them the references
-    to the params they were captured on)."""
+    """Drop every captured step and its state."""
     _ENTRIES.clear()
 
 
@@ -170,12 +294,26 @@ def eager_steps():
         _FORCE_EAGER[0] -= 1
 
 
-def _entry(key, refs, build: Callable) -> _Entry:
+def entry_key(key, params: tuple) -> tuple:
+    """``key`` followed by the identities of the leaves of ``params``."""
+    return tuple(key) + tuple(id(t) for t in param_leaves(*params))
+
+
+def _forget(key, entry_ref, _leaf_ref) -> None:
+    """A leaf of the entry under ``key`` was collected: drop that entry (not
+    a newer one that took its key)."""
+    if _ENTRIES.get(key) is entry_ref():
+        _ENTRIES.pop(key, None)
+
+
+def _entry(key, leaves: list, build: Callable) -> _Entry:
     entry = _ENTRIES.pop(key, None)
     if entry is None:
         while len(_ENTRIES) >= MAX_ENTRIES:
             _ENTRIES.popitem(last=False)
-        entry = _Entry(build(), refs)
+        entry = _Entry(build(), [])
+        forget = functools.partial(_forget, key, weakref.ref(entry))
+        entry.leaves = [weakref.ref(t, forget) for t in leaves]
     _ENTRIES[key] = entry
     return entry
 
@@ -184,7 +322,7 @@ def _capture(entry: _Entry, step: Callable) -> None:
     from ..kernels import flash_decode
 
     st = entry.state
-    dev = st.tokens.device
+    dev = st.stop.device
     fns = _counted()
     before = [f.launches for f in fns]
     graph = torch.cuda.CUDAGraph()
@@ -196,7 +334,7 @@ def _capture(entry: _Entry, step: Callable) -> None:
     for f, b in zip(fns, before):  # the capture launched nothing
         f.launches = b
     entry.graph = graph
-    entry.refs = entry.refs + (flash_decode._COUNTERS.get(dev),)
+    entry.refs = (flash_decode._COUNTERS.get(dev),)
     entry.flags = torch.zeros(2, dtype=torch.bool, pin_memory=True)
     entry.events = (torch.cuda.Event(), torch.cuda.Event())
 
@@ -209,9 +347,9 @@ def _replay(entry: _Entry) -> None:
 
 def _run_graph(entry: _Entry, step: Callable, max_steps: int) -> None:
     st = entry.state
-    cur = torch.cuda.current_stream(st.tokens.device)
+    cur = torch.cuda.current_stream(st.stop.device)
     if entry.graph is None:
-        side = torch.cuda.Stream(st.tokens.device)
+        side = torch.cuda.Stream(st.stop.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             step(st)  # the real first step, eager
@@ -234,7 +372,7 @@ def _run_graph(entry: _Entry, step: Callable, max_steps: int) -> None:
     cur.synchronize()
 
 
-def run(key, refs: tuple, build: Callable, start: Callable, step: Callable, max_steps: int,
+def run(key, params: tuple, build: Callable, start: Callable, step: Callable, max_steps: int,
         replay: bool):
     """Run a generation to its end and return its state.
 
@@ -242,9 +380,10 @@ def run(key, refs: tuple, build: Callable, start: Callable, step: Callable, max_
     into it and resets every field (eagerly); ``step(state)`` advances it one
     step in place and is a no-op on a finished state. At most ``max_steps``
     steps may be needed. ``replay`` (CUDA tensors, no tp collective)
-    captures the step under ``key`` (``refs``: what it points into) and
-    replays it; otherwise, or inside :func:`eager_steps`, each step runs
-    eagerly and ``stop`` is read once a step."""
+    captures the step under ``key`` and the identities of the leaves of
+    ``params`` (the param trees the step reads) and replays it; otherwise,
+    or inside :func:`eager_steps`, each step runs eagerly and ``stop`` is
+    read once a step."""
     with torch.no_grad():
         if not replay or _FORCE_EAGER[0]:
             st = build()
@@ -254,7 +393,7 @@ def run(key, refs: tuple, build: Callable, start: Callable, step: Callable, max_
                     return st
                 step(st)
             raise RuntimeError(f"the generation did not finish within {max_steps} steps")
-        entry = _entry(key, refs, build)
+        entry = _entry(entry_key(key, params), param_leaves(*params), build)
         start(entry.state)
         if max_steps > 0:
             _run_graph(entry, step, max_steps)

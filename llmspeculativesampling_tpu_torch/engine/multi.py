@@ -5,105 +5,115 @@ The ``iid`` strategy runs here; ``beam`` and ``acc_beam`` delegate to the
 beam-draft engine (``engine/beam_spec.py``), as in the JAX package.
 
 The draft proposes ``width`` candidate continuations i.i.d. (the prefix
-repeated ``width`` times in the batch); ONE batched target forward verifies
-every candidate; each candidate scores its leading run of accepted tokens
-(r < min(1, p/q)); the longest wins (the first such index). The winner's
-batch row is re-broadcast into every cache row; on a reject the next token
-is drawn from ``max_fn(p[choice, n] - q[choice, n])``, on full acceptance
-from the target's bonus distribution.
+repeated ``width`` times in the batch, one counter stream a row); ONE
+batched target forward verifies every candidate; each candidate scores its
+leading run of accepted tokens (r < min(1, p/q)); the longest wins (the
+first such index). The winner's batch row is re-broadcast into every cache
+row; on a reject the next token is drawn from ``max_fn(p[choice, n] -
+q[choice, n])``, on full acceptance from the target's bonus distribution.
 
-Both caches hold ``width`` rows for the whole run. The JAX engine's
-``lax.while_loop`` is a host loop here, with fixed shapes within a step
-(``width`` draft rows; ``width`` x (gamma+1) verify tokens) and ONE host
-read a step: the winner's accept count, its tokens and the next token.
+As in JAX (``_multi_device``), the whole generation runs in the device loop
+(``engine/device_loop.py``): the state lives in static buffers (both caches
+at ``width`` rows with per-row device lengths), and one step
+(:func:`_multi_step`: draft, verify, accept, a masked commit and the
+re-broadcast) is a function of tensors only, captured once into a CUDA
+graph on the card and replayed until the state says stop. The
+re-broadcast copies only the window the step wrote (the draft's
+``[cw-2, cw+gamma)``, the target's ``[cw-1, cw+gamma]``): below it every
+row already holds the committed prefix, so each row equals JAX's full
+row take at every position below its length.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
-import numpy as np
 import torch
 
-from ..cache.kvcache import rollback, select_rows
+from ..cache.kvcache import select_rows_
 from ..core.config import resolve_device, synchronize
 from ..models.llama import unstack_layers
 from ..ops.sampling import (
     SamplingConfig,
     TopKDist,
     dist_map,
-    dist_norm,
     dist_pad_zero_rows,
     dist_prob_of,
     dist_residual,
-    dist_sample,
+    dist_sample_u,
     dist_take,
-    sample,
+    dist_width,
+    row_uniform,
 )
+from . import device_loop
 from .beam_spec import multi_beam_generate
+from .device_loop import WinnerState, commit_winner, winner_start, winner_state
 from .phases import fill_phase_split
-from .types import ModelBundle, aligned_total, first_eos_truncate, pad_prompt
+from .speculative import draft_phase_batched, verify_phase_batched
+from .types import ModelBundle, aligned_total, pad_prompt
 
 
-def _draft_candidates(bundle, params, scfg, gamma, width, tokens, cur_len, cache, generator):
-    """``width`` iid gamma-token drafts from the committed prefix. Returns
-    (q_stack [w, gamma, ...], cand [w, gamma], cache)."""
-    cache = rollback(cache, cur_len - 2)
-    first_in = tokens[:, cur_len - 2:cur_len].expand(width, 2)
-    logits, cache = bundle.forward(params, bundle.cfg, first_in, cache, tp_mesh=scfg.tp_mesh)
-    q = dist_norm(logits[:, -1], scfg)  # [w, ...]
-    x = dist_sample(generator, q)  # [w]
-    qs, xs = [q], [x]
-    for _ in range(gamma - 1):
-        logits, cache = bundle.forward(params, bundle.cfg, x[:, None], cache, tp_mesh=scfg.tp_mesh)
-        q = dist_norm(logits[:, 0], scfg)
-        x = dist_sample(generator, q)
-        qs.append(q)
-        xs.append(x)
-    if isinstance(qs[0], TopKDist):
-        q_stack = TopKDist(torch.stack([d.idx for d in qs], 1), torch.stack([d.probs for d in qs], 1))
-    else:
-        q_stack = torch.stack(qs, 1)
-    return q_stack, torch.stack(xs, 1), cache
-
-
-def _accept(scfg, gamma, q_stack, cand, p_stack, generator, fixed_r):
-    """Vectorized accept over width x gamma. Returns (max_l, choice, t,
-    rate_sum), device scalars: the winner's leading accepts, its row, the
-    next token (residual resample, or bonus on full acceptance) and the
-    sum of min(1, p/q) over all drafted tokens (q == 0 counts 0)."""
-    del scfg
-    w = cand.shape[0]
-    dev = cand.device
+def _accept(gamma, q_stack, cand, p_stack, r, u_t):
+    """Vectorized accept over width x gamma with accept uniforms ``r`` [w,
+    gamma] and the next token's uniforms ``u_t`` (one draw's width).
+    Returns (max_l, choice, t, rate_sum), device scalars: the winner's
+    leading accepts, its row, the next token (residual resample, or bonus
+    on full acceptance) and the sum of min(1, p/q) over all drafted tokens
+    (q == 0 counts 0)."""
     q_sel = dist_prob_of(q_stack, cand)  # [w, gamma]
     p_sel = dist_prob_of(dist_map(lambda x: x[:, :gamma], p_stack), cand)
     ratio = torch.clamp(p_sel / q_sel, max=1.0)
-    r = fixed_r if fixed_r is not None else torch.rand((w, gamma), generator=generator, device=dev)
     accept = r < ratio  # strict '<', as the reference's multi engine
     cur_l = torch.cumprod(accept.long(), dim=1).sum(dim=1)  # [w]
     choice = torch.argmax(cur_l)  # the first longest
-    max_l = cur_l[choice]
+    max_l = dist_take(cur_l, choice)  # not cur_l[choice]: a 0-dim index is read on the host
 
     q_choice = dist_take(q_stack, choice)
     p_choice = dist_take(p_stack, choice)
     p_n = dist_take(p_choice, max_l)
-    q_l = dist_take(dist_pad_zero_rows(q_choice, 1), max_l)
-    resid = dist_residual(p_n, q_l)
+    resid = dist_residual(p_n, dist_take(dist_pad_zero_rows(q_choice, 1), max_l))
     # a degenerate residual falls back to p (reference :1660-1664)
     if isinstance(resid, TopKDist):
         degenerate = resid.probs.sum() < 1e-6
         resid = TopKDist(torch.where(degenerate, p_n.idx, resid.idx),
                          torch.where(degenerate, p_n.probs, resid.probs))
-        t_res = dist_sample(generator, resid)
-        t_bonus = dist_sample(generator, dist_take(p_choice, gamma))
     else:
         resid = torch.where(resid.sum() < 1e-6, p_n, resid)
-        t_res = sample(generator, resid[None])[0]
-        t_bonus = sample(generator, p_choice[gamma][None])[0]
+    t_res = dist_sample_u(resid, u_t)
+    t_bonus = dist_sample_u(dist_take(p_choice, gamma), u_t)
     t = torch.where(max_l == gamma, t_bonus, t_res)
     rate = torch.where(q_sel > 0, ratio, torch.zeros_like(ratio))
     return max_l, choice, t, rate.sum()
+
+
+def _multi_step(bundle_d, params_d, bundle_t, params_t, scfg, gamma: int, width: int,
+                eos_token_id: int, st: WinnerState) -> None:
+    """One multi-candidate step on ``st``, in place (JAX ``_multi_device``'s
+    body). The windows sit at ``cw = min(cur_len, total - 1)``; a finished
+    state commits nothing (``device_loop.commit_winner``) while its forwards
+    stay inside the buffers."""
+    cur = st.cur_len.long()
+    active = ~st.done & (cur < st.total)
+    cw = torch.minimum(cur, st.total.long() - 1).reshape(1)
+    rows_cw = cw.expand(width)
+    tokens, _, q_stack, cand, keys = draft_phase_batched(
+        bundle_d, params_d, scfg, gamma, st.tokens.expand(width, -1), rows_cw, st.draft_cache,
+        st.key)
+    p_stack, _ = verify_phase_batched(bundle_t, params_t, scfg, gamma, tokens, rows_cw,
+                                      st.target_cache)
+    r = st.fixed_r
+    if r is None:
+        r, keys = row_uniform(keys, gamma)
+    u_t, keys = row_uniform(keys, dist_width(p_stack))
+    max_l, choice, t, rate = _accept(gamma, q_stack, cand, p_stack, r, u_t[0])
+    commit_winner(st, cur, cw[0], active, dist_take(cand, choice), max_l, t, rate, keys,
+                  eos_token_id)
+    # re-broadcast the winning row into every cache row (the written windows)
+    sel = choice.expand(width)
+    select_rows_(st.draft_cache, sel, cw - 2, gamma + 2)
+    select_rows_(st.target_cache, sel, cw - 1, gamma + 2)
 
 
 def multi_speculative_generate(
@@ -153,69 +163,43 @@ def multi_speculative_generate(
     scfg = SamplingConfig(temperature, top_k, top_p, tp_mesh=tp_mesh)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
     bundle_d, bundle_t = bundle_d.for_params(params_d), bundle_t.for_params(params_t)
-    params_d, params_t = unstack_layers(params_d), unstack_layers(params_t)
+    pd, pt = unstack_layers(params_d), unstack_layers(params_t)
     prompt_padded, p_len = pad_prompt(prompt)
     if p_len < 2:
         raise ValueError("prompt must have at least 2 tokens")
-    max_total = aligned_total(prompt_padded.shape[1] + max_new_tokens + gamma + 1)
+    p_bucket = prompt_padded.shape[1]
+    max_total = aligned_total(p_bucket + max_new_tokens + gamma + 1)
+    total = p_len + max_new_tokens
+    for bundle in (bundle_d, bundle_t):
+        device_loop.check_positions(bundle, max(p_bucket, total + gamma - 1))
     fixed_r = None
     if random_seed is not None:
         g0 = torch.Generator().manual_seed(int(random_seed))
-        fixed_r = torch.rand((), generator=g0).expand(width, gamma).to(dev)
+        fixed_r = torch.rand((), generator=g0).expand(width, gamma)
+    key = device_loop.stream_key(gen, dev, rows=width)
+    prompt_t = torch.as_tensor(prompt_padded, dtype=torch.long).to(dev)
 
     synchronize(dev)
     t0 = time.perf_counter()
-    draft_cache = bundle_d.make_cache(width, max_total, device=dev)
-    target_cache = bundle_t.make_cache(width, max_total, device=dev)
-    tokens = torch.zeros((1, max_total), dtype=torch.long, device=dev)
-    host = np.zeros(max_total, np.int64)
-    prompt_t = torch.as_tensor(prompt_padded, dtype=torch.long).to(dev)
-    tokens[:, :prompt_t.shape[1]] = prompt_t
-    host[:prompt_padded.shape[1]] = prompt_padded[0]
-    rep = prompt_t.expand(width, prompt_t.shape[1])
-    _, draft_cache = bundle_d.forward(params_d, bundle_d.cfg, rep, draft_cache, tp_mesh=tp_mesh)
-    _, target_cache = bundle_t.forward(params_t, bundle_t.cfg, rep, target_cache, tp_mesh=tp_mesh)
-
-    total = p_len + max_new_tokens
-    cur_len = p_len
-    acc_len = []
-    rate_sum = torch.zeros((), dtype=torch.float32, device=dev)
-    while cur_len < total:
-        q_stack, cand, draft_cache = _draft_candidates(
-            bundle_d, params_d, scfg, gamma, width, tokens, cur_len, draft_cache, gen)
-        target_cache = rollback(target_cache, cur_len - 1)
-        vin = torch.cat([tokens[:, cur_len - 1:cur_len].expand(width, 1), cand], dim=1)
-        logits, target_cache = bundle_t.forward(params_t, bundle_t.cfg, vin, target_cache,
-                                                tp_mesh=tp_mesh)
-        p_stack = dist_norm(logits, scfg)  # [w, gamma+1, ...]
-        max_l, choice, t, rate = _accept(scfg, gamma, q_stack, cand, p_stack, gen, fixed_r)
-        rate_sum += rate
-        win = cand[choice]  # [gamma]
-        tokens[0, cur_len:cur_len + gamma] = win
-        tokens[0].scatter_(0, (cur_len + max_l).reshape(1), t.reshape(1))
-        # re-broadcast the winning row into every cache row
-        sel = choice.expand(width)
-        draft_cache = select_rows(draft_cache, sel)
-        target_cache = select_rows(target_cache, sel)
-        # the one host read of the step: accept count, next token, winner
-        h = torch.cat([max_l.reshape(1), t.reshape(1), win]).tolist()
-        n_acc = int(h[0])
-        window = h[2:2 + n_acc] + [h[1]]
-        host[cur_len:cur_len + n_acc + 1] = window
-        acc_len.append(n_acc)
-        cur_len += n_acc + 1
-        if eos_token_id in window:
-            break
-    rate_total = float(rate_sum)
+    st = device_loop.run(
+        ("multi", bundle_d, bundle_t, gamma, width, max_total, max_new_tokens, scfg, eos_token_id,
+         fixed_r is not None),
+        (params_d, params_t),
+        functools.partial(winner_state, bundle_d, bundle_t, width, width, gamma, width, max_total,
+                          max_new_tokens, fixed_r is not None, dev),
+        functools.partial(winner_start, bundle_d, pd, bundle_t, pt, prompt_t, p_len, total, key,
+                          fixed_r, tp_mesh),
+        functools.partial(_multi_step, bundle_d, pd, bundle_t, pt, scfg, gamma, width,
+                          eos_token_id),
+        max_new_tokens, replay=dev.type == "cuda" and tp_mesh is None)
+    out, steps, accepted, acc_len, rate_total = device_loop.winner_result(st, p_len, eos_token_id)
     wall = time.perf_counter() - t0
-    out = first_eos_truncate(host, p_len, cur_len, eos_token_id).astype("int32")
     if not details:
         return out
-    steps = len(acc_len)
     d = {
         "total_time": wall,
         "acc_len": acc_len,
-        "accepted_count": sum(acc_len),
+        "accepted_count": accepted,
         "acc_rate": rate_total / max(steps * width * gamma, 1),
         "target_call_times": steps,
         "approx_call_times": steps,
@@ -223,7 +207,7 @@ def multi_speculative_generate(
         "tokens_per_s": (len(out) - p_len) / wall if wall > 0 else float("nan"),
     }
     fill_phase_split(
-        d, wall, steps, bundle_d, params_d, bundle_t, params_t,
+        d, wall, steps, bundle_d, pd, bundle_t, pt,
         draft_rows=width, verify_rows=width, gamma=gamma, verify_tokens=gamma + 1,
         max_total=max_total, device=dev,
     )

@@ -57,6 +57,7 @@ from ..ops.sampling import (
     dist_width,
     row_uniform,
 )
+from ..utils.decoder import Decoder
 from . import device_loop
 from .device_loop import SpecState, finished, scalar, scatter_where_
 from .phases import fill_phase_split
@@ -385,9 +386,9 @@ def speculative_generate(
         approx_t, target_t = _spec_stepwise(st, step, dev, gamma, p_len, verbose)
     else:
         st = device_loop.run(
-            ("spec", id(params_d), id(params_t), bundle_d, bundle_t, gamma, max_total,
-             max_new_tokens, scfg, eos_token_id, fixed_r is not None),
-            (params_d, params_t, pd, pt), build, start, step, max_new_tokens,
+            ("spec", bundle_d, bundle_t, gamma, max_total, max_new_tokens, scfg, eos_token_id,
+             fixed_r is not None),
+            (params_d, params_t), build, start, step, max_new_tokens,
             replay=dev.type == "cuda" and tp_mesh is None)
     out_tokens = st.tokens.cpu().numpy()
     cur_len, steps, accepted, resamples, bonus = torch.stack(
@@ -445,13 +446,22 @@ def speculative_generate(
     return out, d
 
 
+def _decode_one(tok: int) -> str:
+    """A token's text through the ``Decoder`` singleton when a tokenizer is
+    attached, else its id."""
+    d = Decoder()
+    if d.tokenizer is None:
+        return str(tok)
+    return d.decode([int(tok)])
+
+
 def _print_step(window, n_acc, gamma, pos):
     """Reference per-token stream: accepted guesses red, reject-resample
     blue, bonus sample magenta."""
     for j in window[:n_acc]:
-        print(f"approx guess accepted {int(j)}: \033[31m{int(j)}\033[0m")
+        print(f"approx guess accepted {int(j)}: \033[31m{_decode_one(j)}\033[0m")
     t_tok = int(window[n_acc])
     if n_acc == gamma:
-        print(f"target samples {pos}: \033[35m{t_tok}\033[0m")
+        print(f"target samples {pos}: \033[35m{_decode_one(t_tok)}\033[0m")
     else:
-        print(f"target resamples at position {pos}: \033[34m{t_tok}\033[0m")
+        print(f"target resamples at position {pos}: \033[34m{_decode_one(t_tok)}\033[0m")

@@ -6,11 +6,14 @@ ties kept) -> top-p (stable sort, shifted cumsum, first token always kept)
 guard; ``max_fn`` and the acceptance helpers with their 1e-6 guards; and
 the sparse :class:`TopKDist` path the engines take when ``top_k > 0``.
 
-Random draws come from an explicit ``torch.Generator`` on the tensors'
-device, or, for batched serving, from per-row counter-based streams
-(:func:`row_keys`, :func:`row_uniform`): each row's draws depend only on
-its own key, so a request samples the same values whatever rows share its
-batch. Their bits differ from ``jax.random``'s, so the tests compare
+Random draws come from per-row counter-based streams (:func:`row_keys`,
+:func:`row_uniform`; the serving engines and the device loops): each row's
+draws depend only on its own key, so a request samples the same values
+whatever rows share its batch, and a captured step draws without a
+``torch.Generator``. Each sampler takes its uniforms (``sample_u``,
+``sample_k_u``, ``sample_k_topk_u``, ``randint_u``); the generator forms
+(``sample``, ``sample_k``, ...) draw them from an explicit
+``torch.Generator`` for the engines still on a host loop. Their bits differ from ``jax.random``'s, so the tests compare
 samplers in distribution and everything else exactly. Nothing here reads a
 device value back to the host.
 """
@@ -92,10 +95,6 @@ def _gumbel_of(u: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
 
 
-def _gumbel(generator: Optional[torch.Generator], shape, device) -> torch.Tensor:
-    return _gumbel_of(torch.rand(shape, generator=generator, device=device, dtype=torch.float32))
-
-
 # ---- per-row counter-based streams. A row's key is [stream id, draw
 # counter] (int64, 32-bit values); draw i of a call is a hash of (stream,
 # counter, i). Plain int64 tensor ops that never overflow, so the CPU and the
@@ -152,14 +151,25 @@ def sample(generator: Optional[torch.Generator], probs: torch.Tensor) -> torch.T
     return sample_u(probs, u)
 
 
-def sample_k(generator: Optional[torch.Generator], probs: torch.Tensor, k: int) -> torch.Tensor:
-    """``k`` ids without replacement (Gumbel top-k); over-drawn zero-prob
-    winners become the argmax."""
-    g = _gumbel(generator, probs.shape, probs.device)
-    idx = torch.topk(torch.log(probs) + g, k, dim=-1).indices
+def sample_k_u(probs: torch.Tensor, u: torch.Tensor, k: int) -> torch.Tensor:
+    """``k`` ids without replacement (Gumbel top-k) from uniforms ``u``
+    (probs' shape); over-drawn zero-prob winners become the argmax."""
+    idx = torch.topk(torch.log(probs) + _gumbel_of(u), k, dim=-1).indices
     chosen = torch.gather(probs, -1, idx)
     safe = torch.argmax(probs, dim=-1, keepdim=True).expand_as(idx)
     return torch.where(chosen < ZERO_PROB_EPS, safe, idx)
+
+
+def sample_k(generator: Optional[torch.Generator], probs: torch.Tensor, k: int) -> torch.Tensor:
+    """:func:`sample_k_u` with uniforms from ``generator``."""
+    u = torch.rand(probs.shape, generator=generator, device=probs.device, dtype=torch.float32)
+    return sample_k_u(probs, u, k)
+
+
+def randint_u(u: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """An integer uniform on ``[lo, hi]`` from uniforms ``u`` in (0, 1):
+    ``lo + floor(u * (hi - lo + 1))``, clamped into the range (int64)."""
+    return (lo + torch.floor(u * (hi - lo + 1)).long()).clamp(lo, hi)
 
 
 def max_fn(x: torch.Tensor) -> torch.Tensor:
@@ -387,20 +397,31 @@ def rewarp_topk(dist: TopKDist, cfg: SamplingConfig) -> TopKDist:
     return TopKDist(ids, probs / probs.sum(dim=-1, keepdim=True).clamp_min(1e-30))
 
 
-def sample_k_topk(generator: Optional[torch.Generator], dist: TopKDist, n: int) -> torch.Tensor:
-    """``n`` draws without replacement (Gumbel top-k) in candidate space;
-    over-drawn zero-prob winners become the argmax, as :func:`sample_k`.
-    Fewer candidates than draws are padded with zero-prob entries, which
-    the same guard resolves. Returns ids [..., n]."""
+def topk_draw_width(dist: TopKDist, n: int) -> int:
+    """Uniforms :func:`sample_k_topk_u` takes a row for ``n`` draws: the
+    candidates, padded up to ``n``."""
+    return max(dist.probs.shape[-1], n)
+
+
+def sample_k_topk_u(dist: TopKDist, u: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` draws without replacement (Gumbel top-k) in candidate space
+    from uniforms ``u`` [..., :func:`topk_draw_width`]; over-drawn
+    zero-prob winners become the argmax, as :func:`sample_k_u`. Fewer
+    candidates than draws are padded with zero-prob entries, which the same
+    guard resolves. Returns ids [..., n]."""
     k = dist.probs.shape[-1]
     if n > k:
         dist = TopKDist(_pad_rows(dist.idx, n - k, -1), _pad_rows(dist.probs, n - k, -1))
-    g = _gumbel(generator, dist.probs.shape, dist.probs.device)
-    pos = torch.topk(torch.log(dist.probs) + g, n, dim=-1).indices
-    chosen = torch.gather(dist.probs, -1, pos)
-    safe = torch.argmax(dist.probs, dim=-1, keepdim=True).expand_as(pos)
-    pos = torch.where(chosen < ZERO_PROB_EPS, safe, pos)
+    pos = sample_k_u(dist.probs, u, n)
     return torch.gather(dist.idx, -1, pos)
+
+
+def sample_k_topk(generator: Optional[torch.Generator], dist: TopKDist, n: int) -> torch.Tensor:
+    """:func:`sample_k_topk_u` with uniforms from ``generator``."""
+    p = dist.probs
+    u = torch.rand(p.shape[:-1] + (topk_draw_width(dist, n),), generator=generator,
+                   device=p.device, dtype=torch.float32)
+    return sample_k_topk_u(dist, u, n)
 
 
 def min_sum(p: TopKDist, q: TopKDist) -> torch.Tensor:

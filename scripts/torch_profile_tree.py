@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's tree/beam path, on one GPU.
 
-    python3 scripts/torch_profile_tree.py
+    python3 scripts/torch_profile_tree.py [--loops]
 
 Builds the 13B-shaped int8 target and the 768-wide int8 draft on the card
 (seed 0) and, with chip_smoke.py's tree/beam settings (scripts/bench_beam.py
@@ -23,7 +23,13 @@ candidates, top_k 20, top_p 0.9), prints:
   num_beams = 4, BiLD at gamma 10 / fallback 0.6 / rollback 5.0, v2, random
   beam at 4 beams): tok/s on the host clock (untraced, after a warm-up
   run), the device-busy time of a traced run of the same seed, and the
-  device's idle share 1 - busy/wall.
+  device's idle share 1 - busy/wall;
+* the device loop beside the eager steps (``--loops`` prints only this):
+  multi iid, multi-beam, MJSD and random beam in the device loop (each step
+  a replayed CUDA graph, the default) and with the same step called eagerly
+  with one read a step (``device_loop.eager_steps``): for each of 5 seeds
+  the ms a step, tok/s, the device-busy ms a step from a trace of that seed
+  and the idle share 1 - busy/wall, with their medians and ranges.
 
 All host-clock numbers are taken before the first trace. Every line carries
 the card's name and power limit. It imports nothing of JAX and nothing of
@@ -32,6 +38,7 @@ the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -88,6 +95,74 @@ def prefix_setup(bundle, params, n):
     return lambda: prefix_logits(bundle, params, tokens, n, cache)
 
 
+def loop_rows(bd, pd, bt, pt, prompt, card, seeds=range(1, 6)) -> dict:
+    """The winner-row engines in the device loop and in eager steps: per
+    seed the host ms a step and tok/s (untraced), then per seed the
+    device-busy ms a step and the idle share from a trace of that seed."""
+    from llmspeculativesampling_tpu_torch import (
+        mjsd_generate, multi_speculative_generate, random_width_beam_generate)
+    from llmspeculativesampling_tpu_torch.engine import device_loop
+
+    kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, details=True, device="cuda")
+
+    def gen(k):
+        return torch.Generator(device="cuda").manual_seed(k)
+
+    runs = {
+        "multi": lambda k: multi_speculative_generate(bd, pd, bt, pt, prompt, NEW, gamma=GAMMA,
+                                                      width=BEAMS, generator=gen(k), **kw),
+        "multi_beam": lambda k: multi_speculative_generate(
+            bd, pd, bt, pt, prompt, NEW, gamma=GAMMA, width=BEAMS, strategy="beam",
+            generator=gen(k), **kw),
+        "mjsd": lambda k: mjsd_generate(bd, pd, bt, pt, prompt, NEW, gamma=GAMMA, width=BEAMS,
+                                        num_beams=BEAMS, accept_thres=0.1, generator=gen(k), **kw),
+        "random_beam": lambda k: random_width_beam_generate(bt, pt, prompt, NEW,
+                                                            max_num_beams=BEAMS,
+                                                            generator=gen(k), **kw),
+    }
+    loops = {"device": contextlib.nullcontext, "host": device_loop.eager_steps}
+    rows = {}
+    for loop, ctx in loops.items():  # host-clock numbers first: a trace slows later launches
+        with ctx():
+            for name, run in runs.items():
+                run(0)  # warm-up: the capture, the phase-split calibration
+                per = []
+                for k in seeds:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, d = run(k)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+                    per.append(dict(seed=k, wall_ms=wall, steps=d["target_call_times"],
+                                    tokens=d["tokens_generated"],
+                                    tok_s=d["tokens_generated"] / wall * 1e3))
+                rows[f"{name}_{loop}"] = dict(runs=per)
+    for loop, ctx in loops.items():
+        with ctx():
+            for name, run in runs.items():
+                r = rows[f"{name}_{loop}"]
+                for one in r["runs"]:
+                    busy, kinds, n, _ = traced(lambda: run(one["seed"]))
+                    one.update(busy_ms=busy, idle_share=1 - busy / one["wall_ms"], kernels=n,
+                               by_kind=kinds)
+                ms = [x["wall_ms"] / x["steps"] for x in r["runs"]]
+                busy = [x["busy_ms"] / x["steps"] for x in r["runs"]]
+                idle = [x["idle_share"] for x in r["runs"]]
+                tok_s = [x["tok_s"] for x in r["runs"]]
+                r.update(ms_per_step_median=float(np.median(ms)),
+                         busy_ms_per_step_median=float(np.median(busy)),
+                         idle_share_median=float(np.median(idle)), idle_share_min=min(idle),
+                         idle_share_max=max(idle), tok_s_median=float(np.median(tok_s)))
+                log(f"[loop] {name} {loop} loop over seeds {list(seeds)}: ms a step median "
+                    f"{r['ms_per_step_median']:.3f} (min {min(ms):.3f}, max {max(ms):.3f}); "
+                    f"tok/s median {r['tok_s_median']:.2f} (min {min(tok_s):.2f}, max "
+                    f"{max(tok_s):.2f}); device-busy ms a step median "
+                    f"{r['busy_ms_per_step_median']:.3f}; idle share median "
+                    f"{r['idle_share_median']:.3f} (min {min(idle):.3f}, max {max(idle):.3f}); "
+                    f"steps {[x['steps'] for x in r['runs']]} ({card})")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_tree: CUDA is not available", file=sys.stderr)
@@ -104,6 +179,10 @@ def main() -> int:
     log(f"[device] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     bd, pd, bt, pt = synthetic_pair_int8_small_draft(device="cuda")
     pd, pt = unstack_layers(pd), unstack_layers(pt)
+    prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
+    if "--loops" in sys.argv[1:]:
+        print(json.dumps({"card": card, "loops": loop_rows(bd, pd, bt, pt, prompt, card)}))
+        return 0
     tokens = GAMMA * BEAMS + 1
     forwards = {
         "v2_tree_verify_1x17": forward_setup(bt, pt, 1, tokens, True),
@@ -115,7 +194,6 @@ def main() -> int:
         "v2_target_prefix_1x100": prefix_setup(bt, pt, PREFIX + GAMMA),
         "v2_draft_prefix_1x97": prefix_setup(bd, pd, PREFIX + 1),
     }
-    prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
     kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, device="cuda", details=True)
 
     def gen():
