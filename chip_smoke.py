@@ -88,7 +88,12 @@ Phases, each printing lines before the last:
      an eager one, ids and details; then a replaced ``lm_head`` must give
      a new capture (ids equal to a fresh dict's), and a copy of the pair,
      dropped after spec and multi runs, must free its memory and entries
-     without ``release_graphs()``;
+     without ``release_graphs()``; then the device loops of beam v1, beam
+     v2 (extra_sample_cnt 1) and BiLD (gamma 10, fallback 0.6, rollback
+     5.0) at the same settings, each replay launching exactly the B1 and B2
+     calls of its forwards (a tree step 341 / 48, a BiLD macro-step 431 /
+     60), replays equal to eager runs over 3 seeds, and the decodes BiLD's
+     macro-steps masked;
   5. paged serving path: the same pair through ``PagedEngine`` behind
      ``BatchedInferenceServer`` with the settings of ``scripts/bench_paged.py
      --config 13b --kv_int8 --steps_per_sync 8`` (16 rows, 32 int8 blocks of
@@ -2568,20 +2573,95 @@ def _leaf_checks(pair, card: str) -> dict:
                 gib_before=before / 2**30)
 
 
+def _loop_replays(tag: str, runs: dict, same_keys: dict, prompt: list, reps: int,
+                  max_new: int, card: str, per_step=None) -> dict:
+    """The device-loop checks of the engines ``runs`` (entry kind -> run of
+    a generator): for each, a fresh capture timed, with the launches one
+    replay makes (B1 and B2 > 0, B3 0, and ``per_step[kind]`` exactly when
+    given) and the device memory its entry holds; then, for ``reps`` seeds,
+    the replayed generation's ids and the details ``same_keys[kind]`` equal
+    to an eager run's (``device_loop.eager_steps``) token for token, with
+    the steps each run called (``device_loop.last_steps``). Returns the
+    numbers and the replayed runs' launches."""
+    from llmspeculativesampling_tpu_torch.engine import device_loop
+
+    def timed_run(kind, k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, d = runs[kind](torch.Generator(device="cuda").manual_seed(k))
+        return out, d, time.perf_counter() - t0, device_loop.last_steps[0]
+
+    capture, held_gib = {}, {}
+    for kind in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved()
+        n_cap = len(device_loop.capture_seconds)
+        timed_run(kind, 0)  # the first step runs eagerly, then the capture
+        if len(device_loop.capture_seconds) != n_cap + 1:
+            raise AssertionError(f"{tag} {kind}: {len(device_loop.capture_seconds) - n_cap} "
+                                 "captures in its first run, not one")
+        capture[kind] = device_loop.capture_seconds[-1] * 1e3
+        torch.cuda.empty_cache()
+        held_gib[kind] = (torch.cuda.memory_reserved() - mem0) / 2**30
+    per_replay = {kind: counts for kind, counts in device_loop.graph_launches() if kind in runs}
+    for kind in runs:
+        counts = per_replay.get(kind)
+        if not counts or counts["int8_matmul"] <= 0 or counts["flash_decode_attention"] <= 0 \
+                or counts["paged_flash_decode_attention"] != 0:
+            raise AssertionError(f"{tag} {kind}: B1/B2 not inside the graph, or B3: {counts}")
+        want = (per_step or {}).get(kind)
+        if want is not None and (counts["int8_matmul"], counts["flash_decode_attention"]) != want:
+            raise AssertionError(f"{tag} {kind}: a replay launches {counts}, not B1/B2 {want}")
+        log(f"[{tag} {kind}] capture of one step {capture[kind]:.1f} ms; launches a "
+            f"replay {counts}; the entry holds {held_gib[kind]:.3f} GiB of device memory "
+            f"(reserved, state and graph pool) ({card})")
+    totals = dict.fromkeys(_counters(), 0)
+    rows = {kind: [] for kind in runs}
+    for k in range(1, reps + 1):
+        for kind in runs:
+            reset_launches()
+            out, d, wall, n_steps = timed_run(kind, k)
+            for kname, v in read_launches().items():
+                totals[kname] += v
+            with device_loop.eager_steps():
+                out_e, d_e, wall_e, n_eager = timed_run(kind, k)
+            diff = [x for x in same_keys[kind] if d[x] != d_e[x]]
+            if not np.array_equal(out, out_e) or diff:
+                n = min(len(out), len(out_e))
+                first = int(np.argmax(out[:n] != out_e[:n]))
+                raise AssertionError(f"{tag} {kind} seed {k}: replay != eager (lengths "
+                                     f"{len(out)} / {len(out_e)}, first differing position "
+                                     f"{first}, details {diff})")
+            gen_ids = out[64:]
+            if not (np.array_equal(out[:64], np.asarray(prompt)) and 1 <= len(gen_ids) <= max_new
+                    and gen_ids.min() >= 0 and gen_ids.max() < VOCAB):
+                raise AssertionError(f"{tag} {kind}: bad output of length {len(out)}")
+            steps = d["target_call_times"]
+            rows[kind].append(dict(tokens=len(gen_ids), steps=steps, replay_ms=wall * 1e3,
+                                   eager_ms=wall_e * 1e3, tok_s=d["tokens_per_s"],
+                                   acc_rate=d.get("acc_rate"), replays=n_steps,
+                                   eager_steps=n_eager, small=d.get("approx_call_times")))
+            log(f"[{tag} {kind}] seed {k}: {len(gen_ids)} tokens, {steps} target forwards, "
+                f"{n_eager} steps ({n_steps} replayed, the masked last included), replay "
+                f"{wall * 1e3:.1f} ms ({wall * 1e3 / n_eager:.2f} ms a step, "
+                f"{d['tokens_per_s']:.2f} tok/s) vs eager {wall_e * 1e3:.1f} ms "
+                f"({wall_e * 1e3 / n_eager:.2f} ms a step), ids and details equal ({card})")
+    if totals["int8_matmul"] <= 0 or totals["flash_decode"] <= 0 or totals["paged_flash_decode"]:
+        raise AssertionError(f"{tag}: launches {totals}")
+    return dict(capture_ms=capture, held_gib=held_gib, per_replay=per_replay, runs=rows,
+                totals=totals)
+
+
 def phase_winner_loops(results, reps: int, pair):
     """The device loops of the winner-row engines (multi iid, multi-beam,
     MJSD, random beam) on the 13B-int8 pair at the tree path's settings
     (64-token prompt, 64 new tokens, gamma 4, 4 candidates or beams, top_k
-    20, top_p 0.9, eos 2; MJSD at accept_thres 0.1). For each, a fresh
-    capture is timed, with the launches one replay makes (B1 and B2 > 0, B3
-    0) and the device memory its entry holds; then, for ``reps`` seeds,
-    the replayed generation's ids and details must equal an eager run's
-    (``device_loop.eager_steps``) token for token. Then the param checks
-    (:func:`_leaf_checks`). The replayed runs' launches are added under
-    "device_loop"."""
+    20, top_p 0.9, eos 2; MJSD at accept_thres 0.1): :func:`_loop_replays`,
+    then the param checks (:func:`_leaf_checks`). The replayed runs'
+    launches are added under "device_loop"."""
     from llmspeculativesampling_tpu_torch import (
         mjsd_generate, multi_speculative_generate, random_width_beam_generate)
-    from llmspeculativesampling_tpu_torch.engine import device_loop
 
     t_phase = time.perf_counter()
     card = card_line()
@@ -2604,67 +2684,9 @@ def phase_winner_loops(results, reps: int, pair):
                    "tokens_generated")
     same_keys = {k: winner_keys for k in ("multi", "beam", "mjsd")}
     same_keys["random_beam"] = ("target_call_times", "tokens_generated")
-
-    def timed_run(kind, k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out, d = runs[kind](torch.Generator(device="cuda").manual_seed(k))
-        return out, d, time.perf_counter() - t0
-
-    capture, held_gib = {}, {}
-    for kind in runs:
-        gc.collect()
-        torch.cuda.empty_cache()
-        mem0 = torch.cuda.memory_reserved()
-        n_cap = len(device_loop.capture_seconds)
-        timed_run(kind, 0)  # the first step runs eagerly, then the capture
-        if len(device_loop.capture_seconds) != n_cap + 1:
-            raise AssertionError(f"winner loop {kind}: {len(device_loop.capture_seconds) - n_cap} "
-                                 "captures in its first run, not one")
-        capture[kind] = device_loop.capture_seconds[-1] * 1e3
-        torch.cuda.empty_cache()
-        held_gib[kind] = (torch.cuda.memory_reserved() - mem0) / 2**30
-    per_replay = {kind: counts for kind, counts in device_loop.graph_launches() if kind in runs}
-    for kind in runs:
-        counts = per_replay.get(kind)
-        if not counts or counts["int8_matmul"] <= 0 or counts["flash_decode_attention"] <= 0 \
-                or counts["paged_flash_decode_attention"] != 0:
-            raise AssertionError(f"winner loop {kind}: B1/B2 not inside the graph, or B3: {counts}")
-        log(f"[winner_loops {kind}] capture of one step {capture[kind]:.1f} ms; launches a "
-            f"replay {counts}; the entry holds {held_gib[kind]:.3f} GiB of device memory "
-            f"(reserved, state and graph pool) ({card})")
-    totals = dict.fromkeys(_counters(), 0)
-    rows = {kind: [] for kind in runs}
-    for k in range(1, reps + 1):
-        for kind in runs:
-            reset_launches()
-            out, d, wall = timed_run(kind, k)
-            for kname, v in read_launches().items():
-                totals[kname] += v
-            with device_loop.eager_steps():
-                out_e, d_e, wall_e = timed_run(kind, k)
-            diff = [x for x in same_keys[kind] if d[x] != d_e[x]]
-            if not np.array_equal(out, out_e) or diff:
-                n = min(len(out), len(out_e))
-                first = int(np.argmax(out[:n] != out_e[:n]))
-                raise AssertionError(f"winner loop {kind} seed {k}: replay != eager (lengths "
-                                     f"{len(out)} / {len(out_e)}, first differing position "
-                                     f"{first}, details {diff})")
-            gen_ids = out[64:]
-            if not (np.array_equal(out[:64], np.asarray(prompt)) and 1 <= len(gen_ids) <= new + g
-                    and gen_ids.min() >= 0 and gen_ids.max() < VOCAB):
-                raise AssertionError(f"winner loop {kind}: bad output of length {len(out)}")
-            steps = d["target_call_times"]
-            rows[kind].append(dict(tokens=len(gen_ids), steps=steps, replay_ms=wall * 1e3,
-                                   eager_ms=wall_e * 1e3, tok_s=d["tokens_per_s"],
-                                   acc_rate=d.get("acc_rate")))
-            log(f"[winner_loops {kind}] seed {k}: {len(gen_ids)} tokens in {steps} steps, replay "
-                f"{wall * 1e3:.1f} ms ({wall * 1e3 / steps:.2f} ms a step, "
-                f"{d['tokens_per_s']:.2f} tok/s) vs eager {wall_e * 1e3:.1f} ms "
-                f"({wall_e * 1e3 / steps:.2f} ms a step), ids and details equal ({card})")
-    if totals["int8_matmul"] <= 0 or totals["flash_decode"] <= 0 or totals["paged_flash_decode"]:
-        raise AssertionError(f"winner loops: launches {totals}")
-    acc = np.mean([r["acc_rate"] for r in rows["multi"]])
+    r = _loop_replays("winner_loops", runs, same_keys, prompt, reps, new + g, card)
+    totals = r.pop("totals")
+    acc = np.mean([x["acc_rate"] for x in r["runs"]["multi"]])
     if acc < 0.6:
         raise AssertionError(f"winner loops: multi acceptance {acc:.3f} < 0.6")
     log(f"[winner_loops] launches of the replayed runs: {totals}; multi acc_rate {acc:.4f}")
@@ -2673,8 +2695,63 @@ def phase_winner_loops(results, reps: int, pair):
         results["launches"]["device_loop"][kname] += v
     elapsed = time.perf_counter() - t_phase
     log(f"[winner_loops] phase took {elapsed:.1f} s")
-    results["winner_loops"] = dict(capture_ms=capture, held_gib=held_gib, per_replay=per_replay,
-                                   runs=rows, params=leaves, seconds=elapsed)
+    results["winner_loops"] = dict(r, params=leaves, seconds=elapsed)
+
+
+def phase_tree_loops(results, reps: int, pair):
+    """The device loops of the tree engines and of BiLD on the 13B-int8 pair
+    at the tree path's settings (64-token prompt, 64 new tokens, top_k 20,
+    top_p 0.9, eos 2): beam v1 (gamma 4, 4 beams), beam v2 (gamma 4, 4
+    beams, extra_sample_cnt 1, expect_thres 0.7) and BiLD (gamma BILD_GAMMA,
+    fallback 0.6, rollback 5.0): :func:`_loop_replays`, where one replay
+    must launch B1 and B2 exactly as often as its forwards need (a tree
+    step: gamma draft forwards and one tree verify; a BiLD macro-step:
+    BILD_GAMMA draft decodes and one check), and the decodes BiLD's
+    macro-steps masked. The replayed runs' launches are added under
+    "device_loop"."""
+    from llmspeculativesampling_tpu_torch import (
+        beam_speculative_generate, beam_speculative_v2_generate, bild_generate)
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    bd, pd, bt, pt = pair
+    prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
+    kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, details=True, device="cuda")
+    g, nb, new = TREE_GAMMA, TREE_BEAMS, TREE_NEW
+    runs = {
+        "beam_v1": lambda gen: beam_speculative_generate(
+            bd, pd, bt, pt, prompt, new, gamma=g, num_beams=nb, generator=gen, **kw),
+        "beam_v2": lambda gen: beam_speculative_v2_generate(
+            bd, pd, bt, pt, prompt, new, gamma=g, num_beams=nb, extra_sample_cnt=1,
+            expect_thres=0.7, generator=gen, **kw),
+        "bild": lambda gen: bild_generate(
+            bd, pd, bt, pt, prompt, new, gamma=BILD_GAMMA, fallback_thres=0.6, rollback_thres=5.0,
+            generator=gen, **kw),
+    }
+    tree_keys = ("acc_len", "acc_rate", "accepted_count", "target_call_times", "expect_cnt_list",
+                 "num_beams_list", "tokens_generated")
+    same_keys = {"beam_v1": tree_keys, "beam_v2": tree_keys,
+                 "bild": ("acc_len", "accepted_count", "target_call_times", "approx_call_times",
+                          "tokens_generated")}
+    # B1 a forward: 7 projections a layer and the int8 head; B2: one a layer
+    b1_d, b1_t = 7 * bd.cfg.num_layers + 1, 7 * bt.cfg.num_layers + 1
+    b2_d, b2_t = bd.cfg.num_layers, bt.cfg.num_layers
+    per_step = {"beam_v1": (g * b1_d + b1_t, g * b2_d + b2_t),
+                "beam_v2": (g * b1_d + b1_t, g * b2_d + b2_t),
+                "bild": (BILD_GAMMA * b1_d + b1_t, BILD_GAMMA * b2_d + b2_t)}
+    r = _loop_replays("tree_loops", runs, same_keys, prompt, reps, new + g, card, per_step)
+    totals = r.pop("totals")
+    masked = [x["replays"] * BILD_GAMMA - x["small"] for x in r["runs"]["bild"]]
+    masked_eager = [x["eager_steps"] * BILD_GAMMA - x["small"] for x in r["runs"]["bild"]]
+    log(f"[tree_loops bild] decodes masked a generation: {masked} replayed (its masked last "
+        f"macro-step included), {masked_eager} eager, of {BILD_GAMMA} a macro-step; small-model "
+        f"decodes {[x['small'] for x in r['runs']['bild']]} ({card})")
+    for kname, v in totals.items():
+        results["launches"]["device_loop"][kname] += v
+    elapsed = time.perf_counter() - t_phase
+    log(f"[tree_loops] launches of the replayed runs: {totals}; phase took {elapsed:.1f} s")
+    results["tree_loops"] = dict(r, bild_masked_decodes=masked,
+                                 bild_masked_decodes_eager=masked_eager, seconds=elapsed)
 
 
 # ---------------------------------------------------------------- phase 6
@@ -4514,8 +4591,8 @@ def main() -> int:
                   phase_tree_forward, phase_opt_forward, phase_fp8_forward, phase_loader):
         timed(phase)
     pair = timed(build_pair)
-    for phase in (phase_main_path, phase_device_loop, phase_winner_loops, phase_tree_path,
-                  phase_algorithms):
+    for phase in (phase_main_path, phase_device_loop, phase_winner_loops, phase_tree_loops,
+                  phase_tree_path, phase_algorithms):
         timed(phase, results, REPS, pair)
     timed(phase_serving, results, pair)
     timed(phase_burst_trickle, results, pair)

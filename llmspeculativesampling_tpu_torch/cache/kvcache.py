@@ -5,12 +5,15 @@
   the int8 variant holds int8 ``k_q``/``v_q`` and fp32 per-(b, h, position)
   scales ``[L, B, H_kv, S_max]``.
 * ``length`` is a host int: positions ``>= length`` are dead. Rollback
-  replaces the pointer and moves no data. The single-request engines' host
-  loops know every length, so no device round trip is needed to read it.
+  replaces the pointer and moves no data. A host loop that knows every
+  length needs no device round trip to read it.
 * ``lengths`` (optional) is an int32 ``[B]`` tensor on the device: a cache
   whose rows are independent sequences (the slot engine,
-  ``serve/scheduler.py``) carries one length a row there and never reads
-  it on the host. Then ``length`` is unused: writes land at each row's
+  ``serve/scheduler.py``), or a device-loop state (``engine/device_loop.py``),
+  carries one length a row there and never reads it on the host.
+  :func:`read_positions`, :func:`write_positions` and
+  :func:`compact_tree_paths` also take a device position for the same
+  reason. Then ``length`` is unused: writes land at each row's
   length (:func:`write_layer` with a tensor start, one indexed write a
   buffer), :func:`rollback_rows` moves the pointers, and
   :func:`install_rows` copies freshly prefilled rows into place. This is
@@ -126,43 +129,78 @@ def kv_buffers(cache) -> tuple:
     return (cache.k, cache.v)
 
 
-def read_positions(cache, start: int, size: int) -> tuple:
+def read_positions(cache, start, size: int) -> tuple:
     """Copies of positions [start, start+size) of every buffer (the window
-    clamped into the cache, as ``dynamic_slice`` does)."""
+    clamped into the cache, as ``dynamic_slice`` does). ``start`` is a host
+    int or a device scalar (no host read: a captured step gathers there)."""
+    if isinstance(start, torch.Tensor):
+        pos = _window(start, size, cache.max_len)
+        return tuple(b.index_select(3, pos) for b in kv_buffers(cache))
     st = _start(start, size, cache.max_len)
     return tuple(b[:, :, :, st:st + size].clone() for b in kv_buffers(cache))
 
 
-def write_positions(cache, parts: tuple, start: int):
+def write_positions(cache, parts: tuple, start, valid: Optional[torch.Tensor] = None):
     """Write ``parts`` (one per buffer, as :func:`read_positions` returns)
-    at ``start`` of every buffer, in place."""
+    at ``start`` of every buffer, in place (the window clamped, as
+    ``dynamic_update_slice`` does). With a device scalar ``start`` the write
+    is one ``index_copy_`` a buffer, and ``valid`` (bool [size], optional)
+    keeps a position's old value where it is false."""
     for buf, part in zip(kv_buffers(cache), parts):
-        st = _start(start, part.shape[3], buf.shape[3])
-        buf[:, :, :, st:st + part.shape[3]] = part.to(buf.dtype)
+        size = part.shape[3]
+        if isinstance(start, torch.Tensor):
+            pos = _window(start, size, buf.shape[3])
+            part = part.to(buf.dtype)
+            if valid is not None:
+                mask = valid.reshape((1, 1, 1, size) + (1,) * (buf.dim() - 4))
+                part = torch.where(mask, part, buf.index_select(3, pos))
+            buf.index_copy_(3, pos, part)
+        else:
+            if valid is not None:
+                raise ValueError("valid needs a device start")
+            st = _start(start, size, buf.shape[3])
+            buf[:, :, :, st:st + size] = part.to(buf.dtype)
     return cache
 
 
-def compact_tree_paths(cache, path_idx: torch.Tensor, path_valid: torch.Tensor, prefix_len: int,
-                       new_length: Optional[int] = None):
+def compact_tree_paths(cache, path_idx: torch.Tensor, path_valid: torch.Tensor, prefix_len,
+                       new_length=None):
     """Compact a tree-layout tail to one accepted path per row, in place.
 
     Positions ``< prefix_len`` stay; output tail slot j of row b takes the
     k/v (and scales) of tail offset ``path_idx[b, j]``, zeroed where
-    ``path_valid[b, j]`` is false, written at ``prefix_len + j``. The new
-    length is ``prefix_len + sum(path_valid[0])``: pass it as
+    ``path_valid[b, j]`` is false, written at ``prefix_len + j``.
+    ``path_idx`` int [B, T], ``path_valid`` bool [B, T].
+
+    ``prefix_len`` is a host int, or a device scalar (a captured step: the
+    window is gathered and written at that position, no host read). The new
+    length is ``prefix_len + sum(path_valid[0])``: a host int (pass it as
     ``new_length`` when the host knows it, or the count is read from the
-    device. ``path_idx`` int [B, T], ``path_valid`` bool [B, T]."""
+    device), or with a device ``prefix_len`` per-row device lengths
+    (``new_length`` a device scalar, or the count of each row's valid
+    slots)."""
     t = path_idx.shape[1]
     dev = kv_buffers(cache)[0].device
-    src = prefix_len + path_idx.to(device=dev, dtype=torch.long)  # [B, T] absolute
+    on_device = isinstance(prefix_len, torch.Tensor)
+    prefix = prefix_len.long().reshape(()) if on_device else prefix_len
+    src = prefix + path_idx.to(device=dev, dtype=torch.long)  # [B, T] absolute
     rows = torch.arange(src.shape[0], device=dev)[:, None].expand_as(src)
     valid = path_valid.to(device=dev, dtype=torch.bool)
-    st = _start(prefix_len, t, cache.max_len)
+    pos = _window(prefix, t, cache.max_len) if on_device else None
+    st = None if on_device else _start(prefix_len, t, cache.max_len)
     for buf in kv_buffers(cache):
         g = buf[:, rows, :, src]  # [B, T, L, H(, D)]
         g = g.permute(2, 0, 3, 1, 4) if buf.dim() == 5 else g.permute(2, 0, 3, 1)
         mask = valid[None, :, None, :, None] if buf.dim() == 5 else valid[None, :, None, :]
-        buf[:, :, :, st:st + t] = torch.where(mask, g, torch.zeros((), dtype=buf.dtype, device=dev))
+        g = torch.where(mask, g, torch.zeros((), dtype=buf.dtype, device=dev))
+        if on_device:
+            buf.index_copy_(3, pos, g)
+        else:
+            buf[:, :, :, st:st + t] = g
+    if on_device:
+        if new_length is None:
+            new_length = prefix + valid.sum(dim=1)
+        return rollback_rows(cache, torch.as_tensor(new_length, device=dev).expand(src.shape[0]))
     if new_length is None:
         new_length = prefix_len + int(valid[0].sum())
     return rollback(cache, new_length)
@@ -212,6 +250,13 @@ def repeat_rows(cache, repeats: int):
 def _start(start: int, s: int, s_max: int) -> int:
     # dynamic_update_slice semantics: the window is clamped to fit
     return max(0, min(int(start), s_max - s))
+
+
+def _window(start: torch.Tensor, s: int, s_max: int) -> torch.Tensor:
+    """The positions [start, start+s) of a device scalar ``start``, the
+    window clamped to fit as :func:`_start` clamps a host int (int64 [s])."""
+    st = start.long().reshape(()).clamp(0, s_max - s)
+    return st + torch.arange(s, device=start.device)
 
 
 def _write(buf: torch.Tensor, part: torch.Tensor, start) -> None:

@@ -20,7 +20,8 @@ a full cache per step.
 The JAX scan over the gamma steps is a Python loop here; every shape is
 fixed (``num_beams`` rows, 2 tokens on the first forward, 1 after), the
 committed length is a position on the device, and nothing is read back to
-the host, so the draft runs inside a captured step (``engine/beam_spec.py``).
+the host, so the draft runs inside a captured step (``engine/beam_spec.py``,
+``engine/beam_tree.py``).
 Random draws come from the counter stream of ``keys`` (``ops/sampling.py::
 row_uniform``), advanced and returned as JAX returns ``res.key``.
 """
@@ -100,8 +101,8 @@ def beam_draft(
     ``shared_prefix``: every row holds the same committed prefix (one
     winner re-broadcast). Then a reorder by parent moves only the window the
     draft writes, in place in ``cache``'s own buffers; otherwise every step
-    gathers whole rows into a new cache and ``cache`` keeps its rows.
-    ``capture_kv`` needs a host-int ``cur_len``."""
+    gathers whole rows into a new cache and ``cache`` keeps its rows (but
+    for the re-fed window, which the first forward writes into it)."""
     cfg = bundle.cfg
     b = num_beams
     vocab = cfg.vocab_size

@@ -22,25 +22,30 @@ N+1 = gamma*num_beams+1 tokens fit its S_new <= 32; with it, B2 attends the
 new block under an additive [R, N+1, N+1] ancestor bias. Larger trees take
 the einsum path, as in the JAX package.
 
-The JAX engine is one ``lax.while_loop``; here a host loop runs steps of
-fixed shapes (num_beams draft rows, r_slots x (N+1) tree tokens) and reads
-the device ONCE a step, after the walk: the accepted depth, the committed
-tokens of every row, their roots and scores, which the host keeps in a
-mirror of the rows for the EOS bookkeeping and the output. The walks draw
-from ``generator``; the beam draft from a counter stream seeded once from it
-(``device_loop.stream_key``).
+As in JAX (``_beam_tree_device``) the whole generation runs in the device
+loop (``engine/device_loop.py``): the :class:`TreeState` lives in static
+buffers with per-row device lengths, one step (:func:`_tree_step`: draft,
+tree verify, walk, commit, EOS bookkeeping) is a function of tensors only
+whose draws all come from one counter stream, and on the card it is
+captured once into a CUDA graph and replayed until the state says stop. The
+commit takes the target's committed rows by root with a whole-row take (the
+rows differ, so a window take would not be exact), compacts the accepted
+path at the device position, and rebuilds the draft rows from the k/v the
+draft captured. The final candidates are merged once, eagerly, after the
+loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import List, Optional
 
-import numpy as np
 import torch
 
-from ..cache.kvcache import compact_tree_paths, rollback, select_rows, write_positions
+from ..cache.kvcache import (compact_tree_paths, rollback, rollback_rows, select_rows_,
+                             write_positions)
 from ..core.config import resolve_device, synchronize
 from ..models.llama import unstack_layers
 from ..ops.dp import acceptance_alphas, get_expect_cnt_by_thres, num_accept_distribution
@@ -53,14 +58,17 @@ from ..ops.sampling import (
     max_fn,
     norm_logits,
     rewarp_topk,
-    sample,
-    sample_k,
-    sample_k_topk,
-    sample_topk,
+    row_uniform,
+    sample_k_topk_u,
+    sample_k_u,
+    sample_topk_u,
+    sample_u,
+    topk_draw_width,
     use_sparse,
 )
 from . import device_loop
 from .beam_draft import beam_draft
+from .device_loop import scalar, scatter_where_
 from .phases import fill_phase_split
 from .types import ModelBundle, aligned_total, pad_prompt
 
@@ -80,17 +88,23 @@ def ancestor_matrix(step_beam_idx: torch.Tensor, gamma: int, b: int) -> torch.Te
     return torch.cat(rows, dim=0)
 
 
-def tree_verify(bundle, params, scfg, gamma, num_beams, row_tokens, cur_len: int, cache,
+def tree_verify(bundle, params, scfg, gamma, num_beams, row_tokens, cur_len, cache,
                 node_tokens, node_roots, anc):
     """One tree-attention target forward over [anchor] + N nodes for each of
     the R committed rows. Returns (p_root [R, ...], p_nodes [N, ...], cache):
     warped distributions; p_root[r] conditions on row r, p_nodes[j] on node
-    j's path (read from batch row ``node_roots[j]``)."""
+    j's path (read from batch row ``node_roots[j]``). ``cur_len`` is a host
+    int (a cache with a host length) or a device scalar (per-row device
+    lengths, no host read)."""
     r_rows = row_tokens.shape[0]
     n = gamma * num_beams
     dev = row_tokens.device
-    cache = rollback(cache, cur_len - 1)
-    anchor = row_tokens[:, cur_len - 1:cur_len]
+    c = torch.as_tensor(cur_len, device=dev).long().reshape(())
+    if isinstance(cur_len, torch.Tensor):
+        cache = rollback_rows(cache, (c - 1).expand(r_rows))
+    else:
+        cache = rollback(cache, cur_len - 1)
+    anchor = row_tokens.gather(1, (c - 1).expand(r_rows, 1))
     vin = torch.cat([anchor, node_tokens[None].expand(r_rows, n)], dim=1)
     # block mask [N+1, N+1]: the anchor visible to all, nodes see their ancestors
     block = torch.zeros((n + 1, n + 1), dtype=torch.bool, device=dev)
@@ -98,7 +112,7 @@ def tree_verify(bundle, params, scfg, gamma, num_beams, row_tokens, cur_len: int
     block[1:, 1:] = anc
     block = block[None].expand(r_rows, n + 1, n + 1)
     node_s = torch.arange(gamma, device=dev).repeat_interleave(num_beams)  # level of node j
-    positions = torch.cat([torch.full((1,), cur_len - 1, device=dev), cur_len + node_s])
+    positions = torch.cat([(c - 1).reshape(1), c + node_s])
     positions = positions[None].expand(r_rows, n + 1)
     logits, cache = bundle.forward(params, bundle.cfg, vin, cache, positions=positions,
                                    tree_mask=block, tp_mesh=scfg.tp_mesh)
@@ -135,88 +149,182 @@ def backtrack_path(step_beam_idx, step_next_tok, parent, level_end, gamma: int, 
 # ------------------------------------------------------------ shared state
 @dataclasses.dataclass
 class TreeState:
-    row_tokens: torch.Tensor  # [R, T] committed parallel prefixes (device)
-    rows_host: np.ndarray     # the same rows on the host
-    cur_len: int
-    draft_cache: object       # committed draft cache (B rows, slot pattern)
-    target_cache: object      # committed target cache (R rows)
-    beam_scores: torch.Tensor  # [B] committed row scores (carried in v1)
-    scores_host: np.ndarray   # float32 [R]: beam_scores[:R] on the host
-    alive: np.ndarray         # [R] row not yet EOS-finished
-    best_tokens: np.ndarray   # best finished candidate (EOS bookkeeping)
-    key: torch.Tensor         # [1, 2] the beam draft's counter stream
-    best_len: int = 0
-    best_score: np.float32 = np.float32(_NEG)
-    done: bool = False
-    first: bool = True        # v1's first-iteration valid-beam special case
-    accepted: int = 0
-    steps: int = 0
-    rate_sum: float = 0.0
-    rate_cnt: int = 0
-    acc_len_hist: list = dataclasses.field(default_factory=list)  # levels accepted a step
-    expect_hist: list = dataclasses.field(default_factory=list)   # v2 expect_cnt a level
+    """A tree generation on the device (JAX's ``TreeState``, the carry of
+    ``_beam_tree_device``): every field a static buffer that a step updates
+    in place."""
+
+    row_tokens: torch.Tensor    # [R, T] int64: the committed parallel prefixes
+    p_len: torch.Tensor         # [] int32: the prompt's length
+    cur_len: torch.Tensor       # [] int32: committed positions (every row)
+    total: torch.Tensor         # [] int32: prompt length + max_new_tokens
+    draft_cache: object         # committed draft cache: B rows (slot pattern), device lengths
+    target_cache: object        # committed target cache: R rows, device lengths
+    beam_scores: torch.Tensor   # [B] f32: the committed rows' scores (carried in v1)
+    key: torch.Tensor           # [1, 2] the counter stream every draw comes from
+    done: torch.Tensor          # [] bool: the EOS bookkeeping ended the run
+    first: torch.Tensor         # [] bool: v1's first-step valid-beam special case
+    accepted: torch.Tensor      # [] int32: accepted levels
+    steps: torch.Tensor         # [] int32
+    rate_sum: torch.Tensor      # [] f32: the acc_rate numerator
+    rate_cnt: torch.Tensor      # [] int32: its denominator (gamma a step)
+    best_tokens: torch.Tensor   # [T] int64: the best EOS-finished candidate
+    best_len: torch.Tensor      # [] int32
+    best_score: torch.Tensor    # [] f32
+    alive: torch.Tensor         # [R] bool: a row not yet EOS-finished
+    acc_len_hist: torch.Tensor  # [max_new_tokens] int32: levels accepted a step
+    expect_hist: torch.Tensor   # [max_new_tokens, gamma] int32: v2's width a level (-1 inactive)
+    stop: torch.Tensor          # [] bool: JAX's cond negated (cur_len >= total, or done)
 
 
 def _slot_pattern(b: int, r: int, device) -> torch.Tensor:
     return torch.clamp(torch.arange(b, device=device), max=r - 1)
 
 
-def _commit(state: TreeState, res, roots, path_rows, path_tokens, path_nodes, token,
-            max_l: int, new_scores_full, gamma, num_beams, r_slots):
-    """Commit the R slots on the device: tokens, the target cache's tree
-    compaction, the draft cache's rebuild. ``state.draft_cache`` must be the
-    committed cache from before the draft (its rows follow the slot
-    pattern): the rebuild selects its prefix rows and overlays the captured
-    anchor and node k/v of the accepted paths."""
-    cur_len = state.cur_len
-    dev = state.row_tokens.device
-    new_len = cur_len + max_l + 1
+def _tree_state(bundle_d, bundle_t, num_beams: int, r_slots: int, gamma: int, max_total: int,
+                max_new: int, device) -> TreeState:
+    """A zeroed :class:`TreeState` of ``max_total`` positions."""
+    i32 = torch.int32
 
-    rows = state.row_tokens[roots]
-    rows[:, cur_len:cur_len + max_l] = path_tokens[:, :max_l]
-    rows[:, new_len - 1] = token
+    def cache(bundle, rows):
+        c = bundle.make_cache(rows, max_total, device=device)
+        return dataclasses.replace(c, lengths=torch.zeros((rows,), dtype=i32, device=device))
 
-    # target: row-select by root, compact the accepted path (node j sits at
-    # cache position cur_len + j, the anchor at cur_len-1)
-    valid = (torch.arange(gamma, device=dev) < max_l)[None].expand(r_slots, gamma)
-    tc = compact_tree_paths(select_rows(state.target_cache, roots), path_nodes, valid, cur_len,
-                            new_length=cur_len + max_l)
-
-    # draft: committed rows by root + the anchor window and the path's nodes
-    slot = _slot_pattern(num_beams, r_slots, dev)
-    rows_map = roots[slot]
-    dc = select_rows(state.draft_cache, rows_map)
-    write_positions(dc, tuple(a[:, rows_map] for a in res.anchor_kv), cur_len - 2)
-    pr = path_rows[slot]  # [B, gamma]
-    for s in range(min(max_l, gamma - 1)):
-        write_positions(dc, tuple(x[:, pr[:, s]] for x in res.node_kv[s]), cur_len + s)
-    dc = rollback(dc, max(cur_len + max_l - 1, 2))
-    return dataclasses.replace(state, row_tokens=rows, cur_len=new_len, draft_cache=dc,
-                               target_cache=tc, beam_scores=new_scores_full)
+    hist = max(max_new, 1)
+    return TreeState(
+        row_tokens=torch.zeros((r_slots, max_total), dtype=torch.long, device=device),
+        p_len=scalar(0, i32, device), cur_len=scalar(0, i32, device),
+        total=scalar(0, i32, device),
+        draft_cache=cache(bundle_d, num_beams), target_cache=cache(bundle_t, r_slots),
+        beam_scores=torch.zeros((num_beams,), dtype=torch.float32, device=device),
+        key=torch.zeros((1, 2), dtype=torch.long, device=device),
+        done=scalar(False, torch.bool, device), first=scalar(True, torch.bool, device),
+        accepted=scalar(0, i32, device), steps=scalar(0, i32, device),
+        rate_sum=scalar(0.0, torch.float32, device), rate_cnt=scalar(0, i32, device),
+        best_tokens=torch.zeros((max_total,), dtype=torch.long, device=device),
+        best_len=scalar(0, i32, device), best_score=scalar(_NEG, torch.float32, device),
+        alive=torch.ones((r_slots,), dtype=torch.bool, device=device),
+        acc_len_hist=torch.zeros((hist,), dtype=i32, device=device),
+        expect_hist=torch.full((hist, gamma), -1, dtype=i32, device=device),
+        stop=scalar(False, torch.bool, device),
+    )
 
 
-def _eos_bookkeeping(state: TreeState, eos_token_id: int, prompt_len: int, r_slots: int):
-    """Candidate collection and termination, on the host mirror."""
-    seqs = state.rows_host
-    pos = np.arange(seqs.shape[1])
-    gen_mask = (pos[None] >= prompt_len) & (pos[None] < state.cur_len)
-    eos_hits = gen_mask & (seqs == eos_token_id)
-    has_eos = eos_hits.any(axis=1)
-    cand_len = np.where(has_eos, np.argmax(eos_hits, axis=1) + 1, state.cur_len)
-    norm = state.scores_host / np.maximum(cand_len - prompt_len, 1).astype(np.float32)
-    cand_score = np.where(has_eos & state.alive, norm, np.float32(_NEG)).astype(np.float32)
-    cb = int(np.argmax(cand_score))
-    if cand_score[cb] > state.best_score:
-        state.best_tokens = seqs[cb].copy()
-        state.best_len = int(cand_len[cb])
-        state.best_score = cand_score[cb]
-    state.alive = state.alive & ~has_eos
-    done = bool(has_eos[0]) if r_slots == 1 else not state.alive.any()
-    state.done = state.done or done
-    return state
+def _tree_start(bundle_d, params_d, bundle_t, params_t, prompt_t, p_len: int, total: int, key,
+                tp_mesh, st: TreeState) -> None:
+    """Reset ``st`` and prefill the padded prompt ``prompt_t`` [1, P] into
+    every row of both caches (eager: the bucket varies)."""
+    st.row_tokens.zero_()
+    st.row_tokens[:, :prompt_t.shape[1]] = prompt_t
+    for bundle, params, cache, mesh in ((bundle_d, params_d, st.draft_cache, None),
+                                        (bundle_t, params_t, st.target_cache, tp_mesh)):
+        cache.lengths.zero_()
+        bundle.forward(params, bundle.cfg, prompt_t.expand(cache.lengths.shape[0], -1), cache,
+                       tp_mesh=mesh)
+        cache.lengths.fill_(p_len)
+    st.p_len.fill_(p_len)
+    st.cur_len.fill_(p_len)
+    st.total.fill_(total)
+    st.key.copy_(key)
+    st.first.fill_(True)
+    st.best_score.fill_(_NEG)
+    st.alive.fill_(True)
+    st.expect_hist.fill_(-1)
+    for t in (st.beam_scores, st.done, st.accepted, st.steps, st.rate_sum, st.rate_cnt,
+              st.best_tokens, st.best_len, st.acc_len_hist):
+        t.zero_()
+    st.stop.copy_(device_loop.finished(st))
+
+
+def _commit(st: TreeState, res, t, max_l, new_scores_full, active, cw, gamma: int,
+            num_beams: int, r_slots: int, vocab: int) -> None:
+    """Commit the R slots in place (JAX's ``_commit``): tokens, the target
+    cache's tree compaction, the draft cache's rebuild. ``t`` [R] are the
+    slots' flat next ids, ``cw`` the committed length where the step's
+    forwards sat. ``st.draft_cache`` still holds the committed rows from
+    before the draft (slot pattern): the rebuild takes its rows by root and
+    overlays the captured anchor and node k/v of the accepted paths. On a
+    finished state (``active`` false) nothing the finish reads changes."""
+    b = num_beams
+    dev = cw.device
+    parent, token = torch.div(t, vocab, rounding_mode="floor"), t % vocab
+    path_rows, path_tokens, path_nodes, roots = backtrack_path(
+        res.step_beam_idx, res.step_next_tok, parent, max_l, gamma, b)
+    # when max_l == 0 the "parent" indexes the roots directly
+    roots = torch.where(max_l == 0, parent, roots).clamp(0, r_slots - 1)
+    j = torch.arange(gamma, device=dev)
+    svalid = j < max_l
+    new_len = cw + max_l + 1
+
+    # tokens: the roots' rows, the accepted path at [cw, cw + max_l), the
+    # next token at new_len - 1 (max_total leaves room past any window)
+    rows = st.row_tokens.index_select(0, roots)
+    pos = (cw + j).expand(r_slots, gamma)
+    rows.scatter_(1, pos, torch.where(svalid, path_tokens, rows.gather(1, pos)))
+    rows.scatter_(1, (new_len - 1).expand(r_slots, 1), token[:, None])
+    st.row_tokens.copy_(torch.where(active, rows, st.row_tokens))
+    st.beam_scores.copy_(torch.where(active, new_scores_full, st.beam_scores))
+    st.cur_len.copy_(torch.where(active, new_len, st.cur_len.long()))
+
+    # target: the roots' whole rows (one slot: the root is row 0), then the
+    # accepted path compacted (node j sits at cw + j, the anchor at cw - 1)
+    tc = st.target_cache
+    if r_slots > 1:
+        select_rows_(tc, roots)
+    compact_tree_paths(tc, path_nodes, svalid.expand(r_slots, gamma), cw)
+    tc.lengths.copy_((cw + max_l).expand(r_slots))
+
+    # draft: the roots' committed rows + the anchor window and the path's nodes
+    slot = _slot_pattern(b, r_slots, dev)
+    rows_map = roots.index_select(0, slot)
+    dc = st.draft_cache
+    select_rows_(dc, rows_map)
+    write_positions(dc, tuple(a.index_select(1, rows_map) for a in res.anchor_kv), cw - 2)
+    if gamma > 1:  # node entry s < gamma-1 at cw + s where s < max_l
+        pr = path_rows.index_select(0, slot)  # [B, gamma]
+        nodes = tuple(torch.cat([res.node_kv[s][i].index_select(1, pr[:, s])
+                                 for s in range(gamma - 1)], dim=3)
+                      for i in range(len(res.anchor_kv)))
+        write_positions(dc, nodes, cw, valid=j[:gamma - 1] < max_l)
+    dc.lengths.copy_(torch.clamp(cw + max_l - 1, min=2).expand(b))
+
+
+def _eos_bookkeeping(st: TreeState, eos_token_id: int, r_slots: int, active) -> None:
+    """Candidate collection and termination (JAX's ``_eos_bookkeeping``),
+    in place and masked by ``active``: a row whose generated tokens hold an
+    EOS becomes a candidate (its first EOS ends it), scored by its
+    length-normalised score, and dies; the run is done when no row lives
+    (one slot: when it holds an EOS)."""
+    seqs = st.row_tokens
+    dev = seqs.device
+    cur, p_len = st.cur_len.long(), st.p_len.long()
+    pos = torch.arange(seqs.shape[1], device=dev)
+    hits = ((pos >= p_len) & (pos < cur))[None] & (seqs == eos_token_id)
+    has_eos = hits.any(dim=1)
+    cand_len = torch.where(has_eos, torch.argmax(hits.int(), dim=1) + 1, cur)
+    norm = st.beam_scores[:r_slots] / (cand_len - p_len).clamp(min=1).float()
+    cand = torch.where(has_eos & st.alive, norm, torch.full_like(norm, _NEG))
+    cb = torch.argmax(cand).reshape(1)  # a 0-dim index would be read on the host
+    best = cand.index_select(0, cb)[0]
+    improved = active & (best > st.best_score)
+    st.best_tokens.copy_(torch.where(improved, seqs.index_select(0, cb)[0], st.best_tokens))
+    st.best_len.copy_(torch.where(improved, cand_len.index_select(0, cb)[0], st.best_len.long()))
+    st.best_score.copy_(torch.where(improved, best, st.best_score))
+    alive = st.alive & ~has_eos
+    done = has_eos[0] if r_slots == 1 else ~alive.any()
+    st.alive.copy_(torch.where(active, alive, st.alive))
+    st.done.copy_(st.done | (active & done))
 
 
 # ------------------------------------------------------------------ walks
+def _uniforms(src, n: int):
+    """``n`` uniforms [1, n] from ``src`` and the advanced source: the
+    step's counter-stream key [1, 2] (``ops/sampling.py::row_uniform``), or
+    a ``torch.Generator`` (advanced in place)."""
+    if isinstance(src, torch.Generator):
+        return torch.rand((1, n), generator=src, device=src.device), src
+    return row_uniform(src, n)
+
+
 def _level_rows(p_root, p_nodes, i, b, r_slots):
     """The per-row target dists feeding level i: the roots (padded with
     zero rows to b) at level 0, else the nodes of level i-1."""
@@ -264,13 +372,16 @@ def _partial_tokens(t_fail, t_resid, f_accept, f_sample_idx, f_acc_cnt, num_beam
 
 
 def _v2_walk(scfg, gamma, num_beams, vocab, expect_thres, min_num_beams,
-             res, p_root, p_nodes, r_slots, generator):
+             res, p_root, p_nodes, r_slots, key):
     """Dynamic-width DP walk over dense [b*V] joints (reference :188-337).
     Returns (t [b] flat ids, max_l, all_acc, new_scores [r_slots],
-    rate_sum, expect_levels [gamma]), all on the device."""
+    rate_sum, expect_levels [gamma], key), all on the device. ``key`` is
+    the counter stream (or a ``torch.Generator``) the draws come from, as
+    many uniforms as JAX's draws take."""
     b = num_beams
     dev = p_root.device
-    rmat = torch.rand((gamma, b), generator=generator, device=dev)
+    u, key = _uniforms(key, gamma * b)
+    rmat = u.reshape(gamma, b)
     active = torch.ones((), dtype=torch.bool, device=dev)
     max_l = torch.zeros((), dtype=torch.long, device=dev)
     valid = torch.arange(b, device=dev) < r_slots
@@ -296,11 +407,12 @@ def _v2_walk(scfg, gamma, num_beams, vocab, expect_thres, min_num_beams,
         expect_cnt = _expect_cnt(p_next, q_prob, b, expect_thres, min_num_beams, False)
         levels.append(torch.where(active, expect_cnt, -1))
 
-        # sequential accept over the beams with residual updates (:277-303)
+        # sequential accept over the beams with residual updates (:277-303);
+        # a 0-dim index would be read on the host: gather a 1-element slice
         cur_prob, acc_cnt, accept = p_next, torch.zeros_like(max_l), []
         for j in range(b):
             a = from_valid[j] & (acc_cnt < expect_cnt) & (
-                cur_prob[sample_idx[j]] / (q_scores[j] + 1e-6) > rmat[i, j])
+                cur_prob.gather(0, sample_idx[j:j + 1])[0] / (q_scores[j] + 1e-6) > rmat[i, j])
             cur_prob = torch.where(a, p_next, max_fn(cur_prob - q_prob))
             acc_cnt = acc_cnt + a.long()
             accept.append(a)
@@ -326,25 +438,29 @@ def _v2_walk(scfg, gamma, num_beams, vocab, expect_thres, min_num_beams,
     logj = torch.where(valid[:, None], torch.log(cur_p + 1e-30) + beam_scores[:, None],
                        torch.full_like(cur_p, _NEG))
     p_final = norm_logits(logj.reshape(1, -1), scfg)[0]
-    t_all = sample_k(generator, p_final[None], num_beams)[0]
-    t_fail = sample_k(generator, f_p_next[None], num_beams)[0]
-    t_resid = sample(generator, f_resid[None])[0]
+    u, key = _uniforms(key, b * vocab)
+    t_all = sample_k_u(p_final[None], u, num_beams)[0]
+    u, key = _uniforms(key, b * vocab)
+    t_fail = sample_k_u(f_p_next[None], u, num_beams)[0]
+    u, key = _uniforms(key, b * vocab)
+    t_resid = sample_u(f_resid[None], u)[0]
     t_partial = _partial_tokens(t_fail, t_resid, f_accept, f_sample_idx, f_acc_cnt, num_beams,
                                 r_slots)
     t = torch.where(all_acc, t_all, t_partial)
     score_src = torch.where(all_acc, p_final, f_p_next)
     new_scores = torch.log(score_src[t] + 1e-30)[:r_slots]
-    return t, max_l, all_acc, new_scores, rate_sum, torch.stack(levels)
+    return t, max_l, all_acc, new_scores, rate_sum, torch.stack(levels), key
 
 
 def _v2_walk_sparse(scfg, gamma, num_beams, vocab, expect_thres, min_num_beams,
-                    res, p_root, p_nodes, r_slots, generator):
+                    res, p_root, p_nodes, r_slots, key):
     """:func:`_v2_walk` in candidate space: every per-level state lives on
     <= top_k candidates instead of [b*V]; exact up to the dense path's
     1e-30 log floor on zero-prob entries."""
     b = num_beams
     dev = p_root.probs.device
-    rmat = torch.rand((gamma, b), generator=generator, device=dev)
+    u, key = _uniforms(key, gamma * b)
+    rmat = u.reshape(gamma, b)
     kk = p_root.probs.shape[-1]
     active = torch.ones((), dtype=torch.bool, device=dev)
     max_l = torch.zeros((), dtype=torch.long, device=dev)
@@ -405,43 +521,49 @@ def _v2_walk_sparse(scfg, gamma, num_beams, vocab, expect_thres, min_num_beams,
     all_acc = active
     p_final = joint_topk_from_dists(_level_rows(p_root, p_nodes, gamma, b, r_slots), beam_scores,
                                     valid, scfg, vocab)
-    t_all = sample_k_topk(generator, p_final, num_beams)
-    t_fail = sample_k_topk(generator, f_dist, num_beams)
-    t_resid = sample_topk(generator, TopKDist(f_dist.idx, f_resid))
+    u, key = _uniforms(key, topk_draw_width(p_final, num_beams))
+    t_all = sample_k_topk_u(p_final, u[0], num_beams)
+    u, key = _uniforms(key, topk_draw_width(f_dist, num_beams))
+    t_fail = sample_k_topk_u(f_dist, u[0], num_beams)
+    u, key = _uniforms(key, kk)
+    t_resid = sample_topk_u(TopKDist(f_dist.idx, f_resid), u[0])
     t_partial = _partial_tokens(t_fail, t_resid, f_accept, f_sample_idx, f_acc_cnt, num_beams,
                                 r_slots)
     t = torch.where(all_acc, t_all, t_partial)
     score = torch.where(all_acc, _prob_at(p_final, t), _prob_at(f_dist, t))
     new_scores = torch.log(score + 1e-30)[:r_slots]
-    return t, max_l, all_acc, new_scores, rate_sum, torch.stack(levels)
+    return t, max_l, all_acc, new_scores, rate_sum, torch.stack(levels), key
 
 
-def _v1_start(state: TreeState, b: int, dev):
-    """The walk's starting validity and scores: on the first step only beam
-    0 is valid (every committed row is the same), afterwards every row
-    (reference :772-778)."""
-    if state.first:
-        return (torch.arange(b, device=dev) == 0,
-                torch.zeros((b,), dtype=torch.float32, device=dev))
-    return torch.ones((b,), dtype=torch.bool, device=dev), state.beam_scores
+def _v1_start(state, b: int, dev):
+    """(first, the walk's starting validity, its starting scores): on the
+    first step only beam 0 is valid (every committed row is the same),
+    afterwards every row (reference :772-778). ``state.first`` is a device
+    bool (or a host one)."""
+    first = torch.as_tensor(state.first, device=dev)
+    valid = torch.where(first, torch.arange(b, device=dev) == 0,
+                        torch.ones((b,), dtype=torch.bool, device=dev))
+    return first, valid, torch.where(first, torch.zeros((), device=dev), state.beam_scores)
 
 
 def _v1_walk(scfg, gamma, num_beams, vocab, min_num_beams, res, p_root, p_nodes, state,
-             r_slots, generator):
+             r_slots, key):
     """Always-accept rescoring walk over dense joints (reference :772-892,
-    with its r-1 quirk). Returns (t, max_l, all_acc, new_scores, rate_sum)."""
+    with its r-1 quirk). Returns (t, max_l, all_acc, new_scores, rate_sum,
+    key)."""
     b = num_beams
     dev = p_root.device
-    rmat = torch.rand((gamma,), generator=generator, device=dev) - 1.0  # below any ratio
+    u, key = _uniforms(key, gamma)
+    rmat = u[0] - 1.0  # below any ratio
     active = torch.ones((), dtype=torch.bool, device=dev)
     max_l = torch.zeros((), dtype=torch.long, device=dev)
-    valid, beam_scores = _v1_start(state, b, dev)
+    first, valid, beam_scores = _v1_start(state, b, dev)
     f_p_next = torch.zeros((b * vocab,), dtype=torch.float32, device=dev)
     rate_sum = torch.zeros((), dtype=torch.float32, device=dev)
     for i in range(gamma):
         parent_idx = res.step_beam_idx[i]
-        if i == 0 and state.first:
-            parent_idx = torch.zeros_like(parent_idx)  # :797
+        if i == 0:
+            parent_idx = torch.where(first, torch.zeros_like(parent_idx), parent_idx)  # :797
         cur_p = _level_rows(p_root, p_nodes, i, b, r_slots)
         from_valid = valid[parent_idx]
         logj = torch.where(valid[:, None], torch.log(cur_p + 1e-30) + beam_scores[:, None],
@@ -466,32 +588,34 @@ def _v1_walk(scfg, gamma, num_beams, vocab, min_num_beams, res, p_root, p_nodes,
                        torch.full_like(cur_p, _NEG))
     joint = torch.where(all_acc, logj.reshape(-1), torch.log(f_p_next + 1e-30))
     p_resample = norm_logits(joint.reshape(1, -1), scfg)[0]  # warped (:908/:975)
-    t = sample_k(generator, p_resample[None], num_beams)[0]
+    u, key = _uniforms(key, b * vocab)
+    t = sample_k_u(p_resample[None], u, num_beams)[0]
     new_scores = torch.log(p_resample[t] + 1e-30)[:r_slots]
-    return t, max_l, all_acc, new_scores, rate_sum
+    return t, max_l, all_acc, new_scores, rate_sum, key
 
 
 def _v1_walk_sparse(scfg, gamma, num_beams, vocab, min_num_beams, res, p_root, p_nodes, state,
-                    r_slots, generator):
+                    r_slots, key):
     """:func:`_v1_walk` on the warped rows' candidate support (the plain
     joint softmax already has support <= b*k because the rows are
     warped)."""
     b = num_beams
     dev = p_root.probs.device
-    rmat = torch.rand((gamma,), generator=generator, device=dev) - 1.0  # below any ratio
+    u, key = _uniforms(key, gamma)
+    rmat = u[0] - 1.0  # below any ratio
     nall = b * p_root.probs.shape[-1]
     plain = SamplingConfig(1.0, 0, 0.0)  # plain softmax at accept (:826)
     active = torch.ones((), dtype=torch.bool, device=dev)
     max_l = torch.zeros((), dtype=torch.long, device=dev)
-    valid, beam_scores = _v1_start(state, b, dev)
+    first, valid, beam_scores = _v1_start(state, b, dev)
     f_dist = TopKDist(torch.zeros((nall,), dtype=torch.long, device=dev),
                       torch.zeros((nall,), dtype=torch.float32, device=dev))
     rate_sum = torch.zeros((), dtype=torch.float32, device=dev)
     zero = torch.zeros((), device=dev)
     for i in range(gamma):
         parent_idx = res.step_beam_idx[i]
-        if i == 0 and state.first:
-            parent_idx = torch.zeros_like(parent_idx)  # :797
+        if i == 0:
+            parent_idx = torch.where(first, torch.zeros_like(parent_idx), parent_idx)  # :797
         rows = _level_rows(p_root, p_nodes, i, b, r_slots)
         from_valid = valid[parent_idx]
         p_next = joint_topk_from_dists(rows, beam_scores, valid, plain, vocab, out_k=nall)
@@ -515,79 +639,61 @@ def _v1_walk_sparse(scfg, gamma, num_beams, vocab, min_num_beams, res, p_root, p
     sel = TopKDist(torch.where(all_acc, last.idx, f_dist.idx),
                    torch.where(all_acc, last.probs, f_dist.probs))
     p_resample = rewarp_topk(sel, scfg)  # warped (:908/:975)
-    t = sample_k_topk(generator, p_resample, num_beams)
+    u, key = _uniforms(key, topk_draw_width(p_resample, num_beams))
+    t = sample_k_topk_u(p_resample, u[0], num_beams)
     new_scores = torch.log(_prob_at(p_resample, t) + 1e-30)[:r_slots]
-    return t, max_l, all_acc, new_scores, rate_sum
+    return t, max_l, all_acc, new_scores, rate_sum, key
 
 
 # ----------------------------------------------------------------- engines
-def _tree_step(state: TreeState, mode, bundle_d, params_d, bundle_t, params_t, scfg, *, gamma,
-               num_beams, r_slots, expect_thres, min_num_beams, eos_token_id, prompt_len,
-               generator):
-    """One draft + tree verify + walk + commit, with one host read."""
+def _tree_step(mode, bundle_d, params_d, bundle_t, params_t, scfg, gamma: int, num_beams: int,
+               r_slots: int, expect_thres: float, min_num_beams: int, eos_token_id: int,
+               st: TreeState) -> None:
+    """One draft + tree verify + walk + commit + EOS bookkeeping on ``st``,
+    in place (JAX ``_beam_tree_device``'s body), with no host read. The
+    forwards sit at ``cw = min(cur_len, total - 1)``, which is ``cur_len`` on
+    a live state; a finished state commits nothing the finish reads."""
     b = num_beams
     vocab = bundle_t.cfg.vocab_size
-    dev = state.row_tokens.device
+    dev = st.row_tokens.device
+    active = ~st.stop
+    cw = torch.minimum(st.cur_len.long(), st.total.long() - 1)
     slot = _slot_pattern(b, r_slots, dev)
     init_scores = torch.where(torch.arange(b, device=dev) < r_slots, 0.0, float("-inf"))
-    res = beam_draft(bundle_d, params_d, scfg, gamma, b, state.row_tokens[slot], state.cur_len,
-                     state.draft_cache, state.key, init_beam_scores=init_scores, init_root=slot,
+    # st.draft_cache keeps its committed rows for the commit: the draft's
+    # reorders gather into caches of their own (shared_prefix=False)
+    res = beam_draft(bundle_d, params_d, scfg, gamma, b, st.row_tokens.index_select(0, slot), cw,
+                     st.draft_cache, st.key, init_beam_scores=init_scores, init_root=slot,
                      capture_kv=True)
-    state.key = res.key
     anc = ancestor_matrix(res.step_beam_idx, gamma, b)
-    p_root, p_nodes, target_cache = tree_verify(
-        bundle_t, params_t, scfg, gamma, b, state.row_tokens, state.cur_len, state.target_cache,
+    p_root, p_nodes, _ = tree_verify(
+        bundle_t, params_t, scfg, gamma, b, st.row_tokens, cw, st.target_cache,
         res.step_next_tok.reshape(-1), res.step_root.reshape(-1), anc)
-    # state.draft_cache stays the committed cache from before the draft, for _commit
-    state.target_cache = target_cache
     sparse = use_sparse(scfg)
     if mode == "v2":
         walk = _v2_walk_sparse if sparse else _v2_walk
-        t, max_l, _, new_scores, rate_sum, levels = walk(
+        t, max_l, _, new_scores, rate_sum, levels, key = walk(
             scfg, gamma, b, vocab, expect_thres, min_num_beams, res, p_root, p_nodes, r_slots,
-            generator)
+            res.key)
     else:
         walk = _v1_walk_sparse if sparse else _v1_walk
-        t, max_l, _, new_scores, rate_sum = walk(
-            scfg, gamma, b, vocab, min_num_beams, res, p_root, p_nodes, state, r_slots, generator)
+        t, max_l, _, new_scores, rate_sum, key = walk(
+            scfg, gamma, b, vocab, min_num_beams, res, p_root, p_nodes, st, r_slots, res.key)
         levels = torch.full((gamma,), -1, dtype=torch.long, device=dev)
-    t = t[:r_slots]
-    parent, token = torch.div(t, vocab, rounding_mode="floor"), t % vocab
-    path_rows, path_tokens, path_nodes, roots = backtrack_path(
-        res.step_beam_idx, res.step_next_tok, parent, max_l, gamma, b)
-    # when max_l == 0 the "parent" indexes the roots directly
-    roots = torch.where(max_l == 0, parent, roots).clamp(0, r_slots - 1)
-
-    # the one host read of the step
-    host = torch.cat([max_l.reshape(1).double(), rate_sum.reshape(1).double(), levels.double(),
-                      token.double(), roots.double(), path_tokens.reshape(-1).double(),
-                      new_scores.double()]).cpu().numpy()
-    n_l = int(host[0])
-    o = 2 + gamma
-    token_h = host[o:o + r_slots].astype(np.int64)
-    roots_h = host[o + r_slots:o + 2 * r_slots].astype(np.int64)
-    o += 2 * r_slots
-    path_h = host[o:o + r_slots * gamma].reshape(r_slots, gamma).astype(np.int64)
-    scores_h = host[o + r_slots * gamma:].astype(np.float32)
-
-    full_scores = torch.zeros((b,), dtype=torch.float32, device=dev)
-    full_scores[:r_slots] = new_scores
-    cur_len = state.cur_len
-    state = _commit(state, res, roots, path_rows, path_tokens, path_nodes, token, n_l,
-                    full_scores, gamma, b, r_slots)
-    rows = state.rows_host[roots_h]
-    rows[:, cur_len:cur_len + n_l] = path_h[:, :n_l]
-    rows[:, cur_len + n_l] = token_h
-    state.rows_host = rows
-    state.scores_host = scores_h
-    state.first = False
-    state.accepted += n_l
-    state.steps += 1
-    state.rate_sum += float(host[1])
-    state.rate_cnt += gamma
-    state.acc_len_hist.append(n_l)
-    state.expect_hist.append(host[2:2 + gamma].astype(np.int64))
-    return _eos_bookkeeping(state, eos_token_id, prompt_len, r_slots)
+    full_scores = torch.cat([new_scores, torch.zeros((b - r_slots,), device=dev)])
+    col = st.steps.long().clamp(max=st.acc_len_hist.shape[0] - 1).reshape(1)
+    _commit(st, res, t[:r_slots], max_l, full_scores, active, cw, gamma, b, r_slots, vocab)
+    scatter_where_(st.acc_len_hist, col, max_l.reshape(1), active)
+    st.expect_hist.index_copy_(0, col, torch.where(active, levels[None].to(torch.int32),
+                                                   st.expect_hist.index_select(0, col)))
+    st.first.copy_(st.first & ~active)
+    st.accepted.add_(torch.where(active, max_l, 0).to(torch.int32))
+    st.steps.add_(active.to(torch.int32))
+    st.rate_sum.copy_(torch.where(active, st.rate_sum + rate_sum, st.rate_sum))
+    st.rate_cnt.add_(active.to(torch.int32) * gamma)
+    st.key.copy_(torch.where(active, key, st.key))
+    _eos_bookkeeping(st, eos_token_id, r_slots, active)
+    st.stop.copy_(device_loop.finished(st))
 
 
 def _run_tree(mode, bundle_d, params_d, bundle_t, params_t, prompt, max_new_tokens, *,
@@ -597,65 +703,63 @@ def _run_tree(mode, bundle_d, params_d, bundle_t, params_t, prompt, max_new_toke
     scfg = SamplingConfig(temperature, top_k, top_p, tp_mesh=tp_mesh)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
     bundle_d, bundle_t = bundle_d.for_params(params_d), bundle_t.for_params(params_t)
-    params_d, params_t = unstack_layers(params_d), unstack_layers(params_t)
+    pd, pt = unstack_layers(params_d), unstack_layers(params_t)
     prompt_padded, p_len = pad_prompt(prompt)
     if p_len < 2:
         raise ValueError("prompt must have at least 2 tokens")
-    max_total = aligned_total(prompt_padded.shape[1] + max_new_tokens + gamma
-                              + num_beams * gamma + 2)
+    p_bucket = prompt_padded.shape[1]
+    # room for a finished state's step too: its windows reach total + gamma
+    # + gamma*num_beams positions
+    max_total = aligned_total(p_bucket + max_new_tokens + gamma + num_beams * gamma + 2)
     b = num_beams
     r_slots = num_beams if mode == "v1" else max(extra_sample_cnt, 1)
+    total = p_len + max_new_tokens
+    for bundle in (bundle_d, bundle_t):
+        device_loop.check_positions(bundle, max(p_bucket, total + gamma - 1))
+    expect_thres, min_num_beams = float(expect_thres), int(min_num_beams)
+    key = device_loop.stream_key(gen, dev)
+    prompt_t = torch.as_tensor(prompt_padded, dtype=torch.long).to(dev)
 
     synchronize(dev)
     t0 = time.perf_counter()
-    draft_cache = bundle_d.make_cache(b, max_total, device=dev)
-    target_cache = bundle_t.make_cache(r_slots, max_total, device=dev)
-    prompt_t = torch.as_tensor(prompt_padded, dtype=torch.long).to(dev)
-    width = prompt_t.shape[1]
-    row_tokens = torch.zeros((r_slots, max_total), dtype=torch.long, device=dev)
-    row_tokens[:, :width] = prompt_t
-    rows_host = np.zeros((r_slots, max_total), np.int64)
-    rows_host[:, :width] = prompt_padded[0]
-    _, draft_cache = bundle_d.forward(params_d, bundle_d.cfg, prompt_t.expand(b, width),
-                                      draft_cache)
-    _, target_cache = bundle_t.forward(params_t, bundle_t.cfg, prompt_t.expand(r_slots, width),
-                                       target_cache, tp_mesh=tp_mesh)
-    state = TreeState(
-        row_tokens=row_tokens, rows_host=rows_host, cur_len=p_len, draft_cache=draft_cache,
-        target_cache=target_cache, beam_scores=torch.zeros((b,), dtype=torch.float32, device=dev),
-        scores_host=np.zeros((r_slots,), np.float32), alive=np.ones((r_slots,), bool),
-        best_tokens=np.zeros((max_total,), np.int64), key=device_loop.stream_key(gen, dev))
-    total = p_len + max_new_tokens
-    while state.cur_len < total and not state.done:
-        state = _tree_step(
-            state, mode, bundle_d, params_d, bundle_t, params_t, scfg, gamma=gamma,
-            num_beams=num_beams, r_slots=r_slots, expect_thres=float(expect_thres),
-            min_num_beams=int(min_num_beams), eos_token_id=eos_token_id, prompt_len=p_len,
-            generator=gen)
+    st = device_loop.run(
+        ("beam_" + mode, bundle_d, bundle_t, gamma, b, r_slots, min_num_beams, expect_thres,
+         max_total, max_new_tokens, scfg, eos_token_id),
+        (params_d, params_t),
+        functools.partial(_tree_state, bundle_d, bundle_t, b, r_slots, gamma, max_total,
+                          max_new_tokens, dev),
+        functools.partial(_tree_start, bundle_d, pd, bundle_t, pt, prompt_t, p_len, total, key,
+                          tp_mesh),
+        functools.partial(_tree_step, mode, bundle_d, pd, bundle_t, pt, scfg, gamma, b, r_slots,
+                          expect_thres, min_num_beams, eos_token_id),
+        max_new_tokens, replay=dev.type == "cuda" and tp_mesh is None)
 
     # the final candidates: surviving rows by normalized score (:536-548)
-    norm = state.scores_host / np.float32(max(state.cur_len - p_len, 1))
-    norm = np.where(state.alive, norm, np.float32(_NEG)).astype(np.float32)
-    fb = int(np.argmax(norm))
-    if norm[fb] > state.best_score:
-        state.best_tokens, state.best_len = state.rows_host[fb], state.cur_len
+    cur_len = st.cur_len.long()
+    norm = st.beam_scores[:r_slots] / (cur_len - p_len).clamp(min=1).float()
+    norm = torch.where(st.alive, norm, torch.full_like(norm, _NEG))
+    fb = torch.argmax(norm).reshape(1)
+    improved = norm.index_select(0, fb)[0] > st.best_score
+    best_tokens = torch.where(improved, st.row_tokens.index_select(0, fb)[0], st.best_tokens)
+    best_len = torch.where(improved, cur_len, st.best_len.long())
+    n_out, steps, accepted, rate_cnt = torch.stack(
+        [best_len, st.steps.long(), st.accepted.long(), st.rate_cnt.long()]).tolist()
+    out = best_tokens[:n_out].cpu().numpy().astype("int32")
     synchronize(dev)
     wall = time.perf_counter() - t0
-    out = state.best_tokens[:state.best_len].astype("int32")
     if not details:
         return out
-    steps = state.steps
-    eh2d = np.asarray(state.expect_hist, np.int64).reshape(steps, gamma)
-    acc_list = list(state.acc_len_hist)
+    acc_list = st.acc_len_hist[:steps].tolist()
+    eh2d = st.expect_hist[:steps].cpu().numpy().astype("int64")
     # reference num_beams_list: acc_cnt per advanced level (== expect_cnt
     # there) + extra_sample_cnt (v2) / num_beams (v1) on the failing level;
     # v1 reports num_beams per level, as the JAX engine does
     nbl = []
-    for st in range(steps):
-        lvl = acc_list[st]
+    for s in range(steps):
+        lvl = acc_list[s]
         if mode == "v2":
-            nbl += [int(x) for x in eh2d[st][:lvl]]
-            if lvl < gamma and int((eh2d[st] >= 0).sum()) > lvl:
+            nbl += [int(x) for x in eh2d[s][:lvl]]
+            if lvl < gamma and int((eh2d[s] >= 0).sum()) > lvl:
                 nbl.append(int(r_slots))
         else:
             nbl += [int(num_beams)] * (lvl + (lvl < gamma))
@@ -663,8 +767,8 @@ def _run_tree(mode, bundle_d, params_d, bundle_t, params_t, prompt, max_new_toke
     n_gen = max(len(out) - p_len, 0)
     d = {
         "total_time": wall,
-        "accepted_count": state.accepted,
-        "acc_rate": state.rate_sum / max(state.rate_cnt, 1),
+        "accepted_count": accepted,
+        "acc_rate": float(st.rate_sum) / max(rate_cnt, 1),
         "target_call_times": steps,
         "approx_call_times": steps,
         "acc_len": acc_list,
@@ -676,7 +780,7 @@ def _run_tree(mode, bundle_d, params_d, bundle_t, params_t, prompt, max_new_toke
         "tokens_per_s": n_gen / wall if wall > 0 else float("nan"),
     }
     fill_phase_split(
-        d, wall, steps, bundle_d, params_d, bundle_t, params_t,
+        d, wall, steps, bundle_d, pd, bundle_t, pt,
         draft_rows=num_beams, verify_rows=r_slots, gamma=gamma,
         verify_tokens=gamma * num_beams + 1, max_total=max_total, device=dev,
     )

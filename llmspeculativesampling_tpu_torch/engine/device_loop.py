@@ -1,12 +1,15 @@
 """The device-resident generation loop of ``speculative_generate``,
 ``autoregressive_generate``, ``multi_speculative_generate`` (iid and beam),
-``mjsd_generate`` and ``random_width_beam_generate`` (counterpart of JAX's
-``_spec_generate_device``, ``_ar_generate_device``, ``_multi_device``,
-``_beam_spec_device`` and ``_random_beam_device``, whose
+``mjsd_generate``, ``random_width_beam_generate``,
+``beam_speculative_generate``, ``beam_speculative_v2_generate`` and
+``bild_generate`` (counterpart of JAX's ``_spec_generate_device``,
+``_ar_generate_device``, ``_multi_device``, ``_beam_spec_device``,
+``_random_beam_device``, ``_beam_tree_device`` and ``_bild_device``, whose
 ``lax.while_loop`` runs the whole generation as one device program).
 
 A generation's state lives on the device (:class:`SpecState`,
-:class:`ARState`, :class:`WinnerState`, random beam's): every field is a
+:class:`ARState`, :class:`WinnerState`, random beam's, the tree engines'
+and BiLD's): every field is a
 static buffer that one step updates in place (``copy_``, ``scatter_``,
 ``add_``), so a step is a function of tensors only, with no host read. A
 step taken once the state is finished (``done``, or ``cur_len`` at its
@@ -59,13 +62,18 @@ import torch
 from ..ops.sampling import row_keys
 from .types import first_eos_truncate
 
-# spec, AR, multi, multi-beam, MJSD and random beam run in a row without
-# thrashing, with two to spare
-MAX_ENTRIES = 8
+# the nine kinds (spec, AR, multi, multi-beam, MJSD, random beam, beam v1,
+# beam v2, BiLD) run in a row without thrashing, with three to spare. An
+# entry holds its state and its graph's pool: 0.15-1.32 GiB on an H100 at
+# the 13B-int8 pair's tree settings (beam v1's, with its 4-row target cache,
+# the most), so twelve hold at most about 16 GiB of the card
+MAX_ENTRIES = 12
 _ENTRIES: "OrderedDict[tuple, _Entry]" = OrderedDict()
 _FORCE_EAGER = [0]
 # seconds of each capture, oldest first (chip_smoke.py and the profile read them)
 capture_seconds: list = []
+# the steps the last run called or replayed (its masked last replay included)
+last_steps = [0]
 
 
 @dataclasses.dataclass
@@ -271,7 +279,7 @@ def _counted():
 def graph_launches() -> list:
     """(kind, {wrapper: launches one replay makes}) of every captured step,
     least recently used first; ``kind`` is "spec", "ar", "multi", "beam",
-    "mjsd" or "random_beam"."""
+    "mjsd", "random_beam", "beam_v1", "beam_v2" or "bild"."""
     names = [f.__name__ for f in _counted()]
     return [(key[0], dict(zip(names, e.deltas))) for key, e in _ENTRIES.items()
             if e.graph is not None]
@@ -369,6 +377,7 @@ def _run_graph(entry: _Entry, step: Callable, max_steps: int) -> None:
             break
     else:
         raise RuntimeError(f"the generation did not finish within {max_steps} steps")
+    last_steps[0] = k + 1
     cur.synchronize()
 
 
@@ -388,13 +397,15 @@ def run(key, params: tuple, build: Callable, start: Callable, step: Callable, ma
         if not replay or _FORCE_EAGER[0]:
             st = build()
             start(st)
-            for _ in range(max_steps + 1):
+            for k in range(max_steps + 1):
                 if bool(st.stop):
+                    last_steps[0] = k
                     return st
                 step(st)
             raise RuntimeError(f"the generation did not finish within {max_steps} steps")
         entry = _entry(entry_key(key, params), param_leaves(*params), build)
         start(entry.state)
+        last_steps[0] = 0
         if max_steps > 0:
             _run_graph(entry, step, max_steps)
         return entry.state

@@ -50,7 +50,7 @@ def num_accept_distribution(alphas: torch.Tensor, m: int):
     first_acc = alphas * survival[:-1]  # first_acc[i-1] == F(i)
     # table[mm, k] = P(mm, k); row mm from rows mm-1 .. 0
     table = torch.zeros((m + 1, m + 1), dtype=torch.float32, device=alphas.device)
-    table[0, 0] = 1.0
+    table[0, 0].fill_(1.0)  # a Python scalar assigned by index is a host copy: no capture
     for mm in range(1, m + 1):
         prev = table[:mm, :m].flip(0)  # rows mm-1, ..., 0
         row = (first_acc[:mm, None] * prev).sum(dim=0)  # P(mm, k) for k = 1..m

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's tree/beam path, on one GPU.
 
-    python3 scripts/torch_profile_tree.py [--loops]
+    python3 scripts/torch_profile_tree.py [--loops [METHOD,...]]
 
 Builds the 13B-shaped int8 target and the 768-wide int8 draft on the card
 (seed 0) and, with chip_smoke.py's tree/beam settings (scripts/bench_beam.py
@@ -24,12 +24,18 @@ candidates, top_k 20, top_p 0.9), prints:
   beam at 4 beams): tok/s on the host clock (untraced, after a warm-up
   run), the device-busy time of a traced run of the same seed, and the
   device's idle share 1 - busy/wall;
-* the device loop beside the eager steps (``--loops`` prints only this):
-  multi iid, multi-beam, MJSD and random beam in the device loop (each step
-  a replayed CUDA graph, the default) and with the same step called eagerly
-  with one read a step (``device_loop.eager_steps``): for each of 5 seeds
-  the ms a step, tok/s, the device-busy ms a step from a trace of that seed
-  and the idle share 1 - busy/wall, with their medians and ranges.
+* the device loop beside the eager steps (``--loops`` prints only this;
+  a comma-separated list after it picks the methods): multi iid,
+  multi-beam, MJSD, random beam, beam v1, beam v2 and BiLD in the device
+  loop (each step a replayed CUDA graph, the default) and with the same
+  step called eagerly with one read a step (``device_loop.eager_steps``):
+  for each of 5 seeds the ms a step (a step: a verify, a random-beam token,
+  a BiLD macro-step of gamma decodes and a check; ``device_loop.last_steps``
+  counts them), tok/s, the device-busy ms
+  a step from a trace of that seed and the idle share 1 - busy/wall, with
+  their medians and ranges; for BiLD also the decodes a generation masked
+  (gamma a macro-step, less the live ones; the replayed run's masked last
+  macro-step included).
 
 All host-clock numbers are taken before the first trace. Every line carries
 the card's name and power limit. It imports nothing of JAX and nothing of
@@ -95,12 +101,17 @@ def prefix_setup(bundle, params, n):
     return lambda: prefix_logits(bundle, params, tokens, n, cache)
 
 
-def loop_rows(bd, pd, bt, pt, prompt, card, seeds=range(1, 6)) -> dict:
-    """The winner-row engines in the device loop and in eager steps: per
-    seed the host ms a step and tok/s (untraced), then per seed the
-    device-busy ms a step and the idle share from a trace of that seed."""
+BILD_GAMMA = 10
+
+
+def loop_rows(bd, pd, bt, pt, prompt, card, methods=None, seeds=range(1, 6)) -> dict:
+    """The device-loop engines (``methods``, default all) in the device loop
+    and in eager steps: per seed the host ms a step and tok/s (untraced),
+    then per seed the device-busy ms a step and the idle share from a trace
+    of that seed."""
     from llmspeculativesampling_tpu_torch import (
-        mjsd_generate, multi_speculative_generate, random_width_beam_generate)
+        beam_speculative_generate, beam_speculative_v2_generate, bild_generate, mjsd_generate,
+        multi_speculative_generate, random_width_beam_generate)
     from llmspeculativesampling_tpu_torch.engine import device_loop
 
     kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, details=True, device="cuda")
@@ -119,7 +130,16 @@ def loop_rows(bd, pd, bt, pt, prompt, card, seeds=range(1, 6)) -> dict:
         "random_beam": lambda k: random_width_beam_generate(bt, pt, prompt, NEW,
                                                             max_num_beams=BEAMS,
                                                             generator=gen(k), **kw),
+        "beam_v1": lambda k: beam_speculative_generate(bd, pd, bt, pt, prompt, NEW, gamma=GAMMA,
+                                                       num_beams=BEAMS, generator=gen(k), **kw),
+        "beam_v2": lambda k: beam_speculative_v2_generate(
+            bd, pd, bt, pt, prompt, NEW, gamma=GAMMA, num_beams=BEAMS, extra_sample_cnt=1,
+            expect_thres=0.7, generator=gen(k), **kw),
+        "bild": lambda k: bild_generate(bd, pd, bt, pt, prompt, NEW, gamma=BILD_GAMMA,
+                                        fallback_thres=0.6, rollback_thres=5.0, generator=gen(k),
+                                        **kw),
     }
+    runs = {name: run for name, run in runs.items() if not methods or name in methods}
     loops = {"device": contextlib.nullcontext, "host": device_loop.eager_steps}
     rows = {}
     for loop, ctx in loops.items():  # host-clock numbers first: a trace slows later launches
@@ -133,9 +153,13 @@ def loop_rows(bd, pd, bt, pt, prompt, card, seeds=range(1, 6)) -> dict:
                     _, d = run(k)
                     torch.cuda.synchronize()
                     wall = (time.perf_counter() - t0) * 1e3
-                    per.append(dict(seed=k, wall_ms=wall, steps=d["target_call_times"],
+                    # the steps it called; a replayed run also ran one masked last step
+                    n = device_loop.last_steps[0]
+                    per.append(dict(seed=k, wall_ms=wall, steps=n - (loop == "device"),
                                     tokens=d["tokens_generated"],
                                     tok_s=d["tokens_generated"] / wall * 1e3))
+                    if name == "bild":
+                        per[-1]["masked_decodes"] = n * BILD_GAMMA - d["approx_call_times"]
                 rows[f"{name}_{loop}"] = dict(runs=per)
     for loop, ctx in loops.items():
         with ctx():
@@ -160,6 +184,10 @@ def loop_rows(bd, pd, bt, pt, prompt, card, seeds=range(1, 6)) -> dict:
                     f"{r['busy_ms_per_step_median']:.3f}; idle share median "
                     f"{r['idle_share_median']:.3f} (min {min(idle):.3f}, max {max(idle):.3f}); "
                     f"steps {[x['steps'] for x in r['runs']]} ({card})")
+                if name == "bild":
+                    log(f"[loop] bild {loop} loop: decodes masked a generation "
+                        f"{[x['masked_decodes'] for x in r['runs']]} of {BILD_GAMMA} a "
+                        f"macro-step ({card})")
     return rows
 
 
@@ -181,7 +209,10 @@ def main() -> int:
     pd, pt = unstack_layers(pd), unstack_layers(pt)
     prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
     if "--loops" in sys.argv[1:]:
-        print(json.dumps({"card": card, "loops": loop_rows(bd, pd, bt, pt, prompt, card)}))
+        i = sys.argv.index("--loops")
+        methods = sys.argv[i + 1].split(",") if len(sys.argv) > i + 1 else None
+        print(json.dumps({"card": card, "loops": loop_rows(bd, pd, bt, pt, prompt, card,
+                                                           methods)}))
         return 0
     tokens = GAMMA * BEAMS + 1
     forwards = {

@@ -153,16 +153,17 @@ def _snapshot(st) -> dict:
     return snap
 
 
-def _run_then_step_more(build, start, step, extra: int = 3):
+def _run_then_step_more(build, start, step, extra: int = 3, snapshot=None):
+    snapshot = snapshot or _snapshot
     with torch.no_grad():
         st = build()
         start(st)
         while not bool(st.stop):
             step(st)
-        before = _snapshot(st)
+        before = snapshot(st)
         for _ in range(extra):
             step(st)
-    after = _snapshot(st)
+    after = snapshot(st)
     for k, v in before.items():
         assert torch.equal(after[k], v), k
     return st
