@@ -127,6 +127,12 @@ Phases, each printing lines before the last:
      HTTP; tok/s, TTFT, chunks and host ms a chunk beside the paged uniform
      mix; acc_rate >= 0.6, B1 and B2 launched and B3 not; then 8 requests
      as a burst and one at a time, whose ids must be equal;
+     then the serving pipeline: the paged uniform mix and the slotted mix
+     (25 x (64, 64)) each as the pipelined ``run_until_idle`` over
+     replayed steps and as a synchronous ``step()`` loop of eager steps,
+     untraced and traced: every request's ids, acc_len and counts equal
+     across the four; tok/s, idle share, the host gap between dispatches,
+     masked steps a chunk and the harvests the device stayed busy across;
   6. tree/beam path: the same pair through multi iid (width 4), beam v1 and
      beam v2 (4 beams) with ``scripts/bench_beam.py --thirteen_b``'s
      settings (gamma 4, 64 new tokens); B2 must serve every tree verify,
@@ -138,7 +144,11 @@ Phases, each printing lines before the last:
      speculative v2 and random-width beam (4 beams); B2 must serve every
      target forward but v2's, and never run in v2 (each v2 forward
      recomputes the whole prefix); v2's acc_rate must reach 0.6, and MJSD
-     must accept every draft at accept_thres 0 and none at 1.5.
+     must accept every draft at accept_thres 0 and none at 1.5. Then spec
+     v2's device loop: the capture of its step timed, a replay launching
+     exactly B1 4 x 15 + 281 = 341 and no B2 or B3, and for 3 seeds the
+     replayed run equal to an eager one, ids and details, with ms a step,
+     tok/s and the idle share of a traced replayed run.
   8. the OPT path, after the Llama pair is freed: the OPT-13B int8 target
      + 640-wide draft (``synthetic_opt_pair_int8_small_draft``, tied bf16
      heads) with ``scripts/bench_opt13b.py``'s settings: AR and speculative
@@ -196,8 +206,9 @@ Phases, each printing lines before the last:
      verify, under "harness", and B1 and B2 at the trained pair's verify,
      under "trained_pair", and all three at one tp=2 rank's shapes, under
      "tp", and at one dp=2 rank's, under "dp"; ``launches_by_path`` has the
-     device loop's replayed runs under "device_loop"), the card line again, and as
-     the last
+     device loop's replayed runs under "device_loop", spec v2's under
+     "v2_loop" and the pipelined serving runs' under "serving_pipeline"),
+     the card line again, and as the last
      line ``{"ok": true, "device": {...}}``. Each phase prints its seconds.
 Any failed check raises: the script exits non-zero and prints no result.
 It imports nothing of JAX and nothing of the JAX package.
@@ -2963,6 +2974,108 @@ def phase_algorithms(results, reps: int, pair):
     results["launches"]["algorithms"] = total_launches
 
 
+
+def _traced(fn):
+    """(fn's result, wall s, device-busy s) of one call under
+    ``torch.profiler`` (CUPTI, device activity only): busy is the sum of the
+    device events' durations (one stream, so they do not overlap), read
+    from the raw trace without building the profiler's event tree; the wall
+    runs from the call to a synchronize after it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e9
+    return out, wall, busy
+
+
+def phase_v2_loop(results, reps: int, pair):
+    """Spec v2's device loop (``engine/speculative_v2.py`` on
+    ``device_loop.run``) on the 13B-int8 pair at the algorithms phase's
+    settings (64-token prompt, 64 new tokens, gamma 4, top_k 20, top_p
+    0.9): the capture of one step timed, its launches a replay (B1 exactly
+    gamma x 15 draft + 281 target = 341, B2 and B3 none: every forward
+    covers the whole 256-position buffer), then for ``reps`` seeds the
+    replayed run equal to an eager run of the same step
+    (``device_loop.eager_steps``), ids and details, with ms a step, tok/s
+    and the idle share of a traced replayed run; acc_rate >= 0.6. Launches
+    counted under "v2_loop": the replayed runs'."""
+    from llmspeculativesampling_tpu_torch import speculative_generate_v2
+    from llmspeculativesampling_tpu_torch.engine import device_loop
+
+    card = card_line()
+    bd, pd, bt, pt = pair
+    prompt = list(np.random.default_rng(0).integers(100, 31000, 64))
+    kw = dict(eos_token_id=2, temperature=1.0, top_k=20, top_p=0.9, details=True, device="cuda")
+    g, new = TREE_GAMMA, TREE_NEW
+    keys = ("acc_len", "acc_rate", "accepted_count", "target_call_times", "tokens_generated")
+
+    def run(k):
+        return speculative_generate_v2(bd, pd, bt, pt, prompt, new, gamma=g,
+                                       generator=torch.Generator(device="cuda").manual_seed(k), **kw)
+
+    device_loop.release_graphs()  # the algorithms phase captured this step already
+    n_cap = len(device_loop.capture_seconds)
+    run(0)  # the first step eager, then the capture
+    cap = device_loop.capture_seconds[n_cap:]
+    per_replay = [c for kind, c in device_loop.graph_launches() if kind == "spec_v2"][-1]
+    want_b1 = g * (bd.cfg.num_layers * 7 + 1) + bt.cfg.num_layers * 7 + 1
+    log(f"[v2_loop] capture of one step {cap[0]:.3f} s; launches a replay {per_replay} "
+        f"(B1 expected {want_b1}) ({card})")
+    if (len(cap) != 1 or per_replay["int8_matmul"] != want_b1
+            or per_replay["flash_decode_attention"] or per_replay["paged_flash_decode_attention"]):
+        raise AssertionError(f"v2_loop: one capture with B1 {want_b1} and no B2/B3 a replay, got "
+                             f"{len(cap)} captures, {per_replay}")
+    totals = dict.fromkeys(_counters(), 0)
+    rows = []
+    for k in range(1, reps + 1):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, d = run(k)
+        wall = time.perf_counter() - t0
+        for name, v in read_launches().items():
+            totals[name] += v
+        with device_loop.eager_steps():
+            t0 = time.perf_counter()
+            out_e, d_e = run(k)
+            wall_e = time.perf_counter() - t0
+        diff = [x for x in keys if d[x] != d_e[x]]
+        if not np.array_equal(out, out_e) or diff:
+            raise AssertionError(f"v2_loop seed {k}: replay != eager (lengths {len(out)} / "
+                                 f"{len(out_e)}, details {diff})")
+        gen_ids = out[64:]
+        if not (np.array_equal(out[:64], np.asarray(prompt)) and 1 <= len(gen_ids) <= new + g
+                and gen_ids.min() >= 0 and gen_ids.max() < VOCAB):
+            raise AssertionError(f"v2_loop: bad output of length {len(out)}")
+        (_, _), t_wall, busy = _traced(lambda: run(k))
+        steps = d["target_call_times"]
+        rows.append(dict(tokens=len(gen_ids), steps=steps, ms_step=wall * 1e3 / steps,
+                         eager_ms_step=wall_e * 1e3 / steps, tok_s=len(gen_ids) / wall,
+                         idle=1 - busy / t_wall, busy_ms_step=busy * 1e3 / steps,
+                         acc_rate=d["acc_rate"]))
+        r = rows[-1]
+        log(f"[v2_loop] seed {k}: {r['tokens']} tokens in {steps} steps, replay "
+            f"{r['ms_step']:.2f} ms a step ({r['tok_s']:.2f} tok/s) vs eager "
+            f"{r['eager_ms_step']:.2f}; traced replay: device busy {r['busy_ms_step']:.2f} ms a "
+            f"step, idle share {r['idle']:.3f}; acc_rate {r['acc_rate']:.4f}; ids and details "
+            f"equal ({card})")
+    acc = float(np.mean([r["acc_rate"] for r in rows]))
+    if acc < 0.6:
+        raise AssertionError(f"v2_loop: acceptance {acc:.3f} < 0.6")
+    if totals["int8_matmul"] <= 0 or totals["flash_decode"] or totals["paged_flash_decode"]:
+        raise AssertionError(f"v2_loop: launches {totals}")
+    log(f"[v2_loop] launches of the replayed runs: {totals}; acc_rate {acc:.4f}")
+    results["launches"]["v2_loop"] = totals
+    results["v2_loop"] = dict(capture_s=cap[0], per_replay=per_replay, runs=rows)
+
+
 # ---------------------------------------------------------------- phase 5
 def _workload(kind: str, rng):
     """scripts/bench_paged.py's mixes: (prompt_len, max_new) per request.
@@ -3520,9 +3633,9 @@ def _adaptive_run(pair, arms) -> dict:
         active.append(eng.num_active)
         in_ramp = eng._ep_phase == "ramp"
         pack = chunk()
-        gammas.append(eng._chunk_arm[0])
+        gammas.append(eng._chunk_log[-1][0])
         if arms and in_ramp:
-            ramp.append(eng._chunk_arm[0])
+            ramp.append(eng._chunk_log[-1][0])
         return pack
 
     eng._dispatch_chunk = dispatch_chunk
@@ -3801,6 +3914,159 @@ def _slotted_burst_trickle(engine, n_req: int = 8):
         f"ids ({sum(len(o) - 64 for o in burst)} generated tokens in the burst)")
     if diff:
         raise AssertionError(f"slotted burst vs trickle: requests {diff} depend on their admission")
+
+
+
+def _drain(engine, pipelined: bool) -> None:
+    """Serve everything queued: the pipelined ``run_until_idle`` (captured
+    steps replayed), or a synchronous ``step()`` loop of eager steps."""
+    from llmspeculativesampling_tpu_torch.engine import device_loop
+
+    if pipelined:
+        engine.run_until_idle()
+        return
+    with device_loop.eager_steps():
+        while engine._pending or engine.num_active:
+            engine.step()
+
+
+def _pipeline_pass(engine, submit, pipelined: bool, traced: bool) -> dict:
+    """One drain of the requests ``submit()`` queues (returning their
+    rids): the completions by rid, the wall, the device-busy share of a
+    traced drain, the chunks and masked steps, and the host gaps between
+    one chunk's dispatch returning and the next one's starting (the
+    harvest, admission and table upkeep between them; under the
+    synchronous loop also the wait for the chunk's end), and how many
+    harvests ended with work still queued on the card (the device busy
+    across the harvest)."""
+    gaps, ends, busy_after = [], [], []
+    chunk, harvest = engine._dispatch_chunk, engine._harvest
+
+    def dispatch():
+        t = time.perf_counter()
+        if ends:
+            gaps.append((t - ends[-1]) * 1e3)
+        out = chunk()
+        ends.append(time.perf_counter())
+        return out
+
+    def harvest_(*a):
+        out = harvest(*a)
+        busy_after.append(not torch.cuda.current_stream().query())  # work still queued
+        return out
+
+    engine._dispatch_chunk, engine._harvest = dispatch, harvest_
+    m0 = engine.masked_steps
+    rids = submit()
+    torch.cuda.synchronize()
+    if traced:
+        _, wall, busy = _traced(lambda: _drain(engine, pipelined))
+    else:
+        t0 = time.perf_counter()
+        _drain(engine, pipelined)
+        torch.cuda.synchronize()
+        wall, busy = time.perf_counter() - t0, float("nan")
+    del engine._dispatch_chunk, engine._harvest  # the class's methods again
+    comps = {rid: engine.result(rid) for rid in rids}
+    tokens = sum(len(c.output_ids) - c.prompt_len for c in comps.values())
+    return dict(comps=comps, wall=wall, tok_s=tokens / wall, tokens=tokens,
+                idle=1 - busy / wall, chunks=len(ends), masked=engine.masked_steps - m0,
+                gap_p50_ms=_pct(gaps, 50), gap_max_ms=max(gaps) if gaps else float("nan"),
+                busy_harvests=sum(busy_after), harvests=len(busy_after))
+
+
+def _same_completions(tag: str, a: dict, b: dict) -> None:
+    for rid, ca in a.items():
+        cb = b[rid]
+        if not np.array_equal(ca.output_ids, cb.output_ids) or any(
+                ca.details[k] != cb.details[k] for k in (
+                    "acc_len", "accepted_count", "resample_count", "target_sample_count",
+                    "target_call_times", "tokens_generated")):
+            raise AssertionError(f"{tag}: request {rid} differs between the pipelined and the "
+                                 "synchronous run")
+
+
+def phase_serving_pipeline(results, pair):
+    """The serving engines' one-deep pipeline over captured steps. The paged
+    uniform mix (``scripts/bench_paged.py --config 13b --kv_int8
+    --steps_per_sync 8``: 24 x (64, 48) over 16 rows, 32 int8 blocks of
+    128, gamma 8) and the slotted mix (16 slots x 256, int8 KV, gamma 8,
+    steps_per_sync 8, 25 x (64, 64)) each run as the pipelined
+    ``run_until_idle`` over replayed steps and as a synchronous ``step()``
+    loop of eager steps (``device_loop.eager_steps``), once untimed and
+    untraced for tok/s and once under ``torch.profiler`` for the idle
+    share: every request's ids, acc_len and counts equal across the four
+    (fixed gamma, overcommit 1.0, no chunked prefill: rows are independent
+    at a static M and admission prefills are batch-invariant); prints the
+    host gap between two dispatches and the masked steps a chunk.
+    Launches counted under "serving_pipeline": the pipelined untraced
+    runs' (B1 and B3 paged, B1 and B2 slotted)."""
+    from llmspeculativesampling_tpu_torch.engine import device_loop
+
+    card = card_line()
+    out, totals = {}, dict.fromkeys(_counters(), 0)
+    reqs, prompts = _mix_prompts("uniform")
+    paged = _serving_engine(pair, reqs)
+    for pl in sorted({pl for pl, _ in reqs}):  # warm-up: the capture of the gamma-8 step
+        paged.submit(np.random.default_rng(pl).integers(100, 31000, pl), 16)
+    paged.run_until_idle()
+    paged.completions.clear()
+
+    def submit_paged():
+        for i, (p, (_, mn)) in enumerate(zip(prompts, reqs)):
+            paged.submit_with_rid(i, p, mn)
+        return list(range(len(reqs)))
+
+    slotted = _slotted_engine(pair)
+    slotted.warmup(prompt_len=64)
+    rng = np.random.default_rng(0)
+    s_prompts = [rng.integers(100, 31000, 64).astype(np.int32) for _ in range(SLOT_N + 1)]
+
+    def submit_slotted():
+        slotted._next_rid = 0
+        return [slotted.submit(p, SLOT_NEW) for p in s_prompts]
+
+    engines = {"paged": (paged, submit_paged, ("int8_matmul", "paged_flash_decode"),
+                         "flash_decode", "serve_paged"),
+               "slotted": (slotted, submit_slotted, ("int8_matmul", "flash_decode"),
+                           "paged_flash_decode", "serve_slots")}
+    for name, (eng, submit, used, unused, kind) in engines.items():
+        runs = {}
+        for label, pipelined, traced in (("pipelined", True, False), ("sync", False, False),
+                                         ("pipelined traced", True, True),
+                                         ("sync traced", False, True)):
+            reset_launches()
+            runs[label] = _pipeline_pass(eng, submit, pipelined, traced)
+            launches = read_launches()
+            if label == "pipelined":
+                for k, v in launches.items():
+                    totals[k] += v
+                if any(launches[k] <= 0 for k in used) or launches[unused]:
+                    raise AssertionError(f"serving_pipeline {name}: launches {launches}")
+            _same_completions(f"serving_pipeline {name} {label}", runs["pipelined"]["comps"],
+                              runs[label]["comps"])
+        per_replay = [c for k, c in device_loop.graph_launches() if k == kind][-1]
+        acc = float(np.mean([c.details["acc_rate"] for c in runs["pipelined"]["comps"].values()]))
+        if acc < 0.6:
+            raise AssertionError(f"serving_pipeline {name}: acceptance {acc:.3f} < 0.6")
+        for label in ("pipelined", "sync"):
+            r, t = runs[label], runs[label + " traced"]
+            log(f"[serving_pipeline {name} {label}] {len(r['comps'])} requests, {r['tokens']} "
+                f"tokens in {r['wall']:.3f} s: {r['tok_s']:.2f} tok/s; {r['chunks']} chunks, "
+                f"masked steps a chunk {r['masked'] / max(r['chunks'], 1):.3f}, host gap between "
+                f"dispatches p50 {r['gap_p50_ms']:.2f} ms max {r['gap_max_ms']:.2f} ms, device "
+                f"busy at the end of {r['busy_harvests']} of {r['harvests']} harvests; traced: "
+                f"idle share {t['idle']:.3f}, {t['tok_s']:.2f} tok/s ({card})")
+        log(f"[serving_pipeline {name}] completions equal per request id across the four runs; "
+            f"acc_rate {acc:.4f}; launches a replayed step {per_replay}; pipelined/sync tok/s "
+            f"{runs['pipelined']['tok_s'] / runs['sync']['tok_s']:.3f}x")
+        out[name] = {label: {k: v for k, v in r.items() if k != "comps"}
+                     for label, r in runs.items()}
+        out[name]["per_replay"] = per_replay
+    del paged, slotted, engines
+    torch.cuda.empty_cache()
+    results["launches"]["serving_pipeline"] = totals
+    results["serving_pipeline"] = out
 
 
 def _tp_logits(bundle, params, pre, ver):
@@ -4592,12 +4858,12 @@ def main() -> int:
         timed(phase)
     pair = timed(build_pair)
     for phase in (phase_main_path, phase_device_loop, phase_winner_loops, phase_tree_loops,
-                  phase_tree_path, phase_algorithms):
+                  phase_tree_path, phase_algorithms, phase_v2_loop):
         timed(phase, results, REPS, pair)
     timed(phase_serving, results, pair)
     timed(phase_burst_trickle, results, pair)
     for phase in (phase_shared_prefix, phase_longgen, phase_hit_burst_trickle, phase_cold_mix,
-                  phase_adaptive, phase_slotted):
+                  phase_adaptive, phase_slotted, phase_serving_pipeline):
         timed(phase, results, pair)
     release_graphs()  # the entries free with the pair; this frees their caches first
     del pair

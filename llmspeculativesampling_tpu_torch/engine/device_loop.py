@@ -1,11 +1,14 @@
 """The device-resident generation loop of ``speculative_generate``,
-``autoregressive_generate``, ``multi_speculative_generate`` (iid and beam),
-``mjsd_generate``, ``random_width_beam_generate``,
-``beam_speculative_generate``, ``beam_speculative_v2_generate`` and
-``bild_generate`` (counterpart of JAX's ``_spec_generate_device``,
-``_ar_generate_device``, ``_multi_device``, ``_beam_spec_device``,
+``autoregressive_generate``, ``speculative_generate_v2``,
+``multi_speculative_generate`` (iid and beam), ``mjsd_generate``,
+``random_width_beam_generate``, ``beam_speculative_generate``,
+``beam_speculative_v2_generate`` and ``bild_generate`` (counterpart of
+JAX's ``_spec_generate_device``, ``_ar_generate_device``,
+``_spec_v2_device``, ``_multi_device``, ``_beam_spec_device``,
 ``_random_beam_device``, ``_beam_tree_device`` and ``_bild_device``, whose
-``lax.while_loop`` runs the whole generation as one device program).
+``lax.while_loop`` runs the whole generation as one device program), and
+the captured step of the serving engines' chunks (:func:`serve_chunk`, the
+counterpart of the ``lax.while_loop`` inside JAX's serving chunks).
 
 A generation's state lives on the device (:class:`SpecState`,
 :class:`ARState`, :class:`WinnerState`, random beam's, the tree engines'
@@ -29,6 +32,15 @@ written as masking, because a replayed graph cannot skip itself.
   replay k+1, then waits on an event for step k's flag, copied into pinned
   memory, so at most one masked step is spent a generation. A capture that
   fails raises; nothing falls back to the eager loop.
+
+:func:`serve_chunk` drives a serving engine's chunk the same way over the
+engine's own static state: up to ``steps_per_sync`` replays of one captured
+step, each writing a device ``live`` flag (some row active and not done)
+that the host reads one step behind, so a chunk whose rows have all
+finished spends at most one masked step, and the last step stays in flight
+when the call returns (the engines' one-deep pipeline harvests the
+previous chunk meanwhile). Its entries are keyed on the identities of the
+state's buffers and the param leaves, and dropped when either is collected.
 
 The prompt's prefill stays eager (its length varies) and writes into the
 entry's static caches. An entry is keyed on the identities of the param
@@ -62,18 +74,21 @@ import torch
 from ..ops.sampling import row_keys
 from .types import first_eos_truncate
 
-# the nine kinds (spec, AR, multi, multi-beam, MJSD, random beam, beam v1,
-# beam v2, BiLD) run in a row without thrashing, with three to spare. An
-# entry holds its state and its graph's pool: 0.15-1.32 GiB on an H100 at
-# the 13B-int8 pair's tree settings (beam v1's, with its 4-row target cache,
-# the most), so twelve hold at most about 16 GiB of the card
-MAX_ENTRIES = 12
+# the ten generation kinds (spec, AR, spec v2, multi, multi-beam, MJSD,
+# random beam, beam v1, beam v2, BiLD) run in a row without thrashing, with
+# room for a serving engine's captured chunk steps (one per gamma arm and
+# prefill width). A generation's entry holds its state and its graph's pool:
+# 0.15-1.32 GiB on an H100 at the 13B-int8 pair's tree settings (beam v1's,
+# with its 4-row target cache, the most); a serving entry its pool only
+MAX_ENTRIES = 16
 _ENTRIES: "OrderedDict[tuple, _Entry]" = OrderedDict()
 _FORCE_EAGER = [0]
 # seconds of each capture, oldest first (chip_smoke.py and the profile read them)
 capture_seconds: list = []
 # the steps the last run called or replayed (its masked last replay included)
 last_steps = [0]
+# the last serving chunk's (steps called, masked steps): serve_chunk's
+last_chunk = [0, 0]
 
 
 @dataclasses.dataclass
@@ -218,8 +233,9 @@ class _Entry:
     refs: tuple = ()            # what else the graph points into: B2's counters
     graph: Optional[torch.cuda.CUDAGraph] = None
     deltas: tuple = ()          # launches a replay makes, per counted wrapper
-    flags: Optional[torch.Tensor] = None    # [2] pinned host copies of ``stop``
+    flags: Optional[torch.Tensor] = None    # [2] pinned host copies of ``stop`` / ``live``
     events: tuple = ()
+    live: Optional[torch.Tensor] = None     # [] bool a serving step writes
 
 
 def scalar(value, dtype, device) -> torch.Tensor:
@@ -278,8 +294,9 @@ def _counted():
 
 def graph_launches() -> list:
     """(kind, {wrapper: launches one replay makes}) of every captured step,
-    least recently used first; ``kind`` is "spec", "ar", "multi", "beam",
-    "mjsd", "random_beam", "beam_v1", "beam_v2" or "bild"."""
+    least recently used first; ``kind`` is "spec", "ar", "spec_v2", "multi",
+    "beam", "mjsd", "random_beam", "beam_v1", "beam_v2" or "bild", or a
+    serving engine's "serve_slots" or "serve_paged"."""
     names = [f.__name__ for f in _counted()]
     return [(key[0], dict(zip(names, e.deltas))) for key, e in _ENTRIES.items()
             if e.graph is not None]
@@ -326,25 +343,41 @@ def _entry(key, leaves: list, build: Callable) -> _Entry:
     return entry
 
 
-def _capture(entry: _Entry, step: Callable) -> None:
+def _capture(entry: _Entry, fn: Callable, dev) -> None:
+    """Capture ``fn()`` into the entry's graph (it launches nothing) and
+    record the launches a replay makes, per counted wrapper."""
     from ..kernels import flash_decode
 
-    st = entry.state
-    dev = st.stop.device
     fns = _counted()
     before = [f.launches for f in fns]
     graph = torch.cuda.CUDAGraph()
     t0 = time.perf_counter()
     with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        step(st)
+        fn()
     capture_seconds.append(time.perf_counter() - t0)
     entry.deltas = tuple(f.launches - b for f, b in zip(fns, before))
     for f, b in zip(fns, before):  # the capture launched nothing
         f.launches = b
     entry.graph = graph
     entry.refs = (flash_decode._COUNTERS.get(dev),)
-    entry.flags = torch.zeros(2, dtype=torch.bool, pin_memory=True)
-    entry.events = (torch.cuda.Event(), torch.cuda.Event())
+
+
+def _first_then_capture(entry: _Entry, fn: Callable, dev) -> None:
+    """A new entry's first step: ``fn()`` eagerly on a side stream (it is a
+    real step), then its capture."""
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        fn()
+    cur.wait_stream(side)
+    _capture(entry, fn, dev)
+
+
+def _host_flags(entry: _Entry) -> None:
+    if entry.flags is None:
+        entry.flags = torch.zeros(2, dtype=torch.bool, pin_memory=True)
+        entry.events = (torch.cuda.Event(), torch.cuda.Event())
 
 
 def _replay(entry: _Entry) -> None:
@@ -355,14 +388,11 @@ def _replay(entry: _Entry) -> None:
 
 def _run_graph(entry: _Entry, step: Callable, max_steps: int) -> None:
     st = entry.state
-    cur = torch.cuda.current_stream(st.stop.device)
+    dev = st.stop.device
+    cur = torch.cuda.current_stream(dev)
+    _host_flags(entry)
     if entry.graph is None:
-        side = torch.cuda.Stream(st.stop.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            step(st)  # the real first step, eager
-        cur.wait_stream(side)
-        _capture(entry, step)
+        _first_then_capture(entry, functools.partial(step, st), dev)
     else:
         _replay(entry)
     flags, events = entry.flags, entry.events
@@ -409,3 +439,58 @@ def run(key, params: tuple, build: Callable, start: Callable, step: Callable, ma
         if max_steps > 0:
             _run_graph(entry, step, max_steps)
         return entry.state
+
+
+def serve_chunk(key, leaves: list, step: Callable, live: Callable, n_steps: int,
+                replay: bool) -> tuple:
+    """Up to ``n_steps`` calls of ``step()``, a serving engine's batched
+    step over its static state (in place, a no-op on rows not live), while
+    ``live()`` (a device bool: some row active and not done) holds before
+    the call. Returns (steps called, masked steps).
+
+    ``replay`` (CUDA tensors, no collective): the step and the flag's
+    update are captured once under ``key`` and the identities of
+    ``leaves`` (the param leaves and the state's buffers), and replayed;
+    the host reads the flag one step behind, so the chunk ends after at
+    most one masked step, and the call returns with its last step still
+    in flight. Otherwise, or inside :func:`eager_steps`, ``live()`` is
+    read before each step and no step is masked. The counts also land in
+    :data:`last_chunk`."""
+    last_chunk[:] = _serve_chunk(key, leaves, step, live, n_steps, replay)
+    return tuple(last_chunk)
+
+
+def _serve_chunk(key, leaves, step, live, n_steps, replay):
+    with torch.no_grad():
+        if not replay or _FORCE_EAGER[0]:
+            for k in range(n_steps):
+                if not bool(live()):
+                    return k, 0
+                step()
+            return n_steps, 0
+        entry = _entry(tuple(key) + tuple(id(t) for t in leaves), leaves, lambda: None)
+        dev = leaves[0].device
+        if entry.live is None:
+            entry.live = torch.zeros((), dtype=torch.bool, device=dev)
+        _host_flags(entry)
+        flag, flags, events = entry.live, entry.flags, entry.events
+
+        def body():
+            step()
+            flag.copy_(live())
+
+        cur = torch.cuda.current_stream(dev)
+        flag.copy_(live())  # admission and harvest changed the rows since the last step
+        flags[0].copy_(flag, non_blocking=True)
+        events[0].record(cur)
+        for k in range(1, n_steps + 1):
+            if entry.graph is None:
+                _first_then_capture(entry, body, dev)
+            else:
+                _replay(entry)
+            flags[k % 2].copy_(flag, non_blocking=True)
+            events[k % 2].record(cur)
+            events[(k - 1) % 2].synchronize()
+            if not bool(flags[(k - 1) % 2]):
+                return k, 1
+        return n_steps, 0

@@ -157,7 +157,8 @@ def attention_mask(length, s_new: int, s_max: int, tree_mask: Optional[torch.Ten
     ``length`` is an int (every row) or a per-row [B] tensor."""
     kv_pos = torch.arange(s_max, device=device)[None, None, :]
     q_idx = torch.arange(s_new, device=device)[None, :, None]
-    length = torch.as_tensor(length, device=device).reshape(-1, 1, 1)
+    if isinstance(length, torch.Tensor):  # a host int stays one: no copy to the card
+        length = length.to(device).reshape(-1, 1, 1)
     prefix_vis = kv_pos < length
     in_block = (kv_pos >= length) & (kv_pos < length + s_new)
     if tree_mask is None:

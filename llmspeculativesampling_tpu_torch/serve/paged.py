@@ -13,6 +13,19 @@ outputs whatever the arrival order or the release cadence.
 A request is admitted when a row and its pages are free, prefilled in one
 batched forward per model, decoded in ``steps_per_sync``-step chunks with
 one packed metadata read per chunk, and harvested (pages freed) when done.
+A chunk is one captured step replayed on the card
+(``serve/batched.py::run_chunk``; one graph per gamma arm and
+``prefill_extra``) until a device flag says no row is live, read one step
+behind. ``run_until_idle`` is JAX's one-deep pipeline: chunk k+1 is
+dispatched before chunk k's metadata (copied into pinned memory behind it)
+is read, and the host's view of each row (length, done) lags the device by
+up to two chunks: the tables' runway covers two chunks, and every harvest,
+preemption resume and prefix registration is gated on the row's occupancy
+generation (``_row_gen``), so late metadata never touches a row's next
+occupant. ``step()`` reads its own chunk at once (the server and the
+lockstep drivers drive it). Host-to-device copies leave pinned memory
+without blocking, so nothing between a dispatch and the previous chunk's
+harvest waits for the card.
 
 * **On-demand paging** (``on_demand=True``, the default, as in JAX):
   admission reserves the prompt's pages plus a two-chunk runway,
@@ -62,22 +75,20 @@ shard's youngest. Adaptive gamma reads rank 0's clock on every rank
 (``rank0_clock``: one broadcast a chunk), so the ranks pick the same arm.
 
 Differences from the JAX engine that do not change what it computes:
-  * the host loop runs eagerly: a chunk ends early when no row is live by
-    one small device read (``live.any()``) per step, where JAX exits its
-    ``while_loop`` on the device, and each chunk's packed metadata is read
-    synchronously, where JAX overlaps the read with the next chunk: the
-    host's view of each row is current when it grows tables or preempts;
   * an admission batch is not padded to a power of two (nothing is
     compiled per shape), so no padding row exists;
   * dead rows, unused table slots, an extend window's padding and the rows
     it has exhausted write into the pools' trash block (``cache/paged.py``)
     where JAX drops the write;
-  * TTFT is stamped once the admission prefill (or the extend) has
-    finished on the device; a staged row's when the host sees its prefill
-    complete, as in JAX;
+  * TTFT is the time the admission prefill (or the extend) finished on
+    the device, read from an event recorded behind it at the first harvest
+    that finds it complete (no host synchronize), where JAX stamps the
+    dispatch; a staged row's when the host sees its prefill complete, as in
+    JAX;
   * the adaptive-gamma controller's chunk wall is the gap between two
-    harvests while chunks run back to back (JAX: between two fetches of
-    its one-deep pipeline);
+    metadata fetches, as in JAX's pipeline, under ``step()`` too (JAX's
+    ``step()`` measures none: its log of unread chunks is empty at every
+    dispatch);
   * a completion's ``acc_rate`` divides by the drafts the row made (each
     chunk's steps times that chunk's gamma), where JAX takes the current
     gamma for all of them: the same under a fixed gamma.
@@ -99,12 +110,13 @@ from ..cache.paged import (
     init_paged_cache,
     prompt_page_hashes,
 )
-from ..core.config import resolve_device, synchronize
+from ..core.config import resolve_device
+from ..engine import device_loop
 from ..engine.speculative import draft_phase_batched, verify_phase_batched
 from ..engine.types import ModelBundle, first_eos_truncate, pad_prompt
 from ..models.llama import unstack_layers
 from ..ops.sampling import SamplingConfig, dist_map, row_keys
-from ..parallel.distributed import host_fetch, rank0_clock
+from ..parallel.distributed import rank0_clock
 from ..parallel.sharding import (
     DP_AXIS,
     local_heads,
@@ -113,7 +125,17 @@ from ..parallel.sharding import (
     shard_for,
     shard_paged_state,
 )
-from .batched import BatchState, accept_rows, admit_rows, commit_rows, run_steps
+from .batched import (
+    BatchState,
+    DeviceClock,
+    MetaCopies,
+    accept_rows,
+    admit_rows,
+    commit_rows,
+    run_chunk,
+    stamp_prefills,
+    to_device,
+)
 from .scheduler import Completion, Request
 
 
@@ -139,8 +161,9 @@ def _gate(cache, ok: torch.Tensor):
 
 def _paged_spec_step(bundle_d, bundle_t, params_d, params_t, scfg, gamma, eos_token_id,
                      state: PagedBatchState, prefill_extra: int = 0) -> PagedBatchState:
-    """One speculative step of every row. Dead rows (inactive or done) run
-    through the batched forwards too; their tables are gated to the
+    """One speculative step of every row, in place (a function of tensors
+    only: the captured serving step); returns ``state``. Dead rows
+    (inactive or done) run through the batched forwards too; their tables are gated to the
     sentinel for the step, so they cannot write into pages a live row owns
     (a harvested row's table still names freed blocks), and every field of
     theirs keeps its value.
@@ -164,8 +187,6 @@ def _paged_spec_step(bundle_d, bundle_t, params_d, params_t, scfg, gamma, eos_to
     if prefill_extra:
         p_stack = dist_map(lambda a: a[:, :gamma + 1], p_stack)
     # the gates are per-step views: the carried caches keep the real tables
-    draft_cache = dataclasses.replace(draft_cache, block_tables=state.draft_cache.block_tables)
-    target_cache = dataclasses.replace(target_cache, block_tables=state.target_cache.block_tables)
 
     tokens3, new_len, n, all_acc, acc_step, keys = accept_rows(
         gamma, tokens2, cur_len, q_stack, drafts, p_stack, keys)
@@ -173,21 +194,25 @@ def _paged_spec_step(bundle_d, bundle_t, params_d, params_t, scfg, gamma, eos_to
                                                     state.prefill_to), new_len)
     tokens3 = torch.where(prefilling[:, None], tokens, tokens3)
     keys = torch.where(prefilling[:, None], state.key, keys)
-    return commit_rows(state, tokens3, new_len, n, all_acc, acc_step, keys, eos_token_id, live,
-                       live & ~prefilling, draft_cache=draft_cache, target_cache=target_cache)
+    commit_rows(state, tokens3, new_len, n, all_acc, acc_step, keys, eos_token_id, live,
+                live & ~prefilling, draft_cache.lengths, target_cache.lengths)
+    return state
 
 
 def _paged_chunk_body(params_d, params_t, state: PagedBatchState, *, bundle_d, bundle_t,
                       gamma: int, scfg: SamplingConfig, eos_token_id: int, n_steps: int,
-                      prefill_extra: int = 0):
-    """Up to ``n_steps`` steps; the chunk ends early once no row is live,
-    read with one small device read (``live.any()``) before each step.
-    Returns (state, packed metadata), the metadata with the chunk's
-    accepted-token and step deltas, which feed the adaptive-gamma
+                      prefill_extra: int = 0, replay: bool = False):
+    """Up to ``n_steps`` steps, ending once no row is live
+    (``serve/batched.py::run_chunk``: on the card one captured step per
+    gamma and ``prefill_extra``, replayed with the device flag read one
+    step behind). Returns (state, packed metadata), the metadata with the
+    chunk's accepted-token and step deltas, which feed the adaptive-gamma
     controller."""
     a0, s0 = state.accepted.sum(), state.steps.sum()
-    state = run_steps(state, n_steps, lambda st: _paged_spec_step(
-        bundle_d, bundle_t, params_d, params_t, scfg, gamma, eos_token_id, st, prefill_extra))
+    run_chunk(("serve_paged", bundle_d, bundle_t, gamma, prefill_extra, scfg, eos_token_id),
+              (params_d, params_t), state,
+              lambda st: _paged_spec_step(bundle_d, bundle_t, params_d, params_t, scfg, gamma,
+                                          eos_token_id, st, prefill_extra), n_steps, replay)
     return state, _pack_chunk_meta(state, state.accepted.sum() - a0, state.steps.sum() - s0)
 
 
@@ -234,7 +259,7 @@ def _admit_tables(state: PagedBatchState, rows, tables) -> None:
     """Install admitted rows' block tables and zero their lengths, in place."""
     for cache in (state.draft_cache, state.target_cache):
         cache.block_tables[rows] = tables
-        cache.lengths[rows] = 0
+        cache.lengths.index_fill_(0, rows, 0)
 
 
 def _install_state(state: PagedBatchState, rows, prompts, p_lens, max_news, keys,
@@ -420,7 +445,8 @@ class PagedEngine:
         self._arm_rate: dict = {}   # gamma -> EMA committed tokens/s of its chunks
         self._arm_visits: dict = {}
         self._chunk_count = 0
-        self._chunk_arm = (gamma, 1)  # the running chunk's (gamma, live rows)
+        # (gamma, live rows) of each dispatched chunk whose metadata is unread
+        self._chunk_log: collections.deque = collections.deque()
         self._last_fetch_t: Optional[float] = None
         self._ep_rate: dict = {}    # gamma -> EMA completed tok/s of its epochs
         self._ep_size = max(batch_rows, 4)
@@ -478,19 +504,28 @@ class PagedEngine:
         self._pending: collections.deque[Request] = collections.deque()
         self._row_req: list[Optional[Request]] = [None] * b
         self._row_blocks: list[Optional[list]] = [None] * b
+        # occupancy generation per row (admission and preemption bump it):
+        # metadata of a chunk dispatched under an earlier occupancy never
+        # updates, harvests or resumes the current one
+        self._row_gen: list[int] = [0] * b
         self.completions: dict[int, Completion] = {}
-        # on-demand paging: the host's view of each row's length (the last
-        # chunk's), the worst-case pages each row and all rows commit, rows
-        # admitted since the last chunk's snapshot, rows to deactivate and
-        # whether the device's tables are behind the host's
+        # on-demand paging: the host's view of each row's length and done
+        # flag (the last harvest's, up to two chunks behind the device under
+        # the pipeline), the worst-case pages each row and all rows commit,
+        # rows to deactivate and whether the device's tables are behind the
+        # host's
         self._row_len: list[int] = [0] * b
+        self._row_done: list[bool] = [False] * b
         self._row_commit: list[int] = [0] * b
         self._commit_pages = [0] * self.dp  # per shard
-        self._unharvested: set = set()
         self._deact_rows: set = set()
         self._tables_dirty = False
         self._last_harvest: Optional[dict] = None
+        self._last_harvest_gens: Optional[tuple] = None  # the generations it was read under
         self.preemptions = 0
+        self.masked_steps = 0  # chunk steps that found no live row
+        self._meta = MetaCopies(self.device, mesh)
+        self._clock_dev = DeviceClock(self.device)
         # each row's steps at the last harvest and the drafts it made since
         # admission (steps times each chunk's gamma): acc_rate's denominator
         self._row_steps: list[int] = [0] * b
@@ -708,7 +743,7 @@ class PagedEngine:
             # staging protects decoding rows from a prompt forward's stall;
             # with none decoding, the monolithic prefill is faster
             decoding = any(r is not None and self._row_len[row] >= len(r.prompt)
-                           for row, r in enumerate(self._row_req))
+                           and not self._row_done[row] for row, r in enumerate(self._row_req))
             inline, staged = [], []
             for e in batch:
                 stage = (self.chunked_prefill and decoding
@@ -722,10 +757,10 @@ class PagedEngine:
                 self._dispatch_extend(hits)
             if staged:
                 self._stage_admission(staged)
-            now = time.perf_counter()
+            mark = self._clock_dev.mark()  # behind the prefills and the extend windows
             for e in inline:
-                if e.req.prefill_time is None:  # a resumed request keeps its TTFT
-                    e.req.prefill_time = now
+                if e.req.prefill_time is None and e.req.prefill_mark is None:
+                    e.req.prefill_mark = mark  # a resumed request keeps its TTFT
                 self._install_row(e, e.p_len)
                 if e.hashes:  # in the row's shard: its pages live in that pool
                     self._alloc_of(e.row).register(e.hashes, e.blocks[:len(e.hashes)])
@@ -738,10 +773,11 @@ class PagedEngine:
         e.req.cached_len = e.cached_len
         self._row_req[e.row] = e.req
         self._row_blocks[e.row] = e.blocks
+        self._row_gen[e.row] += 1
         self._row_len[e.row] = row_len
+        self._row_done[e.row] = False
         self._row_steps[e.row] = 0
         self._row_drafted[e.row] = 0
-        self._unharvested.add(e.row)
 
     # ------------------------------------------------- SARATHI chunked prefill
     def _stage_admission(self, batch: List[Admission]) -> None:
@@ -772,15 +808,16 @@ class PagedEngine:
     # ------------------------------------------------------- on-demand paging
     def _ensure_runway(self) -> None:
         """Grow each running row's table to cover two chunks past its last
-        known length, capped at its worst case (the admission commitment's
-        basis, so overcommit 1.0 never preempts) and at the table's width.
-        When the row's shard pool is empty, preempt that shard's youngest
-        row."""
+        known length (the harvest's view lags the device by up to two
+        chunks under the pipeline), capped at its worst case (the admission
+        commitment's basis, so overcommit 1.0 never preempts) and at the
+        table's width. Rows known done are skipped. When the row's shard
+        pool is empty, preempt that shard's youngest running row."""
         if not self.on_demand:
             return
         for row in range(self.batch_rows):
             req = self._row_req[row]
-            if req is None:
+            if req is None or self._row_done[row]:
                 continue
             need = min(self._row_len[row] + 2 * self._chunk_runway,
                        len(req.prompt) + req.max_new_tokens + self._gam_max + 1, self.t_max)
@@ -793,18 +830,22 @@ class PagedEngine:
                     self._tables_dirty = True
                     continue
                 victim = self._pick_victim(self._shard_of(row))
+                if victim is None:
+                    break  # nothing to preempt; the next chunk's harvest frees rows
                 if victim == row and alloc.num_blocks * self.page < need:
                     raise RuntimeError(f"request {req.rid} needs {need} cache positions but the "
                                        f"pool holds {alloc.num_blocks * self.page}")
                 self._preempt_row(victim)  # the needy row itself exits the loop
 
-    def _pick_victim(self, shard: int) -> int:
+    def _pick_victim(self, shard: int) -> Optional[int]:
         """The youngest (highest-rid) running row of dp shard ``shard``, the
-        one whose pool is short: first come, first served, and a resumed
-        request (an old rid) is protected."""
+        one whose pool is short, rows known done excluded: first come,
+        first served, and a resumed request (an old rid) is protected.
+        None when no row qualifies."""
         lo = shard * self._rows_local
-        rows = [r for r in range(lo, lo + self._rows_local) if self._row_req[r] is not None]
-        return max(rows, key=lambda r: self._row_req[r].rid)
+        rows = [r for r in range(lo, lo + self._rows_local)
+                if self._row_req[r] is not None and not self._row_done[r]]
+        return max(rows, key=lambda r: self._row_req[r].rid) if rows else None
 
     def _preempt_row(self, row: int) -> None:
         """Free the row's pages and requeue its request at the front. A row
@@ -817,14 +858,18 @@ class PagedEngine:
         a staged row still prefilling does (it has run no step); its pages
         are never registered.
 
-        The chunk metadata is read synchronously, so the last snapshot is
-        the end state of the chunk just run: JAX's row-generation guard
-        against its one-deep pipeline reduces here to whether the row has
-        run a chunk since it was admitted."""
+        The snapshot is the last harvest's, taken under the row's current
+        occupancy generation only (JAX's guard against its one-deep
+        pipeline); the chunk in flight may have gone further, and the
+        resumed run redoes that work from the snapshot's key. That chunk may
+        still write the freed pages: the stream orders those writes before
+        any later owner's, and no position is read before its owner writes
+        it."""
         req = self._row_req[row]
-        hv = self._last_harvest
+        hv, gens = self._last_harvest, self._last_harvest_gens
         resume = req
-        if hv is not None and row not in self._unharvested and int(hv["steps"][row]) > 0:
+        if (hv is not None and gens is not None and gens[row] == self._row_gen[row]
+                and int(hv["steps"][row]) > 0):
             cur = int(hv["cur_len"][row])
             orig_plen = req.orig_prompt_len if req.orig_prompt_len is not None else len(req.prompt)
             prev = req.carry or {}
@@ -843,15 +888,16 @@ class PagedEngine:
             resume = Request(
                 req.rid, hv["tokens"][row][:cur].astype(np.int32),
                 max(carry["target_total"] - cur, 0), req.submit_time,
-                prefill_time=req.prefill_time, resume_key=hv["key"][row].copy(), carry=carry,
-                orig_prompt_len=orig_plen)
+                prefill_time=req.prefill_time, prefill_mark=req.prefill_mark,
+                resume_key=hv["key"][row].copy(), carry=carry, orig_prompt_len=orig_plen)
         self._alloc_of(row).free(self._row_blocks[row])
         self._pending_reg.pop(row, None)
         self._commit_pages[self._shard_of(row)] -= self._row_commit[row]
         self._row_commit[row] = 0
         self._row_req[row] = None
         self._row_blocks[row] = None
-        self._unharvested.discard(row)
+        self._row_gen[row] += 1
+        self._row_done[row] = False
         self._deact_rows.add(row)
         self._tables_dirty = True
         self._pending.appendleft(resume)
@@ -869,8 +915,7 @@ class PagedEngine:
         deact = np.zeros((self._rows_local,), bool)
         deact[self._local_rows(self._deact_rows)] = True
         self.state = _paged_maintain_body(
-            self.state, torch.as_tensor(tables).to(self.device),
-            torch.as_tensor(deact).to(self.device))
+            self.state, self._dev(tables, torch.int32), self._dev(deact, torch.bool))
         self._deact_rows.clear()
         self._tables_dirty = False
 
@@ -886,10 +931,11 @@ class PagedEngine:
         batch = [e for e in batch if self._shard_of(e.row) == self._shard]
         if not batch:
             return None
-        keys = row_keys(self.seed, [e.req.rid for e in batch], device=self.device)
+        keys = row_keys(self.seed, [e.req.rid for e in batch])  # on the host
         for i, e in enumerate(batch):
             if e.req.resume_key is not None:
                 keys[i] = torch.as_tensor(e.req.resume_key, dtype=torch.long)
+        keys = self._dev(keys)
         alloc = self._allocs[self._shard]
         arrays = (
             np.asarray(self._local_rows([e.row for e in batch])),
@@ -901,8 +947,8 @@ class PagedEngine:
         )
         return arrays, keys
 
-    def _dev(self, x: np.ndarray, dtype=torch.long) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=dtype).to(self.device)
+    def _dev(self, x, dtype=torch.long) -> torch.Tensor:
+        return to_device(x, dtype, self.device)
 
     def _install_args(self, arrays, keys):
         """(rows, tables, prompts, p_lens, max_news, keys) on the device."""
@@ -917,7 +963,6 @@ class PagedEngine:
         self.state = _paged_prefill_body(
             self.params_d, self.params_t, self.state, *self._install_args(*seg),
             bundle_d=self.bundle_d, bundle_t=self.bundle_t)
-        synchronize(self.device)  # TTFT: the prompts' KV is on the device
 
     def _extend_n_chunks(self, arrays) -> int:
         _, _, _, p_lens, _, cached = arrays
@@ -963,7 +1008,6 @@ class PagedEngine:
         for j in range(self._extend_n_chunks(arrays)):
             self._extend_window(arrays, j)
         self._finalize_admission(arrays, keys)
-        synchronize(self.device)  # TTFT: the suffixes' KV is on the device
 
     def _dispatch_chunk(self) -> torch.Tensor:
         """Run one chunk at the controller's gamma; returns its packed
@@ -981,30 +1025,34 @@ class PagedEngine:
                     self.gamma = arms[k % len(arms)]
                 else:
                     self.gamma = max(arms, key=lambda g: self._arm_rate.get(g, float("-inf")))
-        self._chunk_arm = (self.gamma, max(self.num_active, 1))
+        self._chunk_log.append((self.gamma, max(self.num_active, 1)))
         self.state, pack = _paged_chunk_body(
             self.params_d, self.params_t, self.state, bundle_d=self.bundle_d,
             bundle_t=self.bundle_t, gamma=self.gamma, scfg=self.scfg,
             eos_token_id=self.eos_token_id, n_steps=self.steps_per_sync,
-            prefill_extra=self.prefill_extra)
+            prefill_extra=self.prefill_extra,
+            replay=self.device.type == "cuda" and self.mesh is None)
+        self.masked_steps += device_loop.last_chunk[1]
         self._tag_state()
         if self.mesh is not None and pack is not None:  # this rank's segment of the rows
             place(pack, (DP_AXIS,), self.mesh, local=True)
         return pack
 
-    def _meta_np(self, pack: torch.Tensor) -> dict:
-        """Read a chunk's packed metadata (the one device-to-host copy,
-        gathered across dp: every shard's segment, merged as JAX's
-        ``_meta_np`` does) and feed the gamma controller: the shards' summed
-        accepted and step deltas and the chunk's wall, the gap since the
-        previous read (None after an idle step) times the live rows, as JAX
-        normalises it, on rank 0's clock."""
+    def _meta_np(self, ticket) -> dict:
+        """Read the oldest unread chunk's packed metadata (its device-to-host
+        copy, started at dispatch; gathered across dp: every shard's
+        segment, merged as JAX's ``_meta_np`` does) and feed the gamma
+        controller: the shards' summed accepted and step deltas and the
+        chunk's wall, the gap since the previous read (None after an idle
+        step) times the live rows, as JAX normalises it, on rank 0's clock.
+        The chunk's gamma rides along under "gamma"."""
         bl, h, t = self._rows_local, self.max_new_cap, self.t_max
         shards = [_unpack_chunk_meta(seg, bl, h, t)
-                  for seg in host_fetch(pack).reshape(self.dp, -1)]
+                  for seg in self._meta.fetch(ticket).reshape(self.dp, -1)]
         hv = {k: np.concatenate([sh[k] for sh in shards]) for k in shards[0]
               if k not in ("acc_delta", "step_delta")}
-        g, live = self._chunk_arm
+        g, live = self._chunk_log.popleft()
+        hv["gamma"] = g
         now = self._clock()
         wall = None if self._last_fetch_t is None else max(now - self._last_fetch_t, 1e-9) * live
         self._last_fetch_t = now
@@ -1012,31 +1060,39 @@ class PagedEngine:
                            float(sum(sh["step_delta"] for sh in shards)), g, wall)
         return hv
 
-    def _harvest(self, hv: dict) -> None:
-        """Keep the chunk's snapshot (the rows' lengths for table growth, and
-        what a preempted row resumes from), stamp the TTFT of staged rows
-        whose prefill it completed and register their prompt pages, complete
-        the rows it finished, merging a resumed request's carried counters,
-        free their pages and deactivate them."""
-        self._last_harvest = hv
-        self._unharvested.clear()
-        g = self._chunk_arm[0]
-        for i, r in enumerate(self._row_req):
-            if r is None:
-                continue
+    def _harvest(self, hv: dict, gens: tuple) -> None:
+        """Keep the chunk's snapshot and the row generations it was read
+        under (``gens``, recorded at its dispatch). For each row still in
+        the occupancy the chunk ran: its length and done flag (for table
+        growth and preemption), its drafts, the TTFT of a staged row whose
+        prefill the chunk completed, and its deferred prefix pages; then
+        complete the rows it finished, merging a resumed request's carried
+        counters, free their pages and deactivate them. Metadata of an
+        earlier occupancy (a row preempted or refilled since its dispatch)
+        touches nothing. Also stamps the TTFT of every admission prefill the
+        device has completed."""
+        self._last_harvest, self._last_harvest_gens = hv, gens
+        stamp_prefills(self._clock_dev, self._row_req)
+        g = hv["gamma"]
+        mine = [i for i, r in enumerate(self._row_req)
+                if r is not None and gens[i] == self._row_gen[i]]
+        for i in mine:
+            r = self._row_req[i]
             self._row_len[i] = int(hv["cur_len"][i])
+            self._row_done[i] = bool(hv["done"][i])
             steps = int(hv["steps"][i])
             self._row_drafted[i] += (steps - self._row_steps[i]) * g
             self._row_steps[i] = steps
-            if r.prefill_time is None and self._row_len[i] >= len(r.prompt):
-                r.prefill_time = time.perf_counter()
+            if (r.prefill_time is None and r.prefill_mark is None
+                    and self._row_len[i] >= len(r.prompt)):
+                r.prefill_time = time.perf_counter()  # a staged row: its prefill just completed
         for row, (req, hashes, blocks) in list(self._pending_reg.items()):
             if self._row_req[row] is not req:
                 del self._pending_reg[row]
             elif self._row_len[row] >= len(req.prompt):
                 self._alloc_of(row).register(hashes, blocks)
                 del self._pending_reg[row]
-        fin = [i for i, r in enumerate(self._row_req) if r is not None and hv["done"][i]]
+        fin = [i for i in mine if hv["done"][i]]
         for row in fin:
             req = self._row_req[row]
             p_len = req.prompt.shape[0]
@@ -1073,9 +1129,9 @@ class PagedEngine:
             self._row_commit[row] = 0
             self._row_req[row] = None
             self._row_blocks[row] = None
-        mine = self._local_rows(fin)
-        if mine:
-            self.state.active[torch.as_tensor(mine, device=self.device)] = False
+        local = self._local_rows(fin)
+        if local:
+            self.state.active.index_fill_(0, self._dev(local), False)
 
     # ---------------------------------------------------------- adaptive gamma
     def _update_gamma(self, acc_delta: float, step_delta: float, used_gamma: int,
@@ -1216,10 +1272,17 @@ class PagedEngine:
         self._ensure_runway()
         self._flush_maintenance()
 
-    def _run_chunk(self) -> None:
+    def _start_chunk(self):
+        """Dispatch a chunk and start its metadata's copy; returns (ticket,
+        the row generations at its dispatch)."""
         if self._n_prefilling():
             self.interleaved_chunks += 1
-        self._harvest(self._meta_np(self._dispatch_chunk()))
+        gens = tuple(self._row_gen)
+        return self._meta.start(self._dispatch_chunk()), gens
+
+    def _finish_chunk(self, inflight) -> None:
+        ticket, gens = inflight
+        self._harvest(self._meta_np(ticket), gens)
         self._epoch_tick(self._last_fetch_t)
 
     def _idle(self) -> None:
@@ -1229,25 +1292,40 @@ class PagedEngine:
         self._last_fetch_t = None
 
     def step(self) -> int:
-        """Admit, grow tables, run one chunk, harvest. Returns the rows
-        still busy."""
+        """Admit, grow tables, run one chunk, harvest it: synchronous, as
+        JAX's ``step`` (the server and the lockstep drivers drive it).
+        Returns the rows still busy."""
         self._prepare_chunk()
         if self.num_active:
-            self._run_chunk()
+            self._finish_chunk(self._start_chunk())
         else:
             self._idle()
         return self.num_active
 
     def run_until_idle(self, max_steps: int = 10_000) -> int:
-        """Step until no request is queued or running; returns the chunks run."""
+        """Drain the queue with JAX's one-chunk-deep pipeline: admit, grow
+        tables, dispatch chunk k+1 and start the copy of its metadata, THEN
+        read chunk k's and harvest it under the row generations recorded at
+        its dispatch, so the card runs chunk k+1 while the host harvests
+        chunk k. Under a mesh every rank keeps this order (dispatch, then
+        ``host_fetch``). Stops when nothing was dispatched and nothing is in
+        flight; returns the chunks run."""
         steps = 0
+        inflight = None
         while steps < max_steps:
             self._prepare_chunk()
-            if not self.num_active:
+            dispatched = None
+            if self.num_active:
+                dispatched = self._start_chunk()
+                steps += 1
+            if inflight is not None:
+                self._finish_chunk(inflight)
+            inflight = dispatched
+            if inflight is None:
                 self._idle()
                 break
-            self._run_chunk()
-            steps += 1
+        if inflight is not None:
+            self._finish_chunk(inflight)
         return steps
 
     def result(self, rid: int) -> Optional[Completion]:
@@ -1255,15 +1333,15 @@ class PagedEngine:
 
     def partial_result(self, rid: int) -> Optional[np.ndarray]:
         """Tokens committed so far (prompt + new, not yet EOS-truncated) of a
-        request still on a row; None otherwise. From the last chunk's
+        request still on a row; None otherwise. From the last harvest's
         merged metadata (the same on every rank, whichever dp shard holds
-        the row), or the row's prompt up to its installed length when it
-        has run no chunk since admission: what the device holds, since each
-        chunk's metadata is read before the next chunk runs."""
+        the row), or the row's prompt up to its installed length when no
+        harvest has read the row since admission: under ``run_until_idle``'s
+        pipeline the device may be one chunk ahead of it."""
         for row, req in enumerate(self._row_req):
             if req is not None and req.rid == rid:
-                hv = self._last_harvest
-                if hv is None or row in self._unharvested:
+                hv, gens = self._last_harvest, self._last_harvest_gens
+                if hv is None or gens[row] != self._row_gen[row]:
                     return np.asarray(req.prompt[:self._row_len[row]], np.int32)
                 return hv["tokens"][row][:int(hv["cur_len"][row])].astype(np.int32)
         return None

@@ -15,20 +15,27 @@ into their slots. Finished slots stop advancing under the step's keep gate
 and keep computing until a new request takes them; a slot's whole lifetime
 touches only its own rows of the cache.
 
+A chunk of ``steps_per_sync`` steps is one captured step replayed on the
+card (``serve/batched.py::run_chunk``) until a device flag says no slot is
+live, read one step behind: a chunk whose slots have all finished spends at
+most one masked step. ``run_until_idle`` is JAX's one-deep pipeline: it
+dispatches chunk k+1 before it reads chunk k's packed metadata (copied into
+pinned memory behind the chunk), so the host's harvest and admission run
+while the card computes. ``step()`` reads its own chunk's metadata at once,
+as JAX's does; the server drives it. On the CPU and under a mesh the steps
+run eagerly.
+
 Differences from the JAX engine that do not change what it computes:
-  * the step loop runs on the host: a chunk of ``steps_per_sync`` steps
-    ends early on one small device read (``live.any()``) a step, where JAX
-    exits its ``while_loop`` on the device, and each chunk's packed
-    metadata is read before the next chunk runs, where JAX's
-    ``run_until_idle`` overlaps the read with the next chunk (the one-deep
-    pipeline, not ported: ROADMAP A-queue item 6);
   * the admission prefill runs into rows as wide as the prompt bucket
     (positions past it are never read) and plans its W8A16 calls
     batch-invariant, so a request's prefill gives the same bits whatever
     requests are admitted with it;
   * per-request streams come from ``ops/sampling.py::row_keys(seed, rid)``,
     the counterpart of ``fold_in(admit_key, rid)``;
-  * TTFT is stamped once the admission prefill has finished on the device.
+  * TTFT is the time the admission prefill finished on the device, read
+    from an event recorded behind it at the first harvest that finds it
+    complete (no host synchronize), where JAX stamps the prefill's
+    dispatch.
 
 ``mesh`` (a ``parallel.sharding.Mesh``, every rank of it running the
 engine in lockstep, as ``serve/multihost.py`` drives it) shards the params
@@ -53,14 +60,24 @@ import numpy as np
 import torch
 
 from ..cache.kvcache import install_rows, rollback_rows
-from ..core.config import resolve_device, synchronize
+from ..core.config import resolve_device
+from ..engine import device_loop
 from ..engine.speculative import draft_phase_batched, verify_phase_batched
 from ..engine.types import ModelBundle, first_eos_truncate, pad_prompt
 from ..models.llama import unstack_layers
 from ..ops.sampling import SamplingConfig, row_keys
-from ..parallel.distributed import host_fetch
 from ..parallel.sharding import DP_AXIS, place, require_divides, shard_for, shard_serving_state
-from .batched import BatchState, accept_rows, admit_rows, commit_rows, run_steps
+from .batched import (
+    BatchState,
+    DeviceClock,
+    MetaCopies,
+    accept_rows,
+    admit_rows,
+    commit_rows,
+    run_chunk,
+    stamp_prefills,
+    to_device,
+)
 
 ADMIT_CAP = 8  # prompts a prefill at most: its activations must fit beside the weights
 
@@ -72,6 +89,9 @@ class Request:
     max_new_tokens: int
     submit_time: float
     prefill_time: Optional[float] = None
+    # the event behind the admission prefill (serve/batched.py::DeviceClock)
+    # until a harvest finds it complete and stamps prefill_time from it
+    prefill_mark: Optional[object] = None
     cached_len: int = 0      # prompt positions served from the prefix cache
     # preemption resume (the paged engine's on-demand paging): a preempted
     # request requeues with its committed tokens as the prompt, the row's
@@ -91,11 +111,12 @@ class Completion:
 
 
 def _slot_spec_step(bundle_d, bundle_t, params_d, params_t, scfg, gamma: int, eos_token_id: int,
-                    state: BatchState) -> BatchState:
-    """One speculative step of every slot. Each slot's rows belong to it
-    alone, so finished and idle slots run through the forwards ungated:
-    they write only their own rows, and every field of theirs keeps its
-    value (JAX ``_batched_spec_step``'s ``keep``)."""
+                    state: BatchState) -> None:
+    """One speculative step of every slot, in place (a function of tensors
+    only: the captured serving step); returns ``state``. Each slot's rows belong to it alone,
+    so finished and idle slots run through the forwards ungated: they write
+    only their own rows, and every field of theirs keeps its value (JAX
+    ``_batched_spec_step``'s ``keep``)."""
     live = state.active & ~state.done
     tokens2, draft_cache, q_stack, drafts, keys = draft_phase_batched(
         bundle_d, params_d, scfg, gamma, state.tokens, state.cur_len, state.draft_cache, state.key)
@@ -103,16 +124,21 @@ def _slot_spec_step(bundle_d, bundle_t, params_d, params_t, scfg, gamma: int, eo
         bundle_t, params_t, scfg, gamma, tokens2, state.cur_len, state.target_cache)
     tokens3, new_len, n, all_acc, acc_step, keys = accept_rows(
         gamma, tokens2, state.cur_len, q_stack, drafts, p_stack, keys)
-    return commit_rows(state, tokens3, new_len, n, all_acc, acc_step, keys, eos_token_id, live,
-                       live, draft_cache=draft_cache, target_cache=target_cache)
+    commit_rows(state, tokens3, new_len, n, all_acc, acc_step, keys, eos_token_id, live, live,
+                draft_cache.lengths, target_cache.lengths)
+    return state
 
 
 def _batched_spec_step(params_d, params_t, state: BatchState, *, bundle_d, bundle_t, gamma: int,
-                       scfg: SamplingConfig, eos_token_id: int, n_steps: int = 1):
-    """Up to ``n_steps`` steps of every slot (one chunk; it ends early once
-    no slot is live). Returns (state, packed metadata)."""
-    state = run_steps(state, n_steps, lambda st: _slot_spec_step(
-        bundle_d, bundle_t, params_d, params_t, scfg, gamma, eos_token_id, st))
+                       scfg: SamplingConfig, eos_token_id: int, n_steps: int = 1,
+                       replay: bool = False):
+    """Up to ``n_steps`` steps of every slot (one chunk; it ends once no
+    slot is live: ``serve/batched.py::run_chunk``, captured and replayed
+    when ``replay``). Returns (state, packed metadata)."""
+    run_chunk(("serve_slots", bundle_d, bundle_t, gamma, scfg, eos_token_id),
+              (params_d, params_t), state,
+              lambda st: _slot_spec_step(bundle_d, bundle_t, params_d, params_t, scfg, gamma,
+                                         eos_token_id, st), n_steps, replay)
     return state, _pack_slot_meta(state)
 
 
@@ -258,6 +284,9 @@ class ContinuousBatchingEngine:
         self._last_harvest: Optional[dict] = None
         self._last_gens: tuple = ()  # the generations the last harvest read
         self.completions: dict[int, Completion] = {}
+        self._meta = MetaCopies(self.device, mesh)
+        self._clock = DeviceClock(self.device)
+        self.masked_steps = 0  # chunk steps that found no live slot
 
     # --------------------------------------------------------------- interface
     def warmup(self, prompt_len: int = 8) -> None:
@@ -310,7 +339,7 @@ class ContinuousBatchingEngine:
         return [s - lo for s in slots if s // self._slots_local == self._shard]
 
     def _dev(self, x, dtype=torch.long) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
+        return to_device(x, dtype, self.device)
 
     def _admit(self) -> None:
         """Admit pending requests into free slots in FIFO order: runs of up
@@ -341,9 +370,9 @@ class ContinuousBatchingEngine:
                 batch.append((slot, req, padded.reshape(-1), p_len))
                 i += 1
             self._dispatch_prefill(batch, bucket)
-            now = time.perf_counter()
+            mark = self._clock.mark()
             for slot, req, _, _ in batch:
-                req.prefill_time = now
+                req.prefill_mark = mark
                 self._slot_req[slot] = req
                 self._slot_gen[slot] += 1
 
@@ -362,25 +391,29 @@ class ContinuousBatchingEngine:
             self._dev(self._local_slots([slot for slot, _, _, _ in batch])), self._dev(prompts),
             self._dev([p_len for _, _, _, p_len in batch]),
             self._dev([req.max_new_tokens for _, req, _, _ in batch]),
-            row_keys(self.seed, [req.rid for _, req, _, _ in batch], device=self.device),
+            self._dev(row_keys(self.seed, [req.rid for _, req, _, _ in batch])),
             bundle_d=self.bundle_d, bundle_t=self.bundle_t)
-        synchronize(self.device)  # TTFT: the prompts' KV is on the device
 
     def _dispatch_chunk(self) -> torch.Tensor:
+        """Enqueue one chunk (on the card its last step is still running
+        when this returns) and its packed metadata."""
         self.state, pack = _batched_spec_step(
             self.params_d, self.params_t, self.state, bundle_d=self.bundle_d,
             bundle_t=self.bundle_t, gamma=self.gamma, scfg=self.scfg,
-            eos_token_id=self.eos_token_id, n_steps=self.steps_per_sync)
+            eos_token_id=self.eos_token_id, n_steps=self.steps_per_sync,
+            replay=self.device.type == "cuda" and self.mesh is None)
+        self.masked_steps += device_loop.last_chunk[1]
         self._tag_state()
         if self.mesh is not None:  # this rank's segment of the slots
             place(pack, (DP_AXIS,), self.mesh, local=True)
         return pack
 
-    def _collect(self, pack: torch.Tensor, gens: tuple) -> None:
-        """One device-to-host copy of the chunk's packed metadata, gathered
-        across dp and merged shard by shard, then the harvest."""
+    def _collect(self, ticket, gens: tuple) -> None:
+        """Read a chunk's packed metadata (its copy started at dispatch;
+        gathered across dp and merged shard by shard), then the harvest
+        with the slot generations recorded at its dispatch."""
         shards = [_unpack_slot_meta(seg, self._slots_local, self.max_new_cap, self.max_total_len)
-                  for seg in host_fetch(pack).reshape(self.dp, -1)]
+                  for seg in self._meta.fetch(ticket).reshape(self.dp, -1)]
         m = {k: np.concatenate([sh[k] for sh in shards]) for k in shards[0]}
         self._last_harvest, self._last_gens = m, gens
         self._harvest(m["done"], m["cur_len"], gens)
@@ -389,7 +422,9 @@ class ContinuousBatchingEngine:
         """Complete the finished slots from the chunk's metadata (whose
         result lanes are frozen once a slot is done) and free them.
         Metadata recorded under a previous occupancy generation never
-        harvests the slot's new request."""
+        harvests the slot's new request. Stamps the TTFT of every slot whose
+        admission prefill the device has completed."""
+        stamp_prefills(self._clock, self._slot_req)
         fin = [s for s, r in enumerate(self._slot_req)
                if r is not None and done[s] and gens[s] == self._slot_gen[s]]
         if not fin:
@@ -418,24 +453,43 @@ class ContinuousBatchingEngine:
             self._slot_req[slot] = None
         mine = self._local_slots(fin)
         if mine:
-            self.state.active[self._dev(mine)] = False
+            self.state.active.index_fill_(0, self._dev(mine), False)
 
     def step(self) -> int:
-        """Admit, run one chunk, harvest. Returns the slots still busy."""
+        """Admit, run one chunk, harvest its metadata: synchronous, as JAX's
+        ``step`` (the server drives it). Returns the slots still busy."""
         self._admit()
         if self.num_active:
-            self._collect(self._dispatch_chunk(), tuple(self._slot_gen))
+            gens = tuple(self._slot_gen)
+            self._collect(self._meta.start(self._dispatch_chunk()), gens)
         return self.num_active
 
     def run_until_idle(self, max_steps: int = 10_000) -> int:
-        """Step until no request is queued or running; returns the chunks run."""
+        """Drain the queue with JAX's one-chunk-deep pipeline: admit,
+        dispatch chunk k+1 and start the copy of its metadata, THEN read
+        chunk k's (whose copy was started at its dispatch) and harvest it
+        with the slot generations recorded then, so the card runs chunk
+        k+1 while the host harvests chunk k. A slot that finished in chunk
+        k is harvested one chunk late; its frozen lanes make that safe, and
+        the generation guard keeps late metadata off a new occupant. Stops
+        when nothing was dispatched and nothing is in flight; returns the
+        chunks run."""
         steps = 0
+        inflight = None  # (metadata ticket, slot generations at its dispatch)
         while steps < max_steps:
             self._admit()
-            if not self.num_active:
+            dispatched = None
+            if self.num_active:
+                gens = tuple(self._slot_gen)
+                dispatched = (self._meta.start(self._dispatch_chunk()), gens)
+                steps += 1
+            if inflight is not None:
+                self._collect(*inflight)
+            inflight = dispatched
+            if inflight is None:
                 break
-            self._collect(self._dispatch_chunk(), tuple(self._slot_gen))
-            steps += 1
+        if inflight is not None:
+            self._collect(*inflight)
         return steps
 
     def result(self, rid: int) -> Optional[Completion]:
@@ -445,9 +499,9 @@ class ContinuousBatchingEngine:
         """Tokens committed so far (prompt + new, not yet EOS-truncated) of a
         request still on a slot, monotone across chunks; None otherwise.
         From the last chunk's merged metadata (the same on every rank,
-        whichever dp shard holds the slot), or the prompt when the slot has
-        run no chunk since its prefill: what the device holds, since each
-        chunk's metadata is read before the next chunk runs."""
+        whichever dp shard holds the slot), or the prompt when no harvest
+        has read the slot since its prefill: under ``run_until_idle``'s
+        pipeline the device may be one chunk ahead of it."""
         for slot, req in enumerate(self._slot_req):
             if req is not None and req.rid == rid:
                 hv = self._last_harvest

@@ -15,8 +15,10 @@ scripts/bench_paged.py's 13B settings (16 rows, int8 pools of 32 blocks of
 
 For each (``--runs`` picks them by index): tok/s on the host clock (one
 untraced run after a warm-up), the host time of each admission dispatch (a
-miss's prefill, a hit's extend windows, both ending in a synchronize) and of
-each decode chunk, the preemptions and the peak of active rows; then, from
+miss's prefill, a hit's extend windows: enqueued, not waited for), of each
+chunk's dispatch (its replayed steps, the host waiting one step behind) and
+of each chunk's metadata read and harvest (one chunk behind, under
+``run_until_idle``'s pipeline), the preemptions and the peak of active rows; then, from
 a run of a fresh engine with the same rids traced for its CUDA kernels only
 (host-side events of a run this long take longer to collect than the run),
 the device busy time (the sum of the kernel times) split by kernel and the
@@ -66,7 +68,7 @@ def make_run(kind, pair, kw):
         engine.submit_with_rid(rid, warm, 8)
         engine.run_until_idle()
     engine.completions.clear()
-    times = {"prefill": [], "extend": [], "chunk": []}
+    times = {"prefill": [], "extend": [], "chunk": [], "harvest": []}
 
     def timed(name, fn):
         def run(*a):
@@ -78,7 +80,8 @@ def make_run(kind, pair, kw):
 
     engine._dispatch_prefill = timed("prefill", engine._dispatch_prefill)
     engine._dispatch_extend = timed("extend", engine._dispatch_extend)
-    engine._run_chunk = timed("chunk", engine._run_chunk)  # the chunk, its read and harvest
+    engine._start_chunk = timed("chunk", engine._start_chunk)  # the chunk's steps enqueued
+    engine._finish_chunk = timed("harvest", engine._finish_chunk)  # a chunk's read and harvest
     active = []
     prepare = engine._prepare_chunk
 

@@ -81,7 +81,7 @@ def adaptive_run(pair, mesh) -> dict:
 
     def logged():
         pack = dispatch()
-        arms.append(eng._chunk_arm[0])
+        arms.append(eng._chunk_log[-1][0])
         return pack
 
     eng._dispatch_chunk = logged
@@ -173,6 +173,41 @@ def fetch_case(mesh) -> dict:
         x.sharding = NamedSharding(mesh, spec)
     plain = torch.arange(4)  # no placement: local
     return host_fetch({"rows": rows, "cols": cols, "flags": flags, "plain": [plain]})
+
+
+def _record_order(eng, read_name: str) -> list:
+    """Log each chunk's dispatch ("D", k) and metadata read ("R", k) of
+    ``eng`` (chunks numbered by dispatch; a read takes the oldest unread)."""
+    log, unread = [], []
+    dispatch, read = eng._dispatch_chunk, getattr(eng, read_name)
+
+    def d():
+        unread.append(sum(1 for e in log if e[0] == "D") + 1)
+        log.append(("D", unread[-1]))
+        return dispatch()
+
+    def r(*a):
+        log.append(("R", unread.pop(0)))
+        return read(*a)
+
+    eng._dispatch_chunk = d
+    setattr(eng, read_name, r)
+    return log
+
+
+def pipeline_case(pt_np: dict) -> dict:
+    """Both engines' pipelined ``run_until_idle`` at dp=2 x tp=1: the
+    completions and this rank's order of chunk dispatches and reads."""
+    mesh = make_mesh(2, 1)
+    eng = paged_engine(llama_pair(pt_np), mesh)
+    order = _record_order(eng, "_meta_np")
+    out = {"paged": {"outs": serve(eng), "order": order}}
+    eng = T.serving_engine("slots", "llama", mesh)
+    order = _record_order(eng, "_collect")
+    rids = [eng.submit(p, 6) for p in T.SERVE_PROMPTS]
+    eng.run_until_idle()
+    out["slotted"] = {"outs": [eng.result(r).output_ids for r in rids], "order": order}
+    return out
 
 
 def dp_case(pt_np: dict) -> dict:
