@@ -41,6 +41,9 @@ finished spends at most one masked step, and the last step stays in flight
 when the call returns (the engines' one-deep pipeline harvests the
 previous chunk meanwhile). Its entries are keyed on the identities of the
 state's buffers and the param leaves, and dropped when either is collected.
+:func:`run_once` replays a graph over static buffers once a call (the paged
+engine's admission prefill, whose entries the engine keeps, outside the
+LRU below).
 
 The prompt's prefill stays eager (its length varies) and writes into the
 entry's static caches. An entry is keyed on the identities of the param
@@ -344,16 +347,17 @@ def _entry(key, leaves: list, build: Callable) -> _Entry:
     return entry
 
 
-def _capture(entry: _Entry, fn: Callable, dev) -> None:
-    """Capture ``fn()`` into the entry's graph (it launches nothing) and
-    record the launches a replay makes, per counted wrapper."""
+def _capture(entry: _Entry, fn: Callable, dev, pool=None) -> None:
+    """Capture ``fn()`` into the entry's graph (it launches nothing), in
+    the memory pool ``pool`` (a private one when None), and record the
+    launches a replay makes, per counted wrapper."""
     from ..kernels import flash_decode
 
     fns = _counted()
     before = [f.launches for f in fns]
     graph = torch.cuda.CUDAGraph()
     t0 = time.perf_counter()
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
         fn()
     capture_seconds.append(time.perf_counter() - t0)
     entry.deltas = tuple(f.launches - b for f, b in zip(fns, before))
@@ -363,16 +367,36 @@ def _capture(entry: _Entry, fn: Callable, dev) -> None:
     entry.refs = (flash_decode._COUNTERS.get(dev),)
 
 
-def _first_then_capture(entry: _Entry, fn: Callable, dev) -> None:
+def _first_then_capture(entry: _Entry, fn: Callable, dev, pool=None) -> None:
     """A new entry's first step: ``fn()`` eagerly on a side stream (it is a
-    real step), then its capture."""
+    real step), then its capture (in ``pool``)."""
     cur = torch.cuda.current_stream(dev)
     side = torch.cuda.Stream(dev)
     side.wait_stream(cur)
     with torch.cuda.stream(side):
         fn()
     cur.wait_stream(side)
-    _capture(entry, fn, dev)
+    _capture(entry, fn, dev, pool)
+
+
+def run_once(entry: _Entry, fn: Callable, dev, replay: bool, pool=None) -> bool:
+    """``fn()``, a function of the static buffers the entry's ``state``
+    holds, once (the entry is its caller's, outside the LRU). ``replay``
+    (CUDA tensors, no collective): replayed from the entry's graph, which
+    the first call captures, in ``pool``, after running ``fn()`` eagerly on
+    a side stream; the launch counters add a replay's deltas. Otherwise, or
+    inside :func:`eager_steps`, eagerly. Graphs that never run at once may
+    share a pool (``torch.cuda.graph_pool_handle()``) when nothing they
+    allocate outlives a replay. Returns whether it replayed."""
+    with torch.no_grad():
+        if not replay or _FORCE_EAGER[0]:
+            fn()
+            return False
+        if entry.graph is None:
+            _first_then_capture(entry, fn, dev, pool)
+            return False
+        _replay(entry)
+        return True
 
 
 def _host_flags(entry: _Entry) -> None:

@@ -13,6 +13,12 @@ outputs whatever the arrival order or the release cadence.
 A request is admitted when a row and its pages are free, prefilled in one
 batched forward per model, decoded in ``steps_per_sync``-step chunks with
 one packed metadata read per chunk, and harvested (pages freed) when done.
+A batch of cold prompts is prefilled padded to a power of two rows, as
+JAX's, over the static buffers of its (padded rows, bucket) shape
+(``_dispatch_prefill``); on the card without a mesh, a padded batch within
+the prefill token budget replays one captured graph of both models'
+forwards. A lone prompt over the budget, the CPU and meshes run those
+forwards eagerly, as prefix-cache hits and staged admissions run theirs.
 A chunk is one captured step replayed on the card
 (``serve/batched.py::run_chunk``; one graph per gamma arm and
 ``prefill_extra``) until a device flag says no row is live, read one step
@@ -75,8 +81,9 @@ shard's youngest. Adaptive gamma reads rank 0's clock on every rank
 (``rank0_clock``: one broadcast a chunk), so the ranks pick the same arm.
 
 Differences from the JAX engine that do not change what it computes:
-  * an admission batch is not padded to a power of two (nothing is
-    compiled per shape), so no padding row exists;
+  * only a cold prefill's batch is padded to a power of two (a pad row
+    holds filler tokens and the sentinel table, so it writes the trash
+    block); extend windows and staged admissions run their real rows alone;
   * dead rows, unused table slots, an extend window's padding and the rows
     it has exhausted write into the pools' trash block (``cache/paged.py``)
     where JAX drops the write;
@@ -96,14 +103,18 @@ Differences from the JAX engine that do not change what it computes:
 Under a ``torch.profiler`` session the loop records its spans
 (``utils/profiling.py::span``): ``paged.admit`` (admission, table growth,
 the maintenance flush), with a ``paged.prefill`` for each admission
-batch's dispatch (its device interval between two events on the stream),
-and ``paged.harvest`` (the metadata read, the harvest, the epoch tick).
+batch's dispatch (its device interval between two events on the stream;
+``graph`` 1 when it replayed a captured prefill, else 0), and
+``paged.harvest`` (the metadata read, the harvest, the epoch tick).
+``prefill_replays`` and ``prefill_eager`` count the admission dispatches
+that replayed a graph and those that ran eagerly.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import time
 from typing import List, NamedTuple, Optional
 
@@ -279,22 +290,18 @@ def _install_state(state: PagedBatchState, rows, prompts, p_lens, max_news, keys
     state.prefill_to[rows] = p_lens
 
 
-def _paged_prefill_body(params_d, params_t, state: PagedBatchState, rows, tables, prompts,
-                        p_lens, max_news, keys, *, bundle_d: ModelBundle,
-                        bundle_t: ModelBundle) -> PagedBatchState:
-    """Admit K requests at once: install their tables, run one batched
-    prefill forward per model over a K-row view of the same pools (the
-    prefill's pool writes are the admission's), then install the rows.
-    Block tables of different requests are disjoint, so the K rows write
-    disjoint pages."""
-    _admit_tables(state, rows, tables)
-    zeros = torch.zeros((rows.shape[0],), dtype=torch.int32, device=rows.device)
+def _paged_prefill_forwards(params_d, params_t, state: PagedBatchState, tables, zeros, prompts,
+                            *, bundle_d: ModelBundle, bundle_t: ModelBundle) -> None:
+    """An admission's pool writes: one batched prefill forward per model of
+    ``prompts`` [K, bucket] over a K-row view of the state's pools with
+    ``tables`` [K, P] and empty rows (``zeros`` [K]). Block tables of
+    different requests are disjoint, so the rows write disjoint pages (a
+    pad row's sentinel table, the trash block). A function of tensors only:
+    the captured admission prefill."""
     for bundle, params, cache in ((bundle_d, params_d, state.draft_cache),
                                   (bundle_t, params_t, state.target_cache)):
         view = dataclasses.replace(cache, block_tables=tables, lengths=zeros)
         bundle.forward(params, bundle.cfg, prompts, view, paged_prefill=True)
-    _install_state(state, rows, prompts, p_lens, max_news, keys)
-    return state
 
 
 def _paged_extend_body(params_d, params_t, state: PagedBatchState, tables, lens_now, window, *,
@@ -426,6 +433,15 @@ class PagedEngine:
         self.chunked_prefill = bool(chunked_prefill)
         self.prefill_extra = int(prefill_extra)
         self.interleaved_chunks = 0  # chunks that carried a row still prefilling
+        # the admission prefill's static buffers and graphs, (padded rows,
+        # bucket) -> entry; the graphs share one memory pool: they replay one
+        # at a time on the engine's stream, and what they write lands in the
+        # pools and the state
+        self._graph_prefill = self.device.type == "cuda" and mesh is None
+        self._prefill_graphs: dict = {}
+        self._prefill_pool = None
+        self.prefill_replays = 0  # admission dispatches that replayed a captured prefill
+        self.prefill_eager = 0    # admission dispatches that ran eagerly
         # dp (JAX serve/paged.py:896-923): rows [s*B/dp, (s+1)*B/dp) live on
         # shard s over its own N/dp-block pool; this rank's device holds
         # shard ``_shard``, its host every shard's allocator
@@ -574,11 +590,12 @@ class PagedEngine:
     def warmup(self, prompt_lens=(8,)) -> None:
         """Run JAX's warm-up traffic (``serve/paged.py::warmup``) before live
         traffic: for each prompt length, admission waves of 1, 2, 4 and 8
-        requests and their chunks, each adaptive arm, a prefix-cache hit
-        and, with chunked prefill, a staged admission. Nothing is compiled
-        per shape here, but the first launches happen now: the kernels
-        build, B1 encodes its tensor maps, the allocator grows. Leaves the
-        gamma controller pristine and the rid sequence where it was."""
+        requests (the padded shapes of the captured prefill, each captured
+        now when it fits the budget) and their chunks, each adaptive arm, a
+        prefix-cache hit and, with chunked prefill, a staged admission. The
+        first launches happen now too: the kernels build, B1 encodes its
+        tensor maps, the allocator grows. Leaves the gamma controller
+        pristine and the rid sequence where it was."""
         rng = np.random.default_rng(0)
         rid0 = self._next_rid
         rids = []
@@ -700,7 +717,8 @@ class PagedEngine:
 
     def _admit(self) -> None:
         """Admit queued requests in FIFO order while a row and their pages
-        are free: batches of up to 8 of one prompt bucket within the prefill
+        are free: batches of up to 8 of one prompt bucket whose row count
+        padded to a power of two, times the bucket, stays within the prefill
         token budget. A request tries each dp shard that has a free row, in
         row order, with that shard's pages (JAX ``_admit``): one full shard
         does not hold the queue while another has room. With chunked prefill, while some row decodes, a
@@ -727,7 +745,9 @@ class PagedEngine:
                     bucket = padded.shape[-1]
                 elif padded.shape[-1] != bucket:
                     break
-                if batch and (len(batch) + 1) * bucket > self.prefill_token_budget:
+                # the batch padded to a power of two rows stays within the budget
+                kb_next = 1 << len(batch).bit_length()
+                if batch and kb_next * bucket > self.prefill_token_budget:
                     break
                 hashes = prompt_page_hashes(nxt.prompt, self.page) if self.prefix_cache else []
                 row = got = None
@@ -762,8 +782,13 @@ class PagedEngine:
                                    (hits, self._dispatch_extend),
                                    (staged, self._stage_admission)):
                 if part:
-                    with span("paged.prefill", device=self._clock_dev):
-                        dispatch(part)
+                    with span("paged.prefill", device=self._clock_dev) as sp:
+                        replayed = bool(dispatch(part))
+                        sp.set(graph=int(replayed))
+                    if replayed:
+                        self.prefill_replays += 1
+                    else:
+                        self.prefill_eager += 1
             mark = self._clock_dev.mark()  # behind the prefills and the extend windows
             for e in inline:
                 if e.req.prefill_time is None and e.req.prefill_mark is None:
@@ -963,13 +988,52 @@ class PagedEngine:
         return (self._dev(rows), self._dev(tables, torch.int32), self._dev(prompts),
                 self._dev(p_lens), self._dev(max_news), keys)
 
-    def _dispatch_prefill(self, batch: List[Admission]) -> None:
+    def _dispatch_prefill(self, batch: List[Admission]) -> bool:
+        """Cold misses: both models' prefill forwards over the batch padded
+        to the next power of two rows, K_pad (JAX's ``kbs``; a pad row has a
+        filler prompt and the sentinel table), in the static buffers of its
+        (K_pad, bucket) entry, then the real rows' install. On the card
+        without a mesh, a padded batch within the prefill token budget
+        replays the entry's graph (``device_loop.run_once``: the first use of
+        a shape runs eagerly, then is captured); a lone prompt over the
+        budget (bound by the card), the CPU and meshes run the forwards
+        eagerly. Returns whether a graph was replayed."""
         seg = self._admission_arrays(batch)
         if seg is None:
-            return
-        self.state = _paged_prefill_body(
-            self.params_d, self.params_t, self.state, *self._install_args(*seg),
-            bundle_d=self.bundle_d, bundle_t=self.bundle_t)
+            return False
+        (rows, tables, prompts, p_lens, max_news, _), keys = seg
+        k, bucket = prompts.shape
+        k_pad = 1 << (k - 1).bit_length()
+        entry = self._prefill_entry(k_pad, bucket)
+        buf_prompts, buf_tables, zeros = entry.state
+        pad = ((0, k_pad - k), (0, 0))
+        sentinel = self._allocs[self._shard].num_blocks
+        buf_prompts.copy_(self._dev(np.pad(prompts, pad)))
+        buf_tables.copy_(self._dev(np.pad(tables, pad, constant_values=sentinel), torch.int32))
+        replayed = device_loop.run_once(
+            entry, functools.partial(_paged_prefill_forwards, self.params_d, self.params_t,
+                                     self.state, buf_tables, zeros, buf_prompts,
+                                     bundle_d=self.bundle_d, bundle_t=self.bundle_t),
+            self.device, self._graph_prefill and k_pad * bucket <= self.prefill_token_budget,
+            self._prefill_pool)
+        self.state = _paged_finalize_body(self.state, self._dev(rows), buf_tables[:k],
+                                          buf_prompts[:k], self._dev(p_lens),
+                                          self._dev(max_news), keys)
+        return replayed
+
+    def _prefill_entry(self, k_pad: int, bucket: int):
+        """The static buffers (prompts [k_pad, bucket], tables [k_pad, P],
+        zero lengths [k_pad]) and the graph of one padded admission shape."""
+        entry = self._prefill_graphs.get((k_pad, bucket))
+        if entry is None:
+            if self._prefill_pool is None and self.device.type == "cuda":
+                self._prefill_pool = torch.cuda.graph_pool_handle()
+            dev, p = self.device, self.state.target_cache.block_tables.shape[1]
+            entry = self._prefill_graphs[(k_pad, bucket)] = device_loop._Entry((
+                torch.zeros((k_pad, bucket), dtype=torch.long, device=dev),
+                torch.zeros((k_pad, p), dtype=torch.int32, device=dev),
+                torch.zeros((k_pad,), dtype=torch.int32, device=dev)), [])
+        return entry
 
     def _extend_n_chunks(self, arrays) -> int:
         _, _, _, p_lens, _, cached = arrays

@@ -201,7 +201,9 @@ def test_run_until_idle_spans(pair, monkeypatch):
     assert {s.name for s in got} == {"paged.admit", "paged.prefill", "paged.harvest"}
     by_id = {s.id: s for s in got}
     for s in got:
-        assert before <= s.start_ns <= s.end_ns <= after and s.counts == {} and s.rid is None
+        assert before <= s.start_ns <= s.end_ns <= after and s.rid is None
+        # on the CPU every admission runs eagerly: no prefill replays a graph
+        assert s.counts == ({"graph": 0} if s.name == "paged.prefill" else {})
         if s.name == "paged.prefill":
             parent = by_id[s.parent]
             assert parent.name == "paged.admit"
