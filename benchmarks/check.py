@@ -1,5 +1,6 @@
 """Whether what the timed path served is right: a comparison with the plain
-reference (``benchmarks/reference/opt.py``).
+reference of the model's family (``benchmarks/families/<model_type>.py``
+names it, from ``benchmarks/reference/``).
 
 Once the window has closed and the program's state is freed, a sample of
 the requests the window finished, drawn from the seed and always holding
@@ -35,7 +36,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .reference import opt as reference
+from . import families
 
 GREEDY = {"temperature": 1.0, "top_k": 1, "top_p": 0.0}
 
@@ -138,18 +139,20 @@ def gaps(pair: dict, chosen: list, device, control: bool = False, seed: int = 0)
     ``chosen`` (a gap is None where no answer of its kind was chosen) and,
     with ``control``, {"control_gap", "control_sample_gap"} over the same
     positions, the control's draws from a generator seeded with ``seed``."""
+    w = pair["widths"]["target"]
+    reference = families.of(w).reference
     reference.setup_precision()
     out = {"logit_gap": None, "served_checked": 0, "sample_gap": None, "sampled_checked": 0}
     if not chosen:
         return out
-    params, heads = pair["target"], pair["widths"]["target"]["heads"]
+    params = pair["target"]
     prepared = [_positions(a) for a in chosen]
     seqs = [torch.as_tensor(s, device=device) for s, _, _ in prepared]
     head = reference.head_weight(params)
     names = {True: ("logit_gap", "served_checked", "control_gap"),
              False: ("sample_gap", "sampled_checked", "control_sample_gap")}
     with torch.no_grad():
-        hidden = reference.final_hidden(params, heads, seqs)
+        hidden = reference.final_hidden(params, w, seqs)
         ref_logits = []
         for h, a, (_, served, first) in zip(hidden, chosen, prepared):
             lg = reference.logits(head, h[first:first + len(served)])
@@ -162,7 +165,7 @@ def gaps(pair: dict, chosen: list, device, control: bool = False, seed: int = 0)
         del hidden
         if control:
             gen = torch.Generator(device=device).manual_seed(int(seed))
-            hidden = reference.final_hidden(params, heads, seqs, act_quant="fp8")
+            hidden = reference.final_hidden(params, w, seqs, act_quant="fp8")
             for h, lg, a, (_, served, first) in zip(hidden, ref_logits, chosen, prepared):
                 low = reference.logits(head, h[first:first + len(served)], act_quant="fp8")
                 pick = low.argmax(dim=-1) if a.sampling is None else draw(low, a.sampling, gen)

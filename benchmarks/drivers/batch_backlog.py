@@ -41,13 +41,12 @@ import torch
 from llmspeculativesampling_tpu_torch.engine import device_loop
 from llmspeculativesampling_tpu_torch.serve.paged import PagedEngine
 
-from .. import traffic, weights
+from .. import families, traffic
 from .common import (
     ROLES,
     Answer,
     AttentionTally,
     Outcome,
-    bundles,
     log,
     memory_peak,
     step_starts,
@@ -197,8 +196,9 @@ def _warm_up(engine: PagedEngine, mix: dict, eng: dict, device) -> None:
 def run(cell, tracer, spans) -> Outcome:
     device, w, eng = cell.device, cell.workload, cell.workload["engine"]
     t = time.perf_counter()
-    pair = weights.build(cell.config, cell.seed, device)
-    b = bundles(pair, kv_quant=eng["kv_quant"])
+    fam = families.family(cell.config, cell.base)
+    pair = fam.build(cell.config, cell.seed, device)
+    b = fam.bundles(pair, kv_quant=eng["kv_quant"])
     engine = PagedEngine(b["draft"], pair["draft"], b["target"], pair["target"], seed=cell.seed,
                          device=device, **{k: eng[k] for k in ENGINE_KEYS})
     sync(device)

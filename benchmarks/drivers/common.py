@@ -1,8 +1,8 @@
-"""What both drivers share: the port's bundles over the benchmark's weights
-and the tallies the metric readers read.
+"""What both drivers share: the tallies the metric readers read, and what a
+driver hands back.
 
-This is the only place, with the drivers, that imports the program
-(``llmspeculativesampling_tpu_torch``).
+The drivers and a family's ``bundles`` (``benchmarks/families/``) are the
+only places that import the program (``llmspeculativesampling_tpu_torch``).
 """
 
 from __future__ import annotations
@@ -15,22 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from llmspeculativesampling_tpu_torch import ModelBundle, OPTConfig
-from llmspeculativesampling_tpu_torch.models import opt
-
 ROLES = ("draft", "target")
-
-
-def bundles(pair: dict, kv_quant: bool) -> dict:
-    """{role: ModelBundle} of the port for the benchmark's pair."""
-    out = {}
-    for role in ROLES:
-        w = pair["widths"][role]
-        cfg = OPTConfig(vocab_size=w["vocab"], hidden_size=w["hidden"], ffn_dim=w["ffn"],
-                        num_layers=w["layers"], num_heads=w["heads"],
-                        max_position=w["positions"], dtype="bfloat16")
-        out[role] = ModelBundle("opt", cfg, opt.forward, kv_quant=kv_quant)
-    return out
 
 
 def log(*parts) -> None:
@@ -52,15 +37,19 @@ class AttentionTally:
     """Sums over short-block attention rows of one model (one row of one
     forward: ``prefix`` cached positions, ``s_new`` new tokens), linear in
     what the roofline's bytes and FLOPs need: rows, sum of prefixes, of new
-    tokens, of new tokens times prefix, and of s(s+1)/2."""
+    tokens, of new tokens times prefix, and of s(s+1)/2; and the rows
+    themselves, ``shapes[(prefix, s_new)]`` of each, for a count that is not
+    linear in the prefix (a window's ``min(prefix, window)``)."""
 
     rows: int = 0
     prefix: int = 0
     new: int = 0
     new_x_prefix: int = 0
     causal: int = 0
+    shapes: Counter = dataclasses.field(default_factory=Counter)
 
     def add(self, prefix: int, s_new: int) -> None:
+        self.shapes[(prefix, s_new)] += 1
         self.rows += 1
         self.prefix += prefix
         self.new += s_new

@@ -23,13 +23,12 @@ import torch
 from llmspeculativesampling_tpu_torch import speculative_generate
 from llmspeculativesampling_tpu_torch.engine import device_loop
 
-from .. import traffic, weights
+from .. import families, traffic
 from .common import (
     ROLES,
     Answer,
     AttentionTally,
     Outcome,
-    bundles,
     log,
     memory_peak,
     step_starts,
@@ -93,11 +92,12 @@ def run(cell, tracer, spans) -> Outcome:
     device, w, eng = cell.device, cell.workload, cell.workload["engine"]
     mix = w["traffic"]
     t = time.perf_counter()
-    pair = weights.build(cell.config, cell.seed, device)
+    fam = families.family(cell.config, cell.base)
+    pair = fam.build(cell.config, cell.seed, device)
     sync(device)
     log(f"weights {time.perf_counter() - t:.3f} s")
     t = time.perf_counter()
-    b = bundles(pair, kv_quant=False)
+    b = fam.bundles(pair, kv_quant=False)
     _warm_up(b, pair, eng, mix, device)
     tracer.warm()
     log(f"warm-up {time.perf_counter() - t:.3f} s")

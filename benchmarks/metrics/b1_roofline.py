@@ -1,9 +1,9 @@
 """``b1_roofline``: the W8A16 matmul's (B1) share of its roofline, in percent:
 the least time of the W8A16 products the traced window's work needs (each
-forward's six projections a layer of the model's widths: prompts at their
-own length, gamma+1 tokens a live row-step; forwards whose split of rows is
-not known are bounded from below) over the time in which a B1 kernel ran on
-the device."""
+forward's int8 products a layer, as the model's family counts them: prompts
+at their own length, gamma+1 tokens a live row-step; forwards whose split of
+rows is not known are bounded from below) over the time in which a B1 kernel
+ran on the device."""
 
 from benchmarks import roofline
 

@@ -10,6 +10,8 @@ widened to bf16 in registers), so its peak is the bf16 one.
 
 from __future__ import annotations
 
+from benchmarks import families
+
 BYTES_PER_S = 3.35e12
 FLOPS_PER_S = 989e12  # bf16 dense
 
@@ -31,17 +33,12 @@ def w8a16(m: float, k: int, n: int) -> tuple:
     return nbytes, 2.0 * m * k * n
 
 
-def projections(w: dict) -> list:
-    """(K, N) of the six int8 projections of one OPT layer of widths ``w``:
-    q, k, v, out, fc1, fc2."""
-    h, f = w["hidden"], w["ffn"]
-    return [(h, h)] * 4 + [(h, f), (f, h)]
-
-
 def w8a16_forward_time(w: dict, m: float) -> float:
-    """Least time of the W8A16 calls of one forward of ``m`` token rows (each
-    layer's six projections; the tied head is a bf16 product, not B1)."""
-    per_layer = sum(least_time(*w8a16(m, k, n)) for k, n in projections(w))
+    """Least time of the W8A16 calls of one forward of ``m`` token rows: each
+    layer's int8 products, as the model's family counts them
+    (``projections``); the head is a bf16 product, not B1."""
+    per_layer = sum(least_time(*w8a16(rows, k, n))
+                    for rows, k, n in families.of(w).projections(w, m))
     return w["layers"] * per_layer
 
 
@@ -57,18 +54,24 @@ def w8a16_forwards_time(w: dict, forwards: int, m_total: float) -> float:
 
 # --------------------------------------------------- B2 / B3: decode attention
 def kv_bytes_per_position(w: dict, kv_dtype: str) -> float:
-    """Bytes of one cached position of one layer, K and V over every kv head:
-    bf16, or int8 codes with one float32 scale a head and position."""
+    """Bytes of one cached position of one layer, K and V over every kv head
+    (``kv_heads``): bf16, or int8 codes with one float32 scale a head and
+    position."""
     per = w["head_dim"] * BF16 if kv_dtype == "bfloat16" else w["head_dim"] * INT8 + F32
-    return 2 * w["heads"] * per
+    return 2 * w["kv_heads"] * per
+
+
+def new_token_bytes(w: dict) -> int:
+    """Bytes of one new token of one layer's short-block attention, in bf16:
+    its q read and its output written over every query head, its k and v
+    read over every kv head."""
+    return (2 * w["heads"] + 2 * w["kv_heads"]) * w["head_dim"] * BF16
 
 
 def attention_call_bytes(w: dict, kv_dtype: str, prefix: float, s_new: int) -> float:
     """Bytes one layer's short-block attention needs for one row: the cached
-    prefix's K and V read once; the new block's q, k and v read and its
-    output written, in bf16."""
-    new = s_new * w["heads"] * w["head_dim"] * BF16 * 4
-    return prefix * kv_bytes_per_position(w, kv_dtype) + new
+    prefix's K and V read once, and the new block's tokens."""
+    return prefix * kv_bytes_per_position(w, kv_dtype) + s_new * new_token_bytes(w)
 
 
 def attention_call_flops(w: dict, prefix: float, s_new: int) -> float:
@@ -89,9 +92,9 @@ def attention_forward_time(w: dict, kv_dtype: str, rows) -> float:
 
 # ------------------------------------------------------------- the whole model
 def model_flops_per_token(w: dict) -> float:
-    """Matmul FLOPs one token needs through one model: the six projections
-    of every layer and the tied head. Attention's scores and weighted sums
-    are left out (under 2 % at these lengths), so a share of the peak built
-    on this count is never over-stated."""
-    per_layer = sum(2.0 * k * n for k, n in projections(w))
+    """Matmul FLOPs one token needs through one model: every layer's int8
+    products at one row (``projections``) and the head. Attention's scores
+    and weighted sums are left out (under 2 % at these lengths), so a share
+    of the peak built on this count is never over-stated."""
+    per_layer = sum(2.0 * rows * k * n for rows, k, n in families.of(w).projections(w, 1))
     return w["layers"] * per_layer + 2.0 * w["hidden"] * w["vocab"]

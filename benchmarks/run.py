@@ -3,16 +3,18 @@
     python3 benchmarks/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 A cell is ``benchmarks/workloads/<cell>.json``: its configuration
-(``benchmarks/configs/<config>.json``), its driver
+(``benchmarks/configs/<config>.json``, whose ``model_type`` names its model
+family, ``benchmarks/families/<model_type>.py``: weights, the program's
+model, the plain reference, the int8 products), its driver
 (``benchmarks/drivers/<driver>.py``), its traffic mix and engine settings,
 and the limits of its correctness check. Which metrics it reports comes
 from ``BENCHMARK.json`` at the root of the checkout: with ``--trace 0`` the
 end-to-end metrics that list the cell (or list no cells), with ``--trace
 1`` the per-layer ones that list it, each read by
 ``benchmarks/metrics/<name>.py`` (or the file of the name's part before its
-first dot) from the driver's counts and the device trace. Kernel families for the trace are
-``benchmarks/kernels/*.json``. A new cell, configuration, metric or kernel
-is a new file.
+first dot) from the driver's counts and the device trace. Kernel families
+for the trace are ``benchmarks/kernels/*.json``. A new cell,
+configuration, model family, metric or kernel is a new file.
 
 The run builds the cell's weights on the card from ``--seed``, warms up
 (``setup_s`` runs from the process's start to the window's), measures for
@@ -69,6 +71,7 @@ class Cell:
     seconds: float
     trace: bool
     device: object
+    base: Path = HERE
 
 
 def load_json(path: Path) -> dict:
@@ -79,7 +82,7 @@ def load_cell(name: str, seed: int, seconds: float, trace: bool, device,
               base: Path = HERE) -> Cell:
     workload = load_json(base / "workloads" / f"{name}.json")
     config = load_json(base / "configs" / f"{workload['config']}.json")
-    return Cell(name, workload, config, int(seed), float(seconds), bool(trace), device)
+    return Cell(name, workload, config, int(seed), float(seconds), bool(trace), device, base)
 
 
 def cell_metrics(spec: dict, cell: str, section: str) -> list:

@@ -9,8 +9,10 @@ import torch
 
 from benchmarks import roofline, run, trace
 
-W = {"target": dict(hidden=256, ffn=1024, layers=8, heads=2, head_dim=128, vocab=512),
-     "draft": dict(hidden=128, ffn=512, layers=2, heads=1, head_dim=128, vocab=512)}
+W = {"target": dict(hidden=256, ffn=1024, layers=8, heads=2, kv_heads=2, head_dim=128, vocab=512,
+                  family="opt"),
+     "draft": dict(hidden=128, ffn=512, layers=2, heads=1, kv_heads=1, head_dim=128, vocab=512,
+                   family="opt")}
 FAMS = {"b1": [([__import__("re").compile("w8a16")], [])]}
 
 
@@ -74,6 +76,14 @@ def test_cpu_run_counts(name):
     assert 1.0 <= run.reader("accept_len.decode").read(ctx) <= gamma + 1
     assert run.reader("step_mfu.batch").read(ctx) > 0
     assert c["attention"]["target"]["rows"] > 0
+    for t in c["attention"].values():
+        # the rows themselves agree with the linear sums
+        rows = t["shapes"].items()
+        assert sum(n for _, n in rows) == t["rows"]
+        assert sum(n * p for (p, _), n in rows) == t["prefix"]
+        assert sum(n * s for (_, s), n in rows) == t["new"]
+        assert sum(n * s * p for (p, s), n in rows) == t["new_x_prefix"]
+        assert sum(n * s * (s + 1) // 2 for (_, s), n in rows) == t["causal"]
     assert c["needed_tokens"]["target"] == c["needed_tokens"]["draft"]
     # the W8A16 work the window needed, whatever the program's calls: a B1
     # trace time at least the least time reads a share in (0, 100]

@@ -1,14 +1,15 @@
-"""The roofline arithmetic on hand-worked B1, B2 and B3 shapes, and the FLOP
-count behind ``step_mfu`` against PyTorch's own count on a tiny OPT."""
+"""The roofline arithmetic on hand-worked B1, B2 and B3 shapes, the KV bytes
+under grouped-query attention, and the FLOP count behind ``step_mfu``
+against PyTorch's own count on a tiny OPT."""
 
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmarks import roofline, weights
-from benchmarks.reference import opt as reference
+from benchmarks import families, roofline
 
-W13 = dict(hidden=5120, ffn=20480, layers=40, heads=40, head_dim=128, vocab=50272)
+W13 = dict(hidden=5120, ffn=20480, layers=40, heads=40, kv_heads=40, head_dim=128, vocab=50272,
+           family="opt")
 
 
 def test_b1_verify_shape():
@@ -52,16 +53,36 @@ def test_b2_bf16_and_b3_int8_bytes():
 
 
 def test_model_flops_match_pytorchs_count():
-    cfg = {"hidden_size": 256, "ffn_dim": 1024, "num_hidden_layers": 3, "num_attention_heads": 2,
+    cfg = {"model_type": "opt", "hidden_size": 256, "ffn_dim": 1024, "num_hidden_layers": 3, "num_attention_heads": 2,
            "vocab_size": 512, "max_position_embeddings": 64,
            "assumed": {"draft": {"hidden_size": 128, "ffn_dim": 512, "num_hidden_layers": 2,
                                  "num_attention_heads": 1}, "damp": 0.5, "embed_std": 0.5}}
-    pair = weights.build(cfg, 3, torch.device("cpu"))
+    fam = families.family(cfg)
+    pair = fam.build(cfg, 3, torch.device("cpu"))
     w = pair["widths"]["target"]
     s = 24
     seq = torch.arange(5, 5 + s)
     with FlopCounterMode(display=False) as fc:
-        h = reference.final_hidden(pair["target"], w["heads"], [seq])[0]
-        reference.logits(reference.head_weight(pair["target"]), h)
+        h = fam.reference.final_hidden(pair["target"], w, [seq])[0]
+        fam.reference.logits(fam.reference.head_weight(pair["target"]), h)
     attention = w["layers"] * 2 * (2 * s * s * w["hidden"])  # scores and weighted sum, unmasked
     assert fc.get_total_flops() - attention == s * roofline.model_flops_per_token(w)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_gqa_shrinks_only_the_kv_bytes(kv_dtype):
+    """Four kv heads under 32 query heads: K and V, cached and new, shrink by
+    exactly 4 / 32; q, the output and the FLOPs do not."""
+    full = dict(W13, heads=32, kv_heads=32)
+    gqa = dict(full, kv_heads=4)
+    assert roofline.kv_bytes_per_position(gqa, kv_dtype) * 32 == (
+        roofline.kv_bytes_per_position(full, kv_dtype) * 4)
+    q_out = 2 * 32 * 128 * 2
+    assert roofline.new_token_bytes(gqa) - q_out == (roofline.new_token_bytes(full) - q_out) // 8
+    prefix, s_new = 700, 9
+    kv = lambda w: (prefix * roofline.kv_bytes_per_position(w, kv_dtype)  # noqa: E731
+                    + s_new * 2 * w["kv_heads"] * 128 * 2)
+    assert roofline.attention_call_bytes(gqa, kv_dtype, prefix, s_new) == (
+        kv(full) // 8 + s_new * q_out)
+    assert roofline.attention_call_flops(gqa, prefix, s_new) == (
+        roofline.attention_call_flops(full, prefix, s_new))

@@ -75,9 +75,13 @@ print("ok")
 """
 
 _REFERENCE = r"""
-import sys
+import json, sys
+from pathlib import Path
 sys.path.insert(0, {root!r})
-import benchmarks.reference.opt, benchmarks.check, benchmarks.weights, benchmarks.roofline
+import benchmarks.check, benchmarks.weights, benchmarks.roofline
+from benchmarks import families
+for p in sorted(Path({root!r}, "benchmarks", "configs").glob("*.json")):
+    families.family(json.loads(p.read_text())).reference
 tops = {{m.split(".")[0] for m in sys.modules}}
 bad = tops & {{"jax", "jaxlib", "flax", "llmspeculativesampling_tpu", "llmspeculativesampling_tpu_torch"}}
 assert not bad, bad
