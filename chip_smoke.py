@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``llmspeculativesampling_tpu_torch``)
 on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --only mellum   # the build and phase 11 alone
 
 Phases, each printing lines before the last:
   1. device: the card's name and power limit (nvidia-smi), torch/CUDA
@@ -199,7 +200,17 @@ Phases, each printing lines before the last:
      score, get_score of spec minus AR over 16 prompts; one forward on the
      card against the CPU (fp32, 1e-4); B2 and B1 raise under grad. Phase 2
      holds B2 at both pairs' shapes and B1 at the int8 target's;
- 11. a ``{"kernels": [...]}`` line (each kernel also with its numbers at the
+ 11. Mellum 2 (JetBrains' Mellum2-12B-A2.5B, the benchmark's pair at its
+     published widths): B4 (the grouped W8A16 expert product and its
+     alignment) at the cell's verify (320 tokens x top-8 of 64 experts,
+     tile 64) and at a 2,048-token prefill (tile 128), and B3 with the
+     1,024-position window at the verify (64 rows x Hkv 4 x G 8 x 5, int8
+     pool, lengths 600-2,800), each against its plain version on the same
+     inputs; then the model through ``PagedEngine`` (8 requests of
+     576-2,000 tokens, 48 new, the cell's engine settings at 8 rows) with
+     the counters set to 0 before it: B1, B3 and B4 launch, B2 never, two
+     B4 products a launch of the alignment;
+ 12. a ``{"kernels": [...]}`` line (each kernel also with its numbers at the
      OPT path's shapes, under "opt", and B1 and B3 at the extend window's,
      under "extend", at the cold mix's 12 x 17 verify, under "sarathi",
      B1 and B2 at the slotted verify, under "slotted", B2 at the harness
@@ -207,7 +218,9 @@ Phases, each printing lines before the last:
      under "trained_pair", and all three at one tp=2 rank's shapes, under
      "tp", and at one dp=2 rank's, under "dp"; ``launches_by_path`` has the
      device loop's replayed runs under "device_loop", spec v2's under
-     "v2_loop" and the pipelined serving runs' under "serving_pipeline"),
+     "v2_loop" and the pipelined serving runs' under "serving_pipeline";
+     B3 at Mellum's window under "mellum"; B4 its own entry, its prefill
+     numbers under "prefill"),
      the card line again, and as the last
      line ``{"ok": true, "device": {...}}``. Each phase prints its seconds.
 Any failed check raises: the script exits non-zero and prints no result.
@@ -401,7 +414,7 @@ def phase_device(pkg_build):
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} gpu {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    pkg_build.build(["int8_matmul", "flash_decode"])
+    pkg_build.build(["int8_matmul", "flash_decode", "moe_matmul"])
     log(f"[device] kernels built in {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, in parallel)")
     for name, text in pkg_build.BUILD_LOGS.items():
         for line in text.splitlines():
@@ -2343,8 +2356,12 @@ def _counters():
     from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
         paged_flash_decode_attention)
 
+    from llmspeculativesampling_tpu_torch.kernels.moe_matmul import (
+        expert_align, grouped_int8_matmul)
+
     return {"int8_matmul": int8_matmul, "flash_decode": flash_decode_attention,
-            "paged_flash_decode": paged_flash_decode_attention}
+            "paged_flash_decode": paged_flash_decode_attention,
+            "moe_matmul": grouped_int8_matmul, "expert_align": expert_align}
 
 
 def release_graphs():
@@ -4828,7 +4845,220 @@ def phase_trained_pair(results):
     results["launches"]["trained_pair"] = launches
 
 
-def main() -> int:
+# ---------------------------------------------------------------- Mellum 2
+MELLUM_CONFIG = "benchmarks/configs/mellum2_12b_int8_pair.json"
+MELLUM_H, MELLUM_F, MELLUM_E, MELLUM_K = 2304, 896, 64, 8  # hidden, expert width, experts, top-k
+MELLUM_HKV, MELLUM_G, MELLUM_WINDOW, MELLUM_PAGES = 4, 8, 1024, 23
+MELLUM_TOKENS = (320, 2048)  # the cell's verify (64 rows x 5) and a 2,048-token prefill
+MELLUM_PROMPTS = (576, 1100, 1500, 2000, 640, 1216, 1792, 960)  # the main path's 8 requests
+MELLUM_NEW, MELLUM_GAMMA = 48, 4  # new tokens a request; the cell's gamma
+
+
+def _b4_case(tokens: int) -> dict:
+    """B4 at ``tokens`` x top-8 over Mellum's 64 experts: the alignment (its
+    live tiles, tile experts, totals and each pair's slot) and both products
+    (gate/up 2304 -> 1792 in bf16, down 896 -> 2304 in fp32) against the
+    plain versions on the same inputs; their times against the least time
+    of the touched experts' bytes, the rows in and out and the FLOPs."""
+    from llmspeculativesampling_tpu_torch.kernels import moe_matmul
+
+    h, f, e, k = MELLUM_H, MELLUM_F, MELLUM_E, MELLUM_K
+    gen = torch.Generator(device="cuda").manual_seed(tokens)
+    ids = torch.argsort(torch.rand((tokens, e), generator=gen, device="cuda"), dim=-1)[:, :k]
+    x = torch.randn((tokens, h), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def experts(kk, n):
+        q = torch.randint(-127, 128, (e, kk, n), generator=gen, dtype=torch.int8, device="cuda")
+        sc = (0.8 + 0.4 * torch.rand((e, n), generator=gen, device="cuda")) / (73 * math.sqrt(kk))
+        return q, sc
+
+    wgu, sgu = experts(h, 2 * f)
+    wdn, sdn = experts(f, h)
+    mt = moe_matmul.row_tile(tokens * k, e)
+    totals = torch.zeros(e, dtype=torch.int64, device="cuda")
+    r = moe_matmul.expert_align(ids, e, mt, totals)
+    r_ref = moe_matmul.expert_align_ref(ids.cpu(), e, mt)
+    slots = r.inv.long().cpu()
+    if (int(r.live) != int(r_ref.live) or not torch.equal(r.tile_expert.cpu(), r_ref.tile_expert)
+            or not torch.equal(totals.cpu(), torch.bincount(ids.reshape(-1).cpu(), minlength=e))
+            or not torch.equal(torch.sort(slots).values, torch.sort(r_ref.inv.long()).values)
+            or not torch.equal(r.rows.cpu()[slots], (torch.arange(tokens * k) // k).int())):
+        raise AssertionError(f"b4 tokens={tokens}: the alignment differs from the plain one")
+    cpu_r = r._replace(tile_expert=r.tile_expert.cpu(), live=r.live.cpu())
+    live = int(r.live) * mt
+    xs = x.index_select(0, r.rows)
+    gu = moe_matmul.grouped_int8_matmul(xs, wgu, sgu, r)
+    act = torch.nn.functional.silu(gu[:, :f].float()).to(torch.bfloat16) * gu[:, f:]
+    touched = int((torch.bincount(ids.reshape(-1), minlength=e) > 0).sum())
+    pairs = tokens * k
+    out = {"tokens": tokens, "mt": mt, "live_tiles": int(r.live), "touched": touched}
+    for name, xin, w, sc, kk, n, od in (("gate_up", xs, wgu, sgu, h, 2 * f, None),
+                                        ("down", act, wdn, sdn, f, h, torch.float32)):
+        got = moe_matmul.grouped_int8_matmul(xin, w, sc, r, out_dtype=od)
+        t0 = time.perf_counter()
+        ref = moe_matmul.grouped_int8_matmul_ref(xin.cpu(), w.cpu(), sc.cpu(), cpu_r, od)
+        plain = (time.perf_counter() - t0) * 1e3
+        peak = float(ref[:live].abs().max())
+        # the same fp32 sums of exact products in another order; bf16 output
+        # rounds once (1 ulp = 2**-8 relative), fp32 keeps the sums
+        rtol = 2.0 ** -7 if od is None else 1e-5
+        max_abs, _ = check_close(f"b4 {name} tokens={tokens}", got.cpu()[:live], ref[:live],
+                                 rtol, rtol * peak)
+        ms = time_ms(lambda i, xin=xin, w=w, sc=sc, od=od: moe_matmul.grouped_int8_matmul(
+            xin, w, sc, r, out_dtype=od), 10)
+        nbytes = touched * (kk * n + 4 * n) + pairs * kk * 2 + pairs * n * (4 if od else 2)
+        b_ms, by = bound(nbytes, 2.0 * pairs * kk * n)
+        out[name] = dict(ms=ms, bound_ms=b_ms, bound_by=by, plain_ms=plain, max_abs_err=max_abs)
+        log(f"[mellum] b4 {name} tokens={tokens} mt={mt}: {ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({by}), plain (CPU) {plain:.1f} ms, max abs err {max_abs:.3e} "
+            f"(tolerance {rtol:.1e} of |plain| + of its largest)")
+    out["align_ms"] = time_ms(lambda i: moe_matmul.expert_align(ids, e, mt), 10)
+    return out
+
+
+def _b3_window_case() -> dict:
+    """B3 at the cell's verify, window 1,024: 64 rows x Hkv 4 x G 8 x 5 new
+    over an int8 pool of 128-position pages (23 a row, shuffled), lengths
+    600-2,800 (most past the window), against the plain version on the
+    same inputs; then its time with and without the window against the
+    least time of the positions each reads."""
+    from llmspeculativesampling_tpu_torch.kernels.paged_flash_decode import (
+        paged_flash_decode_attention, paged_flash_decode_ref)
+    from llmspeculativesampling_tpu_torch.models.llama import block_bias
+
+    rows, s_new, hkv, d = 64, MELLUM_GAMMA + 1, MELLUM_HKV, 128
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    lens = torch.randint(600, 2800, (rows,), generator=torch.Generator().manual_seed(5)).tolist()
+    q, kn, vn, kq, vq, tables, lengths, _, ks, vs = _paged_inputs(
+        gen, lens, hkv * MELLUM_G, hkv, s_new, d, PAGE, MELLUM_PAGES, True)
+    out = {"rows": rows, "mean_len": sum(lens) / rows}
+    rtol = atol = 2.0 ** -7
+    for window in (MELLUM_WINDOW, 0):
+        bias = block_bias(s_new, None, rows, "cuda", window or None)
+        kw = dict(scale=1.0, k_scales=ks, v_scales=vs, window=window)
+        args = (q, kn, vn, kq, vq, tables, lengths, bias)
+        max_abs, _ = _check_case(f"paged_flash_decode window={window} B={rows} Hkv={hkv} "
+                                 f"G={MELLUM_G} S_new={s_new}", paged_flash_decode_attention,
+                                 paged_flash_decode_ref, args, kw, rtol, atol)
+        ms = time_ms(lambda i: paged_flash_decode_attention(*args, **kw), 20)
+        t0 = time.perf_counter()
+        paged_flash_decode_ref(*args, **kw)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        seen = sum(min(n, window - 1) if window else n for n in lens)
+        b_ms, by = _flash_bound(hkv, s_new, seen, True, rows=rows, extra_bytes=tables.nbytes)
+        out[window] = dict(ms=ms, bound_ms=b_ms, bound_by=by, plain_ms=plain, max_abs_err=max_abs)
+        log(f"[mellum] b3 window={window} {rows} x {hkv} x {MELLUM_G} x {s_new} int8, mean len "
+            f"{out['mean_len']:.0f}: {ms:.4f} ms, bound {b_ms:.4f} ms ({by}), plain {plain:.1f} ms, "
+            f"max abs err {max_abs:.3e}")
+    return out
+
+
+def _mellum_main_path() -> dict:
+    """Mellum2-12B-A2.5B at its published widths (the benchmark's pair,
+    ``benchmarks/families/mellum.py``) through ``PagedEngine`` with the
+    cell's engine settings at 8 rows: one request to warm the shapes, then
+    8 at once with the counters at 0. B1, B3 and B4 must launch, B2 never;
+    two B4 products a launch of the alignment (one a layer, no per-expert
+    loop); the routed totals grow by top-8 pairs a token; every request
+    makes its new tokens (48 to 48 + gamma, or fewer ending in EOS) in the
+    vocabulary."""
+    from benchmarks import families
+    from llmspeculativesampling_tpu_torch.serve.paged import PagedEngine
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), MELLUM_CONFIG)) as fh:
+        cfg = json.load(fh)
+    fam = families.family(cfg)
+    t0 = time.perf_counter()
+    pair = fam.build(cfg, 2**31 + 24, torch.device("cuda"))
+    b = fam.bundles(pair, kv_quant=True)
+    rows = len(MELLUM_PROMPTS)
+    engine = PagedEngine(b["draft"], pair["draft"], b["target"], pair["target"], seed=24,
+                         device="cuda", batch_rows=rows, num_blocks=rows * MELLUM_PAGES,
+                         page=PAGE, max_pages_per_req=MELLUM_PAGES, max_new_cap=MELLUM_NEW,
+                         gamma=MELLUM_GAMMA, eos_token_id=2, temperature=1.0, top_k=1, top_p=0.0,
+                         prompt_bucket=64, steps_per_sync=8, kv_quant=True,
+                         prefill_token_budget=512)
+    gen = np.random.default_rng(24)
+    prompts = [gen.integers(100, 98000, size=n).astype(np.int32) for n in MELLUM_PROMPTS]
+    engine.submit(prompts[0], 4)
+    engine.run_until_idle()
+    for rid in list(engine.completions):
+        engine.result(rid)
+    torch.cuda.synchronize()
+    log(f"[mellum] pair born and the engine warm in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    routed = pair["target"]["routed_rows"]
+    before = routed.clone()
+    reset_launches()
+    t0 = time.perf_counter()
+    rids = [engine.submit(p, MELLUM_NEW) for p in prompts]
+    engine.run_until_idle()
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    outs = [engine.result(rid).output_ids for rid in rids]
+    made = _check_outputs("mellum", [(len(p), MELLUM_NEW) for p in prompts], prompts, outs,
+                          pair["widths"]["target"]["vocab"], MELLUM_GAMMA)
+    grown = int((routed - before).sum())
+    if (launches["moe_matmul"] <= 0 or launches["moe_matmul"] != 2 * launches["expert_align"]
+            or launches["int8_matmul"] <= 0 or launches["paged_flash_decode"] <= 0
+            or launches["flash_decode"] != 0):
+        raise AssertionError(f"mellum main path: launches {launches}")
+    if grown <= 0 or grown % MELLUM_K:
+        raise AssertionError(f"mellum main path: the routed totals grew by {grown}")
+    log(f"[mellum] main path: {rows} requests, {made} new tokens in {wall:.2f} s; launches "
+        f"{launches}; routed pairs {grown}; prefills replayed / eager {engine.prefill_replays} / "
+        f"{engine.prefill_eager}")
+    del engine, pair, b
+    release_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mellum(results):
+    """Mellum 2's kernels at the benchmark cell's shapes (B4 at the verify
+    and at a 2,048-token prefill, B3 with the 1,024 window at the verify),
+    each against its plain version, then the model through its main path
+    for the launch counts."""
+    results["mellum"] = {"b4": [_b4_case(t) for t in MELLUM_TOKENS], "b3": _b3_window_case()}
+    results.setdefault("launches", {})["mellum"] = _mellum_main_path()
+
+
+def mellum_kernels(results) -> tuple:
+    """The ``kernels`` line's B4 entry, and B3's numbers at Mellum's window
+    (its entry's ``mellum``)."""
+    m = results["mellum"]
+    verify, prefill = m["b4"]
+    both = lambda c, key: c["gate_up"][key] + c["down"][key]  # noqa: E731
+    launches = {path: n.get("moe_matmul", 0) for path, n in results["launches"].items()}
+    b4 = {"name": "moe_matmul", "route": "cuda",
+          "source": "llmspeculativesampling_tpu_torch/csrc/moe_matmul.cu", "replaces": None,
+          "at": f"one expert layer of a Mellum verify: {verify['tokens']} tokens x top-8 over 64 "
+                f"experts, tile {verify['mt']}, gate/up and down",
+          "launches": sum(launches.values()), "launches_by_path": launches,
+          "max_abs_err": max(c[p]["max_abs_err"] for c in m["b4"] for p in ("gate_up", "down")),
+          "ms": both(verify, "ms"), "plain_ms": both(verify, "plain_ms"),
+          "bound_ms": both(verify, "bound_ms"), "bound_by": verify["down"]["bound_by"],
+          "library_ms": None,
+          "prefill": {"at": f"one expert layer of a {prefill['tokens']}-token prefill, tile "
+                            f"{prefill['mt']}", "ms": both(prefill, "ms"),
+                      "plain_ms": both(prefill, "plain_ms"), "bound_ms": both(prefill, "bound_ms"),
+                      "bound_by": prefill["gate_up"]["bound_by"]}}
+    w = m["b3"][MELLUM_WINDOW]
+    b3 = {"at": f"one window layer of a Mellum verify: B={m['b3']['rows']}, Hkv=4, G=8, S_new=5, "
+                f"window {MELLUM_WINDOW}, int8 pool, mean length {m['b3']['mean_len']:.0f}",
+          "launches": results["launches"]["mellum"]["paged_flash_decode"],
+          **{key: w[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+          "no_window_ms": m["b3"][0]["ms"]}
+    return b4, b3
+
+
+def main(argv=None) -> int:
+    only = list(sys.argv[1:] if argv is None else argv)
+    if only not in ([], ["--only", "mellum"]):
+        print("usage: chip_smoke.py [--only mellum]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -4847,6 +5077,13 @@ def main() -> int:
         return out
 
     timed(phase_device, _build)
+    if only:
+        timed(phase_mellum, results)
+        b4, b3 = mellum_kernels(results)
+        print(json.dumps({"kernels": [b4, {"name": "paged_flash_decode", "mellum": b3}]}))
+        print(card_line())
+        print(json.dumps({"ok": True}))
+        return 0
     for phase in (phase_int8_matmul, phase_flash_decode, phase_flash_tree, phase_flash_algorithms,
                   phase_flash_slotted, phase_paged_flash_decode, phase_paged_extend,
                   phase_paged_sarathi, phase_opt_int8_matmul, phase_opt_attention,
@@ -4872,7 +5109,7 @@ def main() -> int:
     timed(phase_tp, results)
     timed(phase_dp, results)
     timed(phase_opt_path, results, REPS)
-    for phase in (phase_harness, phase_trained_pair):
+    for phase in (phase_harness, phase_trained_pair, phase_mellum):
         timed(phase, results)
     by_path = results["launches"]
     kernels = [
@@ -5026,6 +5263,10 @@ def main() -> int:
                                launches=by_path[path][name],
                                **{key: calls * row[key] for key in ("ms", "plain_ms", "library_ms",
                                                                     "bound_ms")})
+    # Mellum 2's: B4, and B3 at the window (under "mellum")
+    b4, b3 = mellum_kernels(results)
+    next(k for k in kernels if k["name"] == "paged_flash_decode")["mellum"] = b3
+    kernels.append(b4)
     log(f"[smoke] all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

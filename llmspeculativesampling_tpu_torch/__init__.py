@@ -11,11 +11,13 @@ hand-written kernel (``csrc/``) or raises; the plain PyTorch version beside
 each kernel serves CPU tensors (the tests) only.
 
 Two model families run on every engine: Llama (with Qwen2 and Mistral) and
-OPT. Real checkpoints load from local directories (``load_pretrained``);
-the synthetic pairs are born on the card from a seed.
+OPT. A third, Mellum 2 (window and full attention layers, routed experts;
+``models/mellum.py``), runs on the single-request and paged engines
+unsharded. Real checkpoints load from local directories
+(``load_pretrained``); the synthetic pairs are born on the card from a seed.
 """
 
-from .core.config import LlamaConfig, OPTConfig
+from .core.config import LlamaConfig, MellumConfig, OPTConfig
 from .core.loader import load_pretrained, load_params, save_params
 from .core.synthetic import (
     synthetic_opt_pair_int8,
@@ -51,6 +53,7 @@ random_width_beam_sampling = random_width_beam_generate
 
 __all__ = [
     "LlamaConfig",
+    "MellumConfig",
     "OPTConfig",
     "load_pretrained",
     "load_params",

@@ -57,8 +57,8 @@ class LlamaConfig:
     # the einsum path)
     flash: str = "auto"
     qkv_bias: bool = False
-    # the decoder implements full attention only; ModelBundle.make_cache
-    # rejects caches larger than the window
+    # the decoder implements full attention only (it ignores the window);
+    # ModelBundle.make_cache rejects caches larger than the window
     sliding_window: Optional[int] = None
 
     @property
@@ -99,6 +99,59 @@ class OPTConfig:
     @property
     def embed_dim(self) -> int:
         return self.word_embed_proj_dim or self.hidden_size
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+
+MELLUM_LAYER_TYPES = (("sliding_attention",) * 3 + ("full_attention",)) * 7
+
+
+@dataclasses.dataclass(frozen=True)
+class MellumConfig:
+    """Mellum 2 decoder (JetBrains' ``model_type`` "mellum", e.g.
+    Mellum2-12B-A2.5B): RMSNorm, GQA with a ``head_dim`` of its own (the
+    query width ``num_heads * head_dim`` need not be the hidden size),
+    ``layer_types`` mixing window layers (the last ``sliding_window``
+    positions, plain RoPE) and full layers (YaRN RoPE, ``yarn``), and a
+    routed SiLU-gated expert MLP in every layer (``models/moe.py``). With
+    ``num_experts`` 0 every MLP is one dense SwiGLU of
+    ``intermediate_size`` (the benchmark's draft)."""
+
+    vocab_size: int = 98304
+    hidden_size: int = 2304
+    intermediate_size: int = 7168
+    moe_intermediate_size: int = 896
+    num_layers: int = 28
+    num_heads: int = 32
+    num_kv_heads: int = 4
+    head_dim: int = 128
+    num_experts: int = 64
+    num_experts_per_tok: int = 8
+    norm_topk_prob: bool = True
+    layer_types: tuple = MELLUM_LAYER_TYPES
+    sliding_window: int = 1024
+    rope_theta: float = 500000.0  # both kinds of layer
+    # the full layers' rope: ("yarn", factor, original_max_position_embeddings,
+    # beta_fast, beta_slow, attention_factor), or None for plain RoPE
+    full_rope: Optional[tuple] = ("yarn", 16.0, 8192, 32.0, 1.0, 1.2772588722239782)
+    rms_norm_eps: float = 1e-6
+    max_position: int = 131072
+    dtype: str = "bfloat16"
+    flash: str = "auto"  # see LlamaConfig.flash
+
+    def __post_init__(self):
+        if len(self.layer_types) != self.num_layers:
+            raise ValueError(f"{len(self.layer_types)} layer_types for {self.num_layers} layers")
+        unknown = set(self.layer_types) - {"sliding_attention", "full_attention"}
+        if unknown:
+            raise ValueError(f"unknown layer types {sorted(unknown)}")
+
+    def layer_window(self, li: int) -> Optional[int]:
+        """Positions layer ``li`` attends to (itself included), or None for
+        a full layer."""
+        return self.sliding_window if self.layer_types[li] == "sliding_attention" else None
 
     @property
     def torch_dtype(self) -> torch.dtype:

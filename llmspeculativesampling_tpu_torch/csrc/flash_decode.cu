@@ -56,6 +56,13 @@
 //     stream order.
 //   * q, k_new, v_new and out are read and written through their strides
 //     (the forward passes [B, S, H, D] projections as [B, H, S, D] views).
+//   * A window (window layers, e.g. Mellum 2's 1024 positions; window > 0,
+//     bf16 q): new row s of a row of length len sees prefix positions
+//     > len + s - window. A split that ends at or before len - window + 1
+//     is not read and not merged, like a split past the length; a split
+//     across that edge masks its early positions per row. The window is a
+//     template parameter, so a call without one (window = 0) runs the
+//     instructions it ran before windows existed.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -168,6 +175,7 @@ struct Args {
   long long st[12];  // element strides (b, h, s) of q, k_new, v_new, out
   int Hkv, G, S_new, R;
   int page, pages, ps, ppp, n_split;  // prefix splits: pages * ppp, each <= ps positions
+  int window;                         // > 0: a window layer's positions (the WIN kernels)
   float scale;
 };
 
@@ -212,11 +220,12 @@ __device__ __forceinline__ void stage(const Src<E>& src, int c0, int n, unsigned
 // acc[D] (unnormalised), the running max m and the sum l, D + 2 floats a row
 // at ws. A thread holds rows g and g + 8 of the warp (the mma fragment
 // layout). bias: the new block's [S_new, S_new] bias of batch row b, or null
-// for a prefix split.
-template <int D, int T, typename TQ, typename E, bool SCALED>
+// for a prefix split. WIN: a prefix split starting at position pos0 masks
+// the positions p <= lo + s of new row s (lo = len - window).
+template <int D, int T, typename TQ, typename E, bool SCALED, bool WIN = false>
 __device__ __forceinline__ void attend(const Args& a, const Src<E>& src, int n, const float* bias,
                                        int b, int h, int row0, float* ws, unsigned char* smem,
-                                       float* scl) {
+                                       float* scl, int pos0 = 0, int lo = 0) {
   constexpr bool TC = std::is_same<TQ, __nv_bfloat16>::value;  // the tensor-core path
   constexpr int NT = T / 8;                                     // 8-position column tiles
   constexpr int RBE = Row<D, E>::BYTES;
@@ -314,6 +323,8 @@ __device__ __forceinline__ void attend(const Args& a, const Src<E>& src, int n, 
             x = -INFINITY;
           else if (bias)
             x += bias[srow[e >> 1] * a.S_new + c0 + col];
+          else if (WIN && pos0 + c0 + col <= lo + srow[e >> 1])
+            x = -INFINITY;
           s[nt][e] = x;
         }
 #pragma unroll
@@ -392,11 +403,21 @@ __device__ __forceinline__ void attend(const Args& a, const Src<E>& src, int n, 
   }
 }
 
+// Whether prefix split j holds a position some row sees: it starts before
+// the length and, with a window, ends after lo + 1 (lo = len - window).
+template <bool WIN>
+__device__ __forceinline__ bool live_split(const Args& a, int j, int len, int lo) {
+  const int pg = j / a.ppp, start = pg * a.page + (j - pg * a.ppp) * a.ps;
+  if (!WIN) return start < len;
+  const int end = min(min(start + a.ps, (pg + 1) * a.page), len);
+  return start < end && end > lo + 1;
+}
+
 // The last split of a row tile to arrive merges every live split's
 // partials, in split order, and writes the output rows.
-template <int D, typename TQ>
+template <int D, typename TQ, bool WIN = false>
 __device__ __forceinline__ void combine(const Args& a, const float* ws_tile, int rt, int b, int h,
-                                        int row0, int len) {
+                                        int row0, int len, int lo) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3, warp = threadIdx.x >> 5;
   const int n_spl = a.n_split + 1;
   const size_t split_st = (size_t)rt * (D + 2);
@@ -410,8 +431,7 @@ __device__ __forceinline__ void combine(const Args& a, const float* ws_tile, int
     float M = -INFINITY;
 #pragma unroll 8
     for (int j = 0; j < n_spl; ++j) {
-      const int pg = j / a.ppp;
-      if (j == a.n_split || pg * a.page + (j - pg * a.ppp) * a.ps < len)
+      if (j == a.n_split || live_split<WIN>(a, j, len, lo))
         M = fmaxf(M, __ldcg(w0 + j * split_st + D));
     }
     float L = 0.f, acc[D / 8][2];
@@ -419,8 +439,7 @@ __device__ __forceinline__ void combine(const Args& a, const float* ws_tile, int
     for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = 0.f;
 #pragma unroll 4
     for (int j = 0; j < n_spl; ++j) {
-      const int pg = j / a.ppp;
-      if (j != a.n_split && pg * a.page + (j - pg * a.ppp) * a.ps >= len) continue;
+      if (j != a.n_split && !live_split<WIN>(a, j, len, lo)) continue;
       const float* w = w0 + j * split_st;
       const float f = expf(__ldcg(w + D) - M);
       L = fmaf(f, __ldcg(w + D + 1), L);
@@ -443,7 +462,7 @@ __device__ __forceinline__ void combine(const Args& a, const float* ws_tile, int
 }
 
 // grid (prefix splits + 1, row tiles, B * Hkv), 32 threads per 16-row warp
-template <int D, typename TQ, typename E, bool QUANT, typename L>
+template <int D, typename TQ, typename E, bool QUANT, typename L, bool WIN = false>
 __global__ void __launch_bounds__(MAX_WARPS * 32) flash_decode_kernel(const Args a, const L lay) {
   constexpr int T = chunk<TQ>();
   extern __shared__ __align__(16) unsigned char smem[];  // K and V chunks: smem_bytes()
@@ -455,6 +474,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) flash_decode_kernel(const Args
   const int rt = blockDim.x / 2;  // rows of a tile: 16 a warp
   const int row0 = blockIdx.y * rt + warp * 16;
   const int len = min(max(a.lengths[b], 0), a.page * a.pages);
+  const int lo = WIN ? len - a.window : 0;
   const int n_spl = a.n_split + 1;
   const size_t tile = (size_t)bh * gridDim.y + blockIdx.y;
   float* ws_tile = a.ws + tile * n_spl * rt * (D + 2);
@@ -462,12 +482,13 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) flash_decode_kernel(const Args
   if (j < a.n_split) {
     const int pg = j / a.ppp, start = pg * a.page + (j - pg * a.ppp) * a.ps;
     const int end = min(min(start + a.ps, (pg + 1) * a.page), len);
-    if (start < end) {  // else: past the live prefix, nothing to read
+    if (start < end && (!WIN || end > lo + 1)) {  // else: nothing any row sees
       const size_t base = lay.base(b, h, pg) + (start - pg * a.page);
       const Src<E> src{static_cast<const E*>(a.k_pre) + base * D,
                        static_cast<const E*>(a.v_pre) + base * D, D, D,
                        QUANT ? a.k_sc + base : nullptr, QUANT ? a.v_sc + base : nullptr};
-      attend<D, T, TQ, E, QUANT>(a, src, end - start, nullptr, b, h, row0, ws_warp, smem, scl);
+      attend<D, T, TQ, E, QUANT, WIN>(a, src, end - start, nullptr, b, h, row0, ws_warp, smem,
+                                      scl, start, lo);
     }
   } else {
     const Src<TQ> src{static_cast<const TQ*>(a.k_new) + b * a.st[3] + h * a.st[4],
@@ -482,7 +503,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) flash_decode_kernel(const Args
   __syncthreads();
   if (!last) return;
   __threadfence();
-  combine<D, TQ>(a, ws_tile, rt, b, h, row0, len);
+  combine<D, TQ, WIN>(a, ws_tile, rt, b, h, row0, len, lo);
   if (threadIdx.x == 0) a.counters[tile] = 0;
 }
 
@@ -499,6 +520,17 @@ int smem_bytes(int ps, int S_new) {
 
 template <int D, typename TQ, typename L>
 void launch_d(bool quant, const Args& a, const L& lay, dim3 grid, dim3 block, cudaStream_t st) {
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value) {
+    if (a.window > 0) {  // the window kernels (bf16 q only; launch refuses fp32)
+      if (quant)
+        flash_decode_kernel<D, TQ, int8_t, true, L, true>
+            <<<grid, block, smem_bytes<D, TQ, int8_t>(a.ps, a.S_new), st>>>(a, lay);
+      else
+        flash_decode_kernel<D, TQ, TQ, false, L, true>
+            <<<grid, block, smem_bytes<D, TQ, TQ>(a.ps, a.S_new), st>>>(a, lay);
+      return;
+    }
+  }
   if (quant)
     flash_decode_kernel<D, TQ, int8_t, true, L>
         <<<grid, block, smem_bytes<D, TQ, int8_t>(a.ps, a.S_new), st>>>(a, lay);
@@ -513,7 +545,7 @@ template <typename L>
 int launch(Args a, const L& lay, int B, int D, int q_f32, int quant, int warps,
            long long ws_floats, long long n_counters, void* stream) {
   if (warps < 1 || warps > MAX_WARPS || a.ps < 1 || a.page < 1 || a.pages < 1 || a.S_new < 1 ||
-      a.G < 1)
+      a.G < 1 || a.window < 0 || (a.window > 0 && q_f32))
     return (int)cudaErrorInvalidValue;
   a.ppp = (a.page + a.ps - 1) / a.ps;
   a.n_split = a.pages * a.ppp;
@@ -545,7 +577,7 @@ int launch(Args a, const L& lay, int B, int D, int q_f32, int quant, int warps,
 Args make_args(const void* q, const void* k_new, const void* v_new, const void* k_pre,
                const void* v_pre, const void* k_scales, const void* v_scales, const void* lengths,
                const void* bias, void* out, void* ws, void* counters, const long long* strides,
-               int Hkv, int G, int S_new, int page, int pages, int ps, float scale) {
+               int Hkv, int G, int S_new, int page, int pages, int ps, int window, float scale) {
   Args a{};
   a.q = q;
   a.k_new = k_new;
@@ -566,6 +598,7 @@ Args make_args(const void* q, const void* k_new, const void* v_new, const void* 
   a.page = page;
   a.pages = pages;
   a.ps = ps;
+  a.window = window;
   a.scale = scale;
   return a;
 }
@@ -578,7 +611,8 @@ Args make_args(const void* q, const void* k_new, const void* v_new, const void* 
 // [B,Hkv,S_max,D] in q's dtype, or int8 with scales [B,Hkv,S_max] f32 when
 // quant != 0; lengths [B] i32; bias [B,S_new,S_new] f32. ws: f32 workspace;
 // counters: i32, zero on entry and on exit. ps: prefix positions a split;
-// warps: 16-row warps a row tile. D is 32, 64, 96 or 128. Returns
+// warps: 16-row warps a row tile; window: 0, or a window layer's positions
+// (bf16 q only). D is 32, 64, 96 or 128. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a geometry, workspace or
 // counter buffer the call cannot take.
 extern "C" int flash_decode(const void* q, const void* k_new, const void* v_new,
@@ -587,9 +621,9 @@ extern "C" int flash_decode(const void* q, const void* k_new, const void* v_new,
                             void* ws, void* counters, const long long* strides,
                             long long ws_floats, long long n_counters, int B, int Hkv, int G,
                             int S_new, int S_max, int D, int q_f32, int quant, int ps, int warps,
-                            float scale, void* stream) {
+                            int window, float scale, void* stream) {
   const Args a = make_args(q, k_new, v_new, k_cache, v_cache, k_scales, v_scales, lengths, bias,
-                           out, ws, counters, strides, Hkv, G, S_new, S_max, 1, ps, scale);
+                           out, ws, counters, strides, Hkv, G, S_new, S_max, 1, ps, window, scale);
   return launch(a, Contig{Hkv, S_max}, B, D, q_f32, quant, warps, ws_floats, n_counters, stream);
 }
 
@@ -602,9 +636,9 @@ extern "C" int paged_flash_decode(const void* q, const void* k_new, const void* 
                                   const long long* strides, long long ws_floats,
                                   long long n_counters, int B, int Hkv, int G, int S_new, int P,
                                   int page, int N, int D, int q_f32, int quant, int ps, int warps,
-                                  float scale, void* stream) {
+                                  int window, float scale, void* stream) {
   const Args a = make_args(q, k_new, v_new, k_pool, v_pool, k_scales, v_scales, lengths, bias,
-                           out, ws, counters, strides, Hkv, G, S_new, page, P, ps, scale);
+                           out, ws, counters, strides, Hkv, G, S_new, page, P, ps, window, scale);
   const Paged lay{static_cast<const int*>(tables), P, page, Hkv, N - 1};
   return launch(a, lay, B, D, q_f32, quant, warps, ws_floats, n_counters, stream);
 }

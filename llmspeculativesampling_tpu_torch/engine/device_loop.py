@@ -291,9 +291,11 @@ def scatter_where_(row: torch.Tensor, pos: torch.Tensor, values: torch.Tensor,
 def _counted():
     from ..kernels.flash_decode import flash_decode_attention
     from ..kernels.int8_matmul import int8_matmul
+    from ..kernels.moe_matmul import expert_align, grouped_int8_matmul
     from ..kernels.paged_flash_decode import paged_flash_decode_attention
 
-    return (int8_matmul, flash_decode_attention, paged_flash_decode_attention)
+    return (int8_matmul, flash_decode_attention, paged_flash_decode_attention,
+            grouped_int8_matmul, expert_align)
 
 
 def graph_launches() -> list:

@@ -37,7 +37,7 @@ class ModelBundle:
     def make_cache(self, batch: int, max_len: int, device=None):
         c = self.cfg
         window = getattr(c, "sliding_window", None)
-        if window is not None and max_len > window:
+        if window is not None and max_len > window and not hasattr(c, "layer_window"):
             raise ValueError(
                 f"cache max_len {max_len} exceeds the model's sliding "
                 f"window {window}: this decoder implements full attention "

@@ -5,7 +5,8 @@ with a plain C interface and loaded with ``ctypes``. Nothing is built at
 import: the first call that needs a kernel builds it, so CPU-only callers
 (the tests) never touch ``nvcc``. Libraries land in ``build/kernels/`` at
 the root of the checkout (git-ignored), named by a hash of the source and
-flags, so an edited source rebuilds and an unchanged one is reused.
+flags (the shared ``csrc/*.cuh`` headers included), so an edited source
+rebuilds and an unchanged one is reused.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a non-zero code. No kernel has a backward pass:
@@ -53,7 +54,8 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers count as part of every source (B1 and B4 share a body)
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 

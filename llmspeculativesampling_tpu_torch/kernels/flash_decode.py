@@ -144,10 +144,11 @@ def _lengths(length, bsz: int, device) -> torch.Tensor:
 
 def flash_decode_ref(
     q, k_new, v_new, k_cache, v_cache, length, block_bias, *,
-    scale: float, k_scales=None, v_scales=None,
+    scale: float, k_scales=None, v_scales=None, window: int = 0,
 ):
     """Plain version with the kernel's masking semantics, all in fp32:
-    prefix positions < length are visible, the new block under its bias."""
+    prefix positions < length are visible (with ``window`` > 0, to new row
+    s only those > length + s - window), the new block under its bias."""
     bsz, hq, s_new, d = q.shape
     hkv = k_cache.shape[1]
     g = hq // hkv
@@ -161,8 +162,11 @@ def flash_decode_ref(
     s_pre = torch.einsum("bhgsd,bhtd->bhgst", qg, kc)
     lens = _lengths(length, bsz, q.device)
     col = torch.arange(s_max, device=q.device)
-    live = col[None, :] < lens[:, None]  # [B, S_max]
-    s_pre = torch.where(live[:, None, None, None, :], s_pre, torch.full_like(s_pre, _MASK))
+    live = (col[None, :] < lens[:, None])[:, None, :]  # [B, 1 | S_new, S_max]
+    if window:
+        row = torch.arange(s_new, device=q.device)
+        live = live & (col[None, None, :] > lens[:, None, None] + row[None, :, None] - window)
+    s_pre = torch.where(live[:, None, None], s_pre, torch.full_like(s_pre, _MASK))
     s_blk = torch.einsum("bhgsd,bhtd->bhgst", qg, k_new.float())
     s_blk = s_blk + block_bias[:, None, None].float()
     p = torch.softmax(torch.cat([s_pre, s_blk], dim=-1), dim=-1)
@@ -178,8 +182,8 @@ def _lib():
     lib = _build.load("flash_decode")
     if not lib.flash_decode.argtypes:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.flash_decode.argtypes = [p] * 13 + [i64, i64] + [i] * 10 + [ctypes.c_float, p]
-        lib.paged_flash_decode.argtypes = [p] * 14 + [i64, i64] + [i] * 12 + [ctypes.c_float, p]
+        lib.flash_decode.argtypes = [p] * 13 + [i64, i64] + [i] * 11 + [ctypes.c_float, p]
+        lib.paged_flash_decode.argtypes = [p] * 14 + [i64, i64] + [i] * 13 + [ctypes.c_float, p]
         lib.flash_decode.restype = lib.paged_flash_decode.restype = ctypes.c_int
     return lib
 
@@ -208,11 +212,14 @@ def _rows(t: torch.Tensor, name: str):
 
 
 def launch_common(q, k_new, v_new, k_pre, v_pre, lengths, block_bias, scale, k_scales, v_scales,
-                  page: int, pages: int, tables=None, batch_invariant: bool = False) -> torch.Tensor:
+                  page: int, pages: int, tables=None, batch_invariant: bool = False,
+                  window: int = 0) -> torch.Tensor:
     """Checks shared by B2 and B3, then one launch. ``k_pre``/``v_pre``: the
     contiguous cache (``page`` = S_max, ``pages`` = 1, B2) or the pool
     (``tables`` [B, P], B3). ``batch_invariant`` plans the grid from the
-    shapes without the batch (:func:`plan`). Returns ctx [B, Hq, S_new, D]
+    shapes without the batch (:func:`plan`). ``window`` > 0 (bf16 q only):
+    new row s sees prefix positions > length + s - window, and splits wholly
+    before length - window + 1 are not read. Returns ctx [B, Hq, S_new, D]
     as a view of [B, S_new, Hq, D] memory, the layout the forward
     consumes."""
     bsz, hq, s_new, d = q.shape
@@ -226,6 +233,8 @@ def launch_common(q, k_new, v_new, k_pre, v_pre, lengths, block_bias, scale, k_s
         raise ValueError(f"new block of {s_new} rows; the kernel takes 1..{MAX_S_NEW}")
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
+    if window < 0 or (window and q.dtype != torch.bfloat16):
+        raise ValueError(f"window {window}: the kernel takes a window >= 0, and > 0 for bf16 q only")
     want = torch.int8 if quant else q.dtype
     if k_pre.dtype != want or v_pre.dtype != want:
         raise TypeError(f"cache must be {want}, got {k_pre.dtype}")
@@ -258,15 +267,16 @@ def launch_common(q, k_new, v_new, k_pre, v_pre, lengths, block_bias, scale, k_s
     err = getattr(_lib(), name)(
         *head, bias.data_ptr(), out.data_ptr(), ws.data_ptr(), counters.data_ptr(), strides,
         ws.numel(), counters.numel(), *geometry, d, int(q.dtype == torch.float32), int(quant),
-        pl.ps, pl.warps, float(scale), torch.cuda.current_stream(dev).cuda_stream,
+        pl.ps, pl.warps, int(window), float(scale), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, name)
     return out
 
 
-def _launch(q, k_new, v_new, k_cache, v_cache, lengths, block_bias, scale, k_scales, v_scales):
+def _launch(q, k_new, v_new, k_cache, v_cache, lengths, block_bias, scale, k_scales, v_scales,
+            window=0):
     out = launch_common(q, k_new, v_new, k_cache, v_cache, lengths, block_bias,
-                        scale, k_scales, v_scales, page=k_cache.shape[2], pages=1)
+                        scale, k_scales, v_scales, page=k_cache.shape[2], pages=1, window=window)
     flash_decode_attention.launches += 1
     return out
 
@@ -283,6 +293,7 @@ def flash_decode_attention(
     scale: float,
     k_scales: Optional[torch.Tensor] = None,  # [B, Hkv, S_max] f32 (int8 cache)
     v_scales: Optional[torch.Tensor] = None,
+    window: int = 0,  # > 0: new row s sees prefix positions > length + s - window
 ) -> torch.Tensor:
     """Context [B, Hq, S_new, D] in q's dtype. CPU tensors take the plain
     version; CUDA tensors the kernel, which raises under grad mode when an
@@ -290,13 +301,14 @@ def flash_decode_attention(
     if q.device.type == "cpu":
         return flash_decode_ref(
             q, k_new, v_new, k_cache, v_cache, length, block_bias,
-            scale=scale, k_scales=k_scales, v_scales=v_scales,
+            scale=scale, k_scales=k_scales, v_scales=v_scales, window=window,
         )
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _build.refuse_grad("flash_decode", q, k_new, v_new, k_cache, v_cache)
     lengths = _lengths(length, q.shape[0], q.device)
-    return _launch(q, k_new, v_new, k_cache, v_cache, lengths, block_bias, scale, k_scales, v_scales)
+    return _launch(q, k_new, v_new, k_cache, v_cache, lengths, block_bias, scale, k_scales, v_scales,
+                   window)
 
 
 flash_decode_attention.launches = 0

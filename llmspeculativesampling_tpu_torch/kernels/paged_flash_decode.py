@@ -39,7 +39,7 @@ def gather_pages(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
 
 def paged_flash_decode_ref(
     q, k_new, v_new, k_pool, v_pool, block_tables, lengths, block_bias, *,
-    scale: float, k_scales=None, v_scales=None,
+    scale: float, k_scales=None, v_scales=None, window: int = 0,
 ):
     """Plain version: gather each row's pages into a contiguous view, then
     the contiguous plain version (fp32, scales applied per position)."""
@@ -48,12 +48,12 @@ def paged_flash_decode_ref(
         ks, vs = gather_pages(k_scales, block_tables), gather_pages(v_scales, block_tables)
     return flash_decode_ref(
         q, k_new, v_new, gather_pages(k_pool, block_tables), gather_pages(v_pool, block_tables),
-        lengths, block_bias, scale=scale, k_scales=ks, v_scales=vs,
+        lengths, block_bias, scale=scale, k_scales=ks, v_scales=vs, window=window,
     )
 
 
 def _launch(q, k_new, v_new, k_pool, v_pool, block_tables, lengths, block_bias, scale,
-            k_scales, v_scales, batch_invariant=False):
+            k_scales, v_scales, batch_invariant=False, window=0):
     bsz = q.shape[0]
     if block_tables.dim() != 2 or block_tables.shape[0] != bsz:
         raise ValueError(f"block tables must be [B={bsz}, P], got {tuple(block_tables.shape)}")
@@ -62,7 +62,7 @@ def _launch(q, k_new, v_new, k_pool, v_pool, block_tables, lengths, block_bias, 
     lens = lengths.to(device=dev, dtype=torch.int32).reshape(-1).expand(bsz).contiguous()
     out = launch_common(q, k_new, v_new, k_pool, v_pool, lens, block_bias, scale, k_scales,
                         v_scales, page=k_pool.shape[2], pages=tables.shape[1], tables=tables,
-                        batch_invariant=batch_invariant)
+                        batch_invariant=batch_invariant, window=window)
     paged_flash_decode_attention.launches += 1
     return out
 
@@ -81,6 +81,7 @@ def paged_flash_decode_attention(
     k_scales: Optional[torch.Tensor] = None,  # [N, Hkv, page] f32 (int8 pool)
     v_scales: Optional[torch.Tensor] = None,
     batch_invariant: bool = False,
+    window: int = 0,  # > 0: new row s sees prefix positions > length + s - window
 ) -> torch.Tensor:
     """Context [B, Hq, S_new, D] in q's dtype. Only positions < lengths[b]
     of row b are read; table ids are clamped into the pool. CPU tensors
@@ -91,13 +92,13 @@ def paged_flash_decode_attention(
     if q.device.type == "cpu":
         return paged_flash_decode_ref(
             q, k_new, v_new, k_pool, v_pool, block_tables, lengths, block_bias,
-            scale=scale, k_scales=k_scales, v_scales=v_scales,
+            scale=scale, k_scales=k_scales, v_scales=v_scales, window=window,
         )
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _build.refuse_grad("paged_flash_decode", q, k_new, v_new, k_pool, v_pool)
     return _launch(q, k_new, v_new, k_pool, v_pool, block_tables, lengths, block_bias, scale,
-                   k_scales, v_scales, batch_invariant)
+                   k_scales, v_scales, batch_invariant, window)
 
 
 paged_flash_decode_attention.launches = 0

@@ -50,19 +50,25 @@ from .linear import linear, lm_head_logits
 _MASK_VALUE = -1e30
 
 
-def block_bias(s_new: int, tree_mask: Optional[torch.Tensor], batch: int, device) -> torch.Tensor:
+def block_bias(s_new: int, tree_mask: Optional[torch.Tensor], batch: int, device,
+               window: Optional[int] = None) -> torch.Tensor:
     """Additive [B, S_new, S_new] bias over the new block: causal, or the
-    tree mask."""
+    tree mask; a ``window`` also hides tokens ``window`` or more before the
+    query."""
     if tree_mask is None:
         vis = torch.ones((s_new, s_new), dtype=torch.bool, device=device).tril()
         vis = vis[None].expand(batch, s_new, s_new)
     else:
         vis = tree_mask.to(device=device, dtype=torch.bool)
+    if window is not None:
+        idx = torch.arange(s_new, device=device)
+        vis = vis & ((idx[:, None] - idx[None, :]) < window)
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return torch.where(vis, zero, torch.full_like(zero, _MASK_VALUE)).contiguous()
 
 
-def flash_layer_attention(q, k, v, cache_slices, length, lengths, bias_blk, scale):
+def flash_layer_attention(q, k, v, cache_slices, length, lengths, bias_blk, scale,
+                          window: int = 0):
     """One layer's attention through the flash-decode kernel. ``q``/``k``/``v``:
     [B, S, H, D] fresh projections, passed to the kernel as [B, H, S, D]
     views (no copy). Writes the new block into the layer's cache buffers at
@@ -70,32 +76,34 @@ def flash_layer_attention(q, k, v, cache_slices, length, lengths, bias_blk, scal
     then attends over the live prefix
     (``lengths``, int32 [B] on the device) plus the new block, read from
     ``k``/``v`` and not back from the cache. Returns ctx [B, S, hidden]: on
-    the card the kernel writes [B, S, H, D] memory, so this is a view. The
-    kernel has no backward pass: under grad only CPU tensors (the plain
-    version) get through."""
+    the card the kernel writes [B, S, H, D] memory, so this is a view.
+    ``window`` > 0 lets a query at position t see cached positions > t -
+    window only. The kernel has no backward pass: under grad only CPU
+    tensors (the plain version) get through."""
     b, s = q.shape[0], q.shape[1]
     kn, vn, qh = k.transpose(1, 2), v.transpose(1, 2), q.transpose(1, 2)
     if len(cache_slices) == 4:
         k_q_l, k_s_l, v_q_l, v_s_l = write_layer_quant(*cache_slices, length, kn, vn)
         ctx = flash_decode.flash_decode_attention(
             qh, kn, vn, k_q_l, v_q_l, lengths, bias_blk, scale=scale, k_scales=k_s_l,
-            v_scales=v_s_l)
+            v_scales=v_s_l, window=window)
     else:
         k_l, v_l = write_layer(cache_slices[0], cache_slices[1], length, kn, vn)
         ctx = flash_decode.flash_decode_attention(qh, kn, vn, grad_safe(k_l), grad_safe(v_l),
-                                                  lengths, bias_blk, scale=scale)
+                                                  lengths, bias_blk, scale=scale, window=window)
     return ctx.transpose(1, 2).reshape(b, s, -1)
 
 
 def paged_flash_layer_attention(q, k, v, slices, block_tables, lengths, bias_blk, scale,
-                                batch_invariant: bool):
+                                batch_invariant: bool, window: int = 0):
     """One layer's attention through the paged flash-decode kernel.
     ``q``/``k``/``v``: [B, S, H, D] fresh projections, passed as [B, H, S, D]
     views. Writes the new block into the layer's pools at each row's
     ``lengths`` (in place), then attends over the live prefix, read page by
     page through ``block_tables``, plus the new block read from ``k``/``v``.
-    ``batch_invariant`` plans the kernel's grid without the batch. Returns
-    ctx [B, S, hidden] (a view on the card, as above)."""
+    ``batch_invariant`` plans the kernel's grid without the batch;
+    ``window`` as in :func:`flash_layer_attention`. Returns ctx [B, S,
+    hidden] (a view on the card, as above)."""
     b, s = q.shape[0], q.shape[1]
     kn, vn, qh = k.transpose(1, 2), v.transpose(1, 2), q.transpose(1, 2)
     paged_cache.paged_write_layer(slices, block_tables, lengths, kn, vn)
@@ -103,11 +111,12 @@ def paged_flash_layer_attention(q, k, v, slices, block_tables, lengths, bias_blk
         k_q, k_s, v_q, v_s = slices
         ctx = paged_flash_decode_attention(
             qh, kn, vn, k_q, v_q, block_tables, lengths, bias_blk,
-            scale=scale, k_scales=k_s, v_scales=v_s, batch_invariant=batch_invariant)
+            scale=scale, k_scales=k_s, v_scales=v_s, batch_invariant=batch_invariant,
+            window=window)
     else:
         ctx = paged_flash_decode_attention(
             qh, kn, vn, slices[0], slices[1], block_tables, lengths, bias_blk, scale=scale,
-            batch_invariant=batch_invariant)
+            batch_invariant=batch_invariant, window=window)
     return ctx.transpose(1, 2).reshape(b, s, -1)
 
 
@@ -118,11 +127,43 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (out * weight.float()).to(x.dtype)
 
 
+def yarn_inv_freq(head_dim: int, theta: float, factor: float, original_max: int,
+                  beta_fast: float, beta_slow: float, device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies [D/2] (Peng et al. 2023, arXiv:2309.00071;
+    transformers' ``_compute_yarn_parameters``, truncated correction range):
+    each frequency's blend of extrapolation (``1 / theta**(2i/D)``) and
+    interpolation (that over ``factor``), a linear ramp over the dimensions
+    between the correction dims of ``beta_fast`` and ``beta_slow`` rotations
+    within ``original_max`` positions. Built on ``device`` (no host copy)."""
+    def corr(rot):
+        return head_dim * math.log(original_max / (rot * 2 * math.pi)) / (2 * math.log(theta))
+
+    low, high = max(math.floor(corr(beta_fast)), 0), min(math.ceil(corr(beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    pos_freqs = theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                          / head_dim)
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32, device=device) - low)
+                       / (high - low), 0, 1)
+    extrapolate = 1 - ramp
+    return (1.0 / (factor * pos_freqs)) * (1 - extrapolate) + (1.0 / pos_freqs) * extrapolate
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
                 scaling: Optional[tuple] = None, max_position: int = 0):
-    """cos/sin tables [B, S, D] for positions [B, S]; ``scaling`` is None or
-    ("linear"|"dynamic", factor), as in the JAX module."""
+    """cos/sin tables [B, S, D] for positions [B, S]; ``scaling`` is None,
+    ("linear"|"dynamic", factor), as in the JAX module, or ("yarn", factor,
+    original_max_position_embeddings, beta_fast, beta_slow,
+    attention_factor): :func:`yarn_inv_freq`, cos and sin times the
+    attention factor (so q and k each carry it)."""
     pos = positions.float()
+    if scaling is not None and scaling[0] == "yarn":
+        _, factor, original, beta_fast, beta_slow, attention_factor = scaling
+        inv_freq = yarn_inv_freq(head_dim, theta, factor, original, beta_fast, beta_slow,
+                                 positions.device)
+        angles = pos[..., None] * inv_freq
+        angles = torch.cat([angles, angles], dim=-1)
+        return torch.cos(angles) * attention_factor, torch.sin(angles) * attention_factor
     base = torch.full((), theta, dtype=torch.float32, device=positions.device)  # no host copy
     if scaling is not None:
         kind, factor = scaling
@@ -151,16 +192,22 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def attention_mask(length, s_new: int, s_max: int, tree_mask: Optional[torch.Tensor],
-                   batch: int, device) -> torch.Tensor:
+                   batch: int, device, window: Optional[int] = None) -> torch.Tensor:
     """Boolean visibility [B, S_new, S_max]: prefix < length fully visible,
-    the new block causal or per ``tree_mask``, later positions dead.
-    ``length`` is an int (every row) or a per-row [B] tensor."""
+    the new block causal or per ``tree_mask``, later positions dead; a
+    ``window`` hides positions ``window`` or more before the query's
+    (``length`` + its index). ``length`` is an int (every row) or a
+    per-row [B] tensor."""
     kv_pos = torch.arange(s_max, device=device)[None, None, :]
     q_idx = torch.arange(s_new, device=device)[None, :, None]
     if isinstance(length, torch.Tensor):  # a host int stays one: no copy to the card
         length = length.to(device).reshape(-1, 1, 1)
     prefix_vis = kv_pos < length
     in_block = (kv_pos >= length) & (kv_pos < length + s_new)
+    if window is not None:
+        recent = kv_pos > length + q_idx - window
+        prefix_vis = prefix_vis & recent
+        in_block = in_block & recent
     if tree_mask is None:
         vis = prefix_vis | (in_block & ((kv_pos - length) <= q_idx))
         return vis.expand(batch, s_new, s_max)
@@ -202,6 +249,10 @@ class AttentionPlan:
     offset: object
     bias_blk: Optional[torch.Tensor]  # [B, S, S], the flash and block-only paths
     bias: Optional[torch.Tensor]      # [B, 1, S, S_max], the einsum paths
+    # the window layers' (``attention_plan(window=)``): their window and biases
+    window: Optional[int] = None
+    bias_blk_win: Optional[torch.Tensor] = None
+    bias_win: Optional[torch.Tensor] = None
 
     @property
     def write_at(self):
@@ -212,9 +263,11 @@ class AttentionPlan:
 
 def attention_plan(cache, s: int, batch: int, device, flash: str,
                    tree_mask: Optional[torch.Tensor], paged_prefill: bool,
-                   batch_invariant: bool = False) -> AttentionPlan:
+                   batch_invariant: bool = False, window: Optional[int] = None) -> AttentionPlan:
     """The attention dispatch of a block of ``s`` tokens (see the module
-    docstring); ``paged_prefill`` implies ``batch_invariant``."""
+    docstring); ``paged_prefill`` implies ``batch_invariant``. ``window``
+    also builds the biases of layers that attend to their last ``window``
+    positions only (``layer_attention(window=)``)."""
     paged = paged_cache.is_paged(cache)
     if paged_prefill and not paged:
         raise ValueError("paged_prefill needs a paged cache")
@@ -233,49 +286,61 @@ def attention_plan(cache, s: int, batch: int, device, flash: str,
         s_max = cache.max_len
         offset = length
         use_flash = flash_decode.should_use(s, flash)
-    bias_blk = bias = None
+    bias_blk = bias = bias_blk_win = bias_win = None
     if use_flash or paged_prefill:
         bias_blk = block_bias(s, tree_mask, batch, device)
+        if window is not None:
+            bias_blk_win = block_bias(s, tree_mask, batch, device, window)
         if length is not None:
             lengths = torch.full((batch,), length, dtype=torch.int32, device=device)
     else:
-        mask = attention_mask(lengths if length is None else length, s, s_max, tree_mask, batch,
-                              device)
+        at = lengths if length is None else length
+        mask = attention_mask(at, s, s_max, tree_mask, batch, device)
         bias = torch.where(mask, 0.0, _MASK_VALUE).float()[:, None]  # [B,1,S,S_max]
+        if window is not None:
+            mask = attention_mask(at, s, s_max, tree_mask, batch, device, window)
+            bias_win = torch.where(mask, 0.0, _MASK_VALUE).float()[:, None]
     return AttentionPlan(paged, use_flash, paged_prefill, paged_prefill or batch_invariant, length,
-                         lengths, offset, bias_blk, bias)
+                         lengths, offset, bias_blk, bias, window, bias_blk_win, bias_win)
 
 
 def layer_attention(plan: AttentionPlan, cache, li: int, q, k, v, scale: float,
-                    dtype) -> torch.Tensor:
+                    dtype, window: Optional[int] = None) -> torch.Tensor:
     """Layer ``li``'s attention: ``q`` [B, S, H, D] and ``k``/``v`` [B, S,
     Hkv, D] fresh projections (positions applied) are written into the
     cache in place and attended to with the prefix, by the path ``plan``
-    chose. Returns ctx [B, S, H * D] in ``dtype``."""
+    chose. ``window`` (the plan's): the query at position t sees positions
+    > t - window only; None: every position before it. Returns ctx [B, S,
+    H * D] in ``dtype``."""
     b, s, n_heads, head_dim = q.shape
     n_kv = k.shape[2]
+    bias_blk, bias, w = plan.bias_blk, plan.bias, 0
+    if window is not None:
+        if window != plan.window:
+            raise ValueError(f"window {window}: the plan was built for {plan.window}")
+        bias_blk, bias, w = plan.bias_blk_win, plan.bias_win, window
     if plan.paged:
         slices = paged_cache.layer_slices(cache, li)
         if plan.use_flash:
             return paged_flash_layer_attention(q, k, v, slices, cache.block_tables, plan.lengths,
-                                               plan.bias_blk, scale, plan.batch_invariant)
+                                               bias_blk, scale, plan.batch_invariant, w)
     else:
         slices = layer_slices(cache, li)
         if plan.use_flash:
             return flash_layer_attention(q, k, v, slices, plan.write_at, plan.lengths,
-                                         plan.bias_blk, scale)
+                                         bias_blk, scale, w)
     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
     if plan.paged_prefill:
         # empty rows: the new block attends to itself only
         paged_cache.paged_write_layer(slices, cache.block_tables, plan.lengths, kh, vh)
-        k_all, v_all, att_bias = kh, vh, plan.bias_blk[:, None]
+        k_all, v_all, att_bias = kh, vh, bias_blk[:, None]
     elif plan.paged:
         k_all, v_all = paged_cache.paged_update_and_read_layer(
             slices, cache.block_tables, plan.lengths, kh, vh, dtype)
-        att_bias = plan.bias
+        att_bias = bias
     else:
         _, k_all, v_all = update_and_read_layer(slices, plan.write_at, kh, vh, dtype)
-        att_bias = plan.bias
+        att_bias = bias
     qh = q.transpose(1, 2).reshape(b, n_kv, n_heads // n_kv, s, head_dim)
     scores = torch.einsum("bhgsd,bhtd->bhgst", qh.float(), k_all.float())
     scores = scores * scale + att_bias[:, :, None]

@@ -160,7 +160,13 @@ def opt_param_specs(cfg) -> dict:
 
 
 def param_specs(family: str, cfg) -> dict:
-    return llama_param_specs(cfg) if family == "llama" else opt_param_specs(cfg)
+    """The partition specs of a ``"llama"`` or ``"opt"`` tree; another
+    family has none (a Mellum tree is not sharded) and raises."""
+    if family == "llama":
+        return llama_param_specs(cfg)
+    if family == "opt":
+        return opt_param_specs(cfg)
+    raise ValueError(f"no partition specs for the {family!r} family")
 
 
 def quant_leaf_spec(spec: Spec) -> dict:

@@ -21,6 +21,7 @@ FP8_E4M3_MAX = 448.0
 # the stacked matmul weights that quantize, per family
 LLAMA_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 OPT_QUANT_KEYS = ("wq", "wk", "wv", "wo", "fc1_w", "fc2_w")
+QUANT_KEYS = {"llama": LLAMA_QUANT_KEYS, "opt": OPT_QUANT_KEYS}
 
 
 def is_quantized_leaf(w) -> bool:
@@ -49,10 +50,12 @@ def dequantize_tensor(wq: dict, dtype=torch.bfloat16) -> torch.Tensor:
 def quantize_params(params: dict, family: str = "llama", quantize_lm_head: bool = False,
                     extra_keys: Iterable[str] = (), fmt: str = "int8") -> dict:
     """Quantize the matmul weights of a llama or opt param tree (the
-    family's keys plus ``extra_keys``). A quantized ``lm_head`` ``[V, H]``
-    is re-laid-out to ``{"q": [H, V], "s": [V]}``; a tied head (OPT) stays
-    the dense embedding."""
-    keys = set((LLAMA_QUANT_KEYS if family == "llama" else OPT_QUANT_KEYS) + tuple(extra_keys))
+    family's keys plus ``extra_keys``; another family raises). A quantized
+    ``lm_head`` ``[V, H]`` is re-laid-out to ``{"q": [H, V], "s": [V]}``; a
+    tied head (OPT) stays the dense embedding."""
+    if family not in QUANT_KEYS:
+        raise ValueError(f"no quantized keys for the {family!r} family")
+    keys = set(QUANT_KEYS[family] + tuple(extra_keys))
     out = dict(params)
     out["layers"] = {k: (quantize_tensor(v, fmt) if k in keys else v)
                      for k, v in params["layers"].items()}
